@@ -1,0 +1,64 @@
+"""Build the port's :class:`GraphArrays` from plain numpy arrays.
+
+A lowered graph is the state that crosses between the two packages: the same
+values, factor parameters, slots, weights and free masks, so that both
+solvers work on exactly the same arrays. The caller passes numpy views
+(``np.asarray`` of each array of the JAX package's ``GraphArrays``); nothing
+here imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rome_tpu_torch.factors.base import get_factor_type
+from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays
+from rome_tpu_torch.variables import get_variable_type
+
+
+def graph_arrays_from_numpy(
+    type_names,
+    counts,
+    values0,
+    free,
+    batches,
+    var_labels=None,
+    dtype=torch.float32,
+    device="cpu",
+) -> GraphArrays:
+    """Assemble a GraphArrays on ``device``.
+
+    ``values0``/``free``: type name -> (n, point_dim) / (n,) arrays.
+    ``batches``: list of dicts with keys ``ftype`` (factor type name),
+    ``vslots`` (n, arity), ``params`` (name -> (n, ...)), ``weight`` (n,).
+    ``var_labels``: type name -> labels by slot (defaults to ``t{slot}``).
+    """
+    fbs = []
+    for b in batches:
+        ftype = get_factor_type(b["ftype"])
+        vslots = np.asarray(b["vslots"])
+        fbs.append(
+            FactorBatch(
+                ftype=ftype,
+                n=int(vslots.shape[0]),
+                vtypes=tuple(vt.name for vt in ftype.variable_types),
+                vslots=vslots,
+                params={k: np.asarray(v) for k, v in b["params"].items()},
+                weight=np.asarray(b["weight"]),
+            )
+        )
+    if var_labels is None:
+        var_labels = {t: [f"{t}{i}" for i in range(counts[t])] for t in type_names}
+    ga = GraphArrays(
+        type_names=list(type_names),
+        manifolds={t: get_variable_type(t).manifold for t in type_names},
+        counts={t: int(counts[t]) for t in type_names},
+        values0={t: np.asarray(values0[t]) for t in type_names},
+        free={t: np.asarray(free[t]) for t in type_names},
+        batches=fbs,
+        var_labels={t: list(var_labels[t]) for t in type_names},
+        dtype=dtype,
+        device=torch.device(device),
+    )
+    return ga.to_device()

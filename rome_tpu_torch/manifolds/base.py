@@ -1,0 +1,146 @@
+"""Lie-group manifolds with flat-vector point storage, in PyTorch.
+
+Counterpart of ``rome_tpu/manifolds/base.py`` for the groups the batch SE(2)
+solve uses: T(n), SO(2) and SE(2). Every point is a flat fixed-width vector,
+so the variables of one type pack into one dense ``(n, point_dim)`` tensor;
+all ops act on the trailing dim and broadcast over leading dims, which keeps
+them usable batched and under ``torch.func.vmap``.
+
+Tangent convention ("hybrid", as in the JAX package):
+
+    boxplus(p, xi) = compose(p, exp(xi))      right/body perturbation
+    local(p, q)    = log(compose(inv(p), q))  body-frame difference
+    SE(2): exp(v, w) = ((vx, vy), R(w)),  log(t, R) = (t, theta(R))
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rome_tpu_torch.utils.math import matvec, rot2, sym_rem
+
+
+class Manifold:
+    """A Lie group with flat-vector point storage.
+
+    Subclasses define: name, point_dim, dof, coord_types, identity, compose,
+    inverse, exp, log (all batched over leading dims).
+    """
+
+    name: str = "abstract"
+    point_dim: int = 0
+    dof: int = 0
+    coord_types: tuple = ()
+
+    def identity(self, dtype=torch.float64, device="cpu"):
+        return torch.zeros(self.point_dim, dtype=dtype, device=device)
+
+    def compose(self, a, b):
+        raise NotImplementedError
+
+    def inverse(self, a):
+        raise NotImplementedError
+
+    def exp(self, xi):
+        """Tangent coords (…, dof) -> group element (…, point_dim)."""
+        raise NotImplementedError
+
+    def log(self, p):
+        """Group element (…, point_dim) -> tangent coords (…, dof)."""
+        raise NotImplementedError
+
+    def normalize(self, p):
+        """Re-project onto the manifold (wrap angles)."""
+        return p
+
+    def boxplus(self, p, xi):
+        """Right (body-frame) retraction: p ∘ exp(xi)."""
+        return self.compose(p, self.exp(xi))
+
+    def local(self, p, q):
+        """Coords of q relative to p: log(p⁻¹ ∘ q). boxplus(p, local(p,q)) == q."""
+        return self.log(self.compose(self.inverse(p), q))
+
+    def __repr__(self):
+        return f"<{self.name}>"
+
+
+class TranslationGroup(Manifold):
+    """T(n) — Euclidean vector addition group."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.name = f"TranslationGroup({n})"
+        self.point_dim = n
+        self.dof = n
+        self.coord_types = ("e",) * n
+
+    def compose(self, a, b):
+        return a + b
+
+    def inverse(self, a):
+        return -a
+
+    def exp(self, xi):
+        return xi
+
+    def log(self, p):
+        return p
+
+
+class SO2(Manifold):
+    """SO(2), point stored as wrapped angle (…, 1)."""
+
+    name = "SpecialOrthogonal(2)"
+    point_dim = 1
+    dof = 1
+    coord_types = ("c",)
+
+    def compose(self, a, b):
+        return sym_rem(a + b)
+
+    def inverse(self, a):
+        return -a
+
+    def exp(self, xi):
+        return sym_rem(xi)
+
+    def log(self, p):
+        return sym_rem(p)
+
+    def normalize(self, p):
+        return sym_rem(p)
+
+
+class SE2(Manifold):
+    """SE(2), point stored as (x, y, theta) (…, 3); hybrid tangent (vx, vy, w)."""
+
+    name = "SpecialEuclidean(2)"
+    point_dim = 3
+    dof = 3
+    coord_types = ("e", "e", "c")
+
+    def compose(self, a, b):
+        t = a[..., :2] + matvec(rot2(a[..., 2]), b[..., :2])
+        th = sym_rem(a[..., 2] + b[..., 2])
+        return torch.cat([t, th[..., None]], dim=-1)
+
+    def inverse(self, a):
+        th = -a[..., 2]
+        t = -matvec(rot2(th), a[..., :2])
+        return torch.cat([t, th[..., None]], dim=-1)
+
+    def exp(self, xi):
+        # hybrid: translation passes through linearly, angle wraps
+        return torch.cat([xi[..., :2], sym_rem(xi[..., 2:3])], dim=-1)
+
+    def log(self, p):
+        return torch.cat([p[..., :2], sym_rem(p[..., 2:3])], dim=-1)
+
+    def normalize(self, p):
+        return torch.cat([p[..., :2], sym_rem(p[..., 2:3])], dim=-1)
+
+
+T2 = TranslationGroup(2)
+SO2_ = SO2()
+SE2_ = SE2()

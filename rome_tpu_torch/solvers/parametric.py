@@ -1,0 +1,97 @@
+"""High-level parametric solve API (counterpart of
+``rome_tpu/solvers/parametric.py``)."""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Optional
+
+import torch
+
+from rome_tpu_torch.graph.graph import FactorGraph
+from rome_tpu_torch.graph.lower import lower, write_back
+from rome_tpu_torch.solvers.gauss_newton import GNOptions, ParametricSolver
+
+logger = logging.getLogger("rome_tpu_torch")
+
+
+def solve_graph_parametric(
+    fg: FactorGraph,
+    solve_key: str = "parametric",
+    init: bool = True,
+    options: Optional[GNOptions] = None,
+    compute_covariances: bool = False,
+    dtype=None,
+    chordal_init: bool = True,
+    pad: bool = False,
+    schedule: str = "fused",
+    device="cpu",
+):
+    """Batch nonlinear least-squares solve of the whole graph on ``device``.
+
+    Stacks every factor's (mean, sqrt-info) measurement, minimizes the
+    whitened residual sum over the product manifold, and writes the results
+    to ``solve_key``. A graph with no unary factor gets its first variable
+    frozen as the gauge anchor.
+
+    ``schedule`` ("fused" or "host") and ``GNOptions.fused_chordal`` are
+    accepted for API parity; both run the same eager loop, with the chordal
+    init as its own stage before LM (the JAX package's host schedule).
+
+    Returns a result dict with stats.
+    """
+    if compute_covariances:
+        raise NotImplementedError(
+            "marginal covariances are not ported yet (ROADMAP slice B1)"
+        )
+    if fg.params.multiproc:
+        raise NotImplementedError(
+            "the multi-device solve is not ported yet (ROADMAP slice D)"
+        )
+    if schedule not in ("fused", "host"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if dtype is None:
+        dtype = torch.float64 if fg.params.dtype == "float64" else torch.float32
+    if init:
+        fg.init_all(solve_key)
+
+    ga = lower(fg, solve_key, dtype=dtype, pad=pad, device=device)
+
+    # gauge: with no unary factor, freeze the first variable
+    has_unary = any(b.ftype.arity == 1 for b in ga.batches)
+    frozen_gauge = None
+    if not has_unary:
+        t0 = ga.type_names[0]
+        ga.free[t0] = ga.free[t0].clone()
+        ga.free[t0][0] = 0.0
+        frozen_gauge = ga.var_labels[t0][0]
+        logger.warning(
+            "graph has no prior factor; freezing %s as gauge anchor", frozen_gauge
+        )
+
+    opts = options or GNOptions(
+        max_iters=fg.params.max_iters,
+        lam0=fg.params.lm_lambda0,
+    )
+    t0 = time.time()
+    values0 = ga.values0
+    if chordal_init and "Pose2" in ga.counts and ga.counts["Pose2"] > 2:
+        from rome_tpu_torch.solvers.init2d import chordal_init_pose2
+
+        values0 = chordal_init_pose2(ga, values0)
+    solver = ParametricSolver(ga, opts)
+    values, stats = solver.solve(values0)
+    dt = time.time() - t0
+
+    write_back(fg, ga, values, solve_key)
+
+    return {
+        "stats": stats,
+        "solve_time_s": dt,
+        "num_variables": fg.num_variables,
+        "num_factors": fg.num_factors,
+        "linear_solver": solver.linear,
+        "gauge_frozen": frozen_gauge,
+    }
+
