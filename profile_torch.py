@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's citygrid_10k solve on one NVIDIA GPU.
+"""Profile the PyTorch port's solves on one NVIDIA GPU.
 
     python3 profile_torch.py [--solves 6] [--out chiprun_out]
+    python3 profile_torch.py --path beehive [--out chiprun_out]
+
+``--path citygrid`` (the default) profiles the parametric citygrid_10k
+solve; ``--path beehive`` the nonparametric beehive-100 solve (see the end
+of this note).
 
 Every solve goes through the same entry points and options as chip_smoke.py
 (g2o load, x0 prior, ``solve_graph_parametric(..., device="cuda")`` with the
@@ -27,9 +32,22 @@ benchmark's ``big`` options). The phases:
 4. K1 alone at n = 13,085 (float32): device time per launch from the
    profiler, against the plain PyTorch version's device time per call.
 
+``--path beehive``: the solve of chip_smoke.py's beehive path
+(``solve_graph_nonparametric(..., sweeps=3, N=100, engine="batched",
+init="points", device="cuda")`` of beehive-100, seed 0), once cold, then:
+
+1. Phase breakdown of three warm solves with CUDA events: the points init,
+   the belief gather/scatter, and per sweep the messages (inside them the
+   per-particle Gauss-Newton), the padding scatter and the Gibbs products
+   (inside them the K2/K3 launches and the categorical draws).
+2. torch.profiler over one more solve: kernel count, device time, busy
+   share; the op table goes to ``<out>/profile_beehive_ops.txt``.
+3. K2 and K3 alone at the beehive shapes: device time per launch against
+   the plain versions'.
+
 Prints one line per result, each tagged with the card's nvidia-smi name and
-power limit, and writes everything to ``<out>/profile_torch.json``. Exits
-non-zero without a CUDA device.
+power limit, and writes everything to ``<out>/profile_torch.json`` (or
+``<out>/profile_beehive.json``). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -162,11 +180,11 @@ def busy_share(events):
     return sum(e - s for s, e in spans), busy, spans[-1][1] - spans[0][0]
 
 
-def profiled(torch, gt, card, out_dir):
+def profiled(torch, card, out_path, solve):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        row = solve_once(torch, gt)
+        row = solve()
     ka = prof.key_averages()
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     total, busy, span = busy_share(kernels) if kernels else (0, 0, 0)
@@ -174,40 +192,119 @@ def profiled(torch, gt, card, out_dir):
                device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,
                busy_share=busy / span if span else None)
     print(f"[{card}] profiled solve: " + json.dumps(res))
-    with open(os.path.join(out_dir, "profile_ops.txt"), "w") as fh:
+    with open(out_path, "w") as fh:
         fh.write(ka.table(sort_by="self_cuda_time_total", row_limit=30))
         fh.write("\n\n" + ka.table(sort_by="cpu_time_total", row_limit=40))
     return res
 
 
-def k1_device_time(torch, card, reps=100):
+def device_time(torch, card, tag, fns, reps=100):
+    """Device time per call of each labelled function, from the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    from rome_tpu_torch.ops import linearize_cuda as K
-    from rome_tpu_torch.ops.fused_linearize import pose2pose2_linearize_plain
-
-    args = C.k1_inputs(C.K1_TIMED_N, torch.float32, "cuda", seed=1)
     res = {}
-    for label, fn in (("k1", K.pose2pose2_linearize), ("plain", pose2pose2_linearize_plain)):
+    for label, fn in fns:
         for _ in range(10):
-            fn(*args)
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                fn(*args)
+                fn()
             torch.cuda.synchronize()
         ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         res[label] = dict(
             device_us_per_call=sum(e.self_device_time_total for e in ka) / reps,
             kernels_per_call=sum(e.count for e in ka) / reps,
         )
-    print(f"[{card}] K1 float32 n={C.K1_TIMED_N} device time per call: " + json.dumps(res))
+    print(f"[{card}] {tag} device time per call: " + json.dumps(res))
     return res
+
+
+def k1_device_time(torch, card):
+    from rome_tpu_torch.ops import linearize_cuda as K
+    from rome_tpu_torch.ops.fused_linearize import pose2pose2_linearize_plain
+
+    args = C.k1_inputs(C.K1_TIMED_N, torch.float32, "cuda", seed=1)
+    return device_time(torch, card, f"K1 float32 n={C.K1_TIMED_N}", (
+        ("k1", lambda: K.pose2pose2_linearize(*args)),
+        ("plain", lambda: pose2pose2_linearize_plain(*args)),
+    ))
+
+
+def beehive_solve(torch, poses=C.BEEHIVE_POSES, N=C.BEEHIVE_N):
+    from rome_tpu_torch import solve_graph_nonparametric
+
+    fg = C.beehive_graph(poses)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    solve_graph_nonparametric(fg, sweeps=C.BEEHIVE_SWEEPS, N=N, engine="batched",
+                              init="points", device="cuda")
+    torch.cuda.synchronize()
+    return dict(solve_time_s=time.time() - t0)
+
+
+def beehive_phases(torch, card, n=3):
+    from rome_tpu_torch.ops import pairwise_cuda as P
+    from rome_tpu_torch.solvers.multimodal import batched as B
+
+    timer = PhaseTimer(torch)
+    timer.wrap(B.BatchedNonparametricSolver, "init_beliefs_from_points", "points_init")
+    timer.wrap(B.BatchedNonparametricSolver, "gather_beliefs", "gather_beliefs")
+    timer.wrap(B.BatchedNonparametricSolver, "scatter_beliefs", "scatter_beliefs")
+    timer.wrap(B, "_messages", "messages")
+    timer.wrap(B, "_gn_solve_target", "messages.gauss_newton")
+    timer.wrap(B, "_pad_messages", "pad_messages")
+    timer.wrap(B, "_products", "products")
+    timer.wrap(P, "se2_pairwise_logw", "products.k2")
+    timer.wrap(P, "euclid_pairwise_logw", "products.k3")
+    timer.wrap(B, "categorical", "products.categorical")
+    rows = []
+    try:
+        for _ in range(n):
+            row = beehive_solve(torch)
+            row["phases_s"], row["phase_calls"] = timer.take()
+            rows.append(row)
+            print(f"[{card}] beehive phases (CUDA events): " + json.dumps(row))
+    finally:
+        timer.unwrap()
+    return rows
+
+
+def k23_device_time(torch, card):
+    from rome_tpu_torch.ops import pairwise_cuda as P
+    from rome_tpu_torch.ops.pairwise import euclid_pairwise_logw_plain, se2_pairwise_logw_plain
+
+    a2, _ = C.pairwise_inputs(101, C.BEEHIVE_N, C.BEEHIVE_N, 3, "cuda", seed=5)
+    a3, circ = C.pairwise_inputs(74, C.BEEHIVE_N, C.BEEHIVE_N, 2, "cuda", seed=5)
+    return device_time(torch, card, "K2 (V=101) / K3 (V=74, dof 2) at N=Nj=100", (
+        ("k2", lambda: P.se2_pairwise_logw(*a2)),
+        ("k2_plain", lambda: se2_pairwise_logw_plain(*a2)),
+        ("k3", lambda: P.euclid_pairwise_logw(*a3, circ)),
+        ("k3_plain", lambda: euclid_pairwise_logw_plain(*a3, circ)),
+    ))
+
+
+def profile_beehive(torch, card, out_dir):
+    from rome_tpu_torch.ops import pairwise_cuda as P
+
+    t0 = time.time()
+    P.build()
+    print(f"[{card}] K2/K3 built in {time.time() - t0:.2f} s")
+    report = {"cold": beehive_solve(torch)}
+    print(f"[{card}] beehive cold solve: " + json.dumps(report["cold"]))
+    report["phases"] = beehive_phases(torch, card)
+    report["profile"] = profiled(
+        torch, card, os.path.join(out_dir, "profile_beehive_ops.txt"),
+        lambda: beehive_solve(torch),
+    )
+    report["k2_k3"] = k23_device_time(torch, card)
+    return report
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solves", type=int, default=6)
+    ap.add_argument("--path", choices=("citygrid", "beehive"), default="citygrid")
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"))
     args = ap.parse_args()
 
@@ -221,16 +318,24 @@ def main():
     card = C.card_line()
     print(card)
     os.makedirs(args.out, exist_ok=True)
+    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    if args.path == "beehive":
+        report.update(profile_beehive(torch, card, args.out))
+        with open(os.path.join(args.out, "profile_beehive.json"), "w") as fh:
+            json.dump(report, fh, indent=1)
+        print(card)
+        return 0
     from rome_tpu_torch.ops import linearize_cuda as K
 
     t0 = time.time()
     K.build()
     print(f"[{card}] K1 built in {time.time() - t0:.2f} s")
     gt = np.load(C.CITYGRID_GT)
-    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     report["repeatability"] = repeatability(torch, gt, card, args.solves)
     report["phases"] = phases(torch, gt, card)
-    report["profile"] = profiled(torch, gt, card, args.out)
+    report["profile"] = profiled(
+        torch, card, os.path.join(args.out, "profile_ops.txt"), lambda: solve_once(torch, gt)
+    )
     report["k1"] = k1_device_time(torch, card)
     with open(os.path.join(args.out, "profile_torch.json"), "w") as fh:
         json.dump(report, fh, indent=1)

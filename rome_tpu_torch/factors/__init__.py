@@ -9,6 +9,11 @@ from rome_tpu_torch.factors.base import (
     make_gaussian_factor,
     register_factor_type,
 )
+from rome_tpu_torch.factors.bearing_range import (
+    Pose2Point2Bearing,
+    Pose2Point2BearingRange,
+    Pose2Point2Range,
+)
 from rome_tpu_torch.factors.pose2 import (
     MutablePose2Pose2Gaussian,
     Pose2Pose2,
@@ -24,6 +29,9 @@ __all__ = [
     "make_gaussian_factor",
     "register_factor_type",
     "MutablePose2Pose2Gaussian",
+    "Pose2Point2Bearing",
+    "Pose2Point2BearingRange",
+    "Pose2Point2Range",
     "Pose2Pose2",
     "PriorPose2",
 ]

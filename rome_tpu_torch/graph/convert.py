@@ -2,7 +2,8 @@
 
 A lowered graph is the state that crosses between the two packages: the same
 values, factor parameters, slots, weights and free masks, so that both
-solvers work on exactly the same arrays. The caller passes numpy views
+solvers work on exactly the same arrays; so are the nonparametric engine's
+particle beliefs. The caller passes numpy views
 (``np.asarray`` of each array of the JAX package's ``GraphArrays``); nothing
 here imports the JAX package.
 """
@@ -26,12 +27,15 @@ def graph_arrays_from_numpy(
     var_labels=None,
     dtype=torch.float32,
     device="cpu",
+    excluded_factors=(),
 ) -> GraphArrays:
     """Assemble a GraphArrays on ``device``.
 
     ``values0``/``free``: type name -> (n, point_dim) / (n,) arrays.
     ``batches``: list of dicts with keys ``ftype`` (factor type name),
-    ``vslots`` (n, arity), ``params`` (name -> (n, ...)), ``weight`` (n,).
+    ``vslots`` (n, arity), ``params`` (name -> (n, ...)), ``weight`` (n,),
+    and optionally ``labels`` (factor labels by row), ``nullhypo`` and
+    ``inflation`` ((n,) each, the nonparametric engine's per-factor data).
     ``var_labels``: type name -> labels by slot (defaults to ``t{slot}``).
     """
     fbs = []
@@ -46,6 +50,9 @@ def graph_arrays_from_numpy(
                 vslots=vslots,
                 params={k: np.asarray(v) for k, v in b["params"].items()},
                 weight=np.asarray(b["weight"]),
+                labels=list(b.get("labels", [])),
+                nullhypo=None if b.get("nullhypo") is None else np.asarray(b["nullhypo"]),
+                inflation=None if b.get("inflation") is None else np.asarray(b["inflation"]),
             )
         )
     if var_labels is None:
@@ -60,5 +67,15 @@ def graph_arrays_from_numpy(
         var_labels={t: list(var_labels[t]) for t in type_names},
         dtype=dtype,
         device=torch.device(device),
+        excluded_factors=list(excluded_factors),
     )
     return ga.to_device()
+
+
+def beliefs_from_numpy(beliefs, device="cpu", dtype=torch.float32) -> dict:
+    """Particle beliefs ``{type: (V, N, point_dim)}`` as tensors on
+    ``device``: the same particles for both engines."""
+    return {
+        t: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+        for t, v in beliefs.items()
+    }

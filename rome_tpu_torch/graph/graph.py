@@ -23,11 +23,14 @@ from rome_tpu_torch.variables import VariableType, get_variable_type
 
 @dataclass
 class SolverParams:
-    """The solver settings the ported slice reads (the JAX package's
+    """The solver settings the ported slices read (the JAX package's
     SolverParams has more; they arrive with the paths that use them)."""
 
+    N: int = 100                      # particles per belief
     graphinit: bool = True            # init new variables by factor propagation
+    treeinit: bool = False            # Bayes-tree solve (not ported yet)
     multiproc: bool = False           # multi-device solve (not ported yet)
+    inflation: float = 5.0            # nonparametric init-noise scale
     max_iters: int = 100
     lm_lambda0: float = 1e-4
     dtype: str = "float32"
@@ -43,6 +46,9 @@ class VariableRecord:
     solvable: int = 1
     marginalized: bool = False
     points: dict = field(default_factory=dict)       # solvekey -> (point_dim,)
+    # solvekey -> (N, point_dim) numpy particles of the nonparametric engine
+    beliefs: dict = field(default_factory=dict)
+    ppes: dict = field(default_factory=dict)         # ppe key -> coords
     initialized: dict = field(default_factory=dict)  # solvekey -> bool
 
     @property
@@ -112,7 +118,8 @@ class FactorGraph:
                 raise KeyError(f"unknown variable {v!r}")
         if multihypo is not None:
             raise NotImplementedError(
-                "multihypo factors belong to the multimodal engine (ROADMAP slice C)"
+                "multihypo factors take the nonparametric engine's per-factor "
+                "fallback, which is not ported yet (ROADMAP slice C)"
             )
         expect = factor.ftype.variable_types
         if len(var_labels) != len(expect):
@@ -225,6 +232,13 @@ class FactorGraph:
 
     def is_initialized(self, label: str, solve_key: str = "parametric") -> bool:
         return bool(self.variables[str(label)].initialized.get(solve_key, False))
+
+    # PPE plumbing (simulated ground truth of the canonical generators)
+    def set_ppe(self, label: str, coords, ppe_key: str = "simulated"):
+        self.variables[str(label)].ppes[ppe_key] = np.asarray(coords, dtype=np.float64)
+
+    def get_ppe(self, label: str, ppe_key: str = "simulated") -> np.ndarray:
+        return self.variables[str(label)].ppes[ppe_key]
 
     def set_solvable(self, label: str, value: int):
         label = str(label)

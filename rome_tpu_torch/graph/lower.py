@@ -26,6 +26,9 @@ class FactorBatch:
     params: dict             # str -> (n, ...) arrays
     weight: object           # (n,) float — 0/1 solvable mask
     labels: list = field(default_factory=list)
+    # nonparametric-path metadata (add_factor kwargs)
+    nullhypo: object = None  # (n,) float eta per factor
+    inflation: object = None  # (n,) float init-noise scale per factor
 
 
 @dataclass
@@ -39,6 +42,9 @@ class GraphArrays:
     var_labels: dict                 # type name -> list of labels by slot
     dtype: torch.dtype = torch.float32
     device: torch.device = torch.device("cpu")
+    # factor labels NOT lowered into batches (multihypo-extended factors),
+    # for the nonparametric engine's per-factor fallback
+    excluded_factors: list = field(default_factory=list)
 
     @property
     def total_dof(self):
@@ -54,8 +60,8 @@ class GraphArrays:
         }
 
     def to_device(self):
-        """Move every host array onto ``self.device`` (values, params, free and
-        weight in ``self.dtype``; slots as int64)."""
+        """Move every host array onto ``self.device`` (values, params, free,
+        weight, nullhypo and inflation in ``self.dtype``; slots as int64)."""
         dev, dt = self.device, self.dtype
 
         def fl(v):
@@ -67,6 +73,9 @@ class GraphArrays:
             b.vslots = torch.tensor(np.asarray(b.vslots, np.int64), device=dev)
             b.params = {k: fl(v).contiguous() for k, v in b.params.items()}
             b.weight = fl(b.weight)
+            if b.nullhypo is not None:
+                b.nullhypo = fl(b.nullhypo)
+                b.inflation = fl(b.inflation)
         return self
 
 
@@ -126,9 +135,13 @@ def lower(
         )
 
     groups: dict[str, list] = {}
+    excluded = []
     for flabel in fg._fct_order:
         f = fg.factors[flabel]
         if f.solvable <= 0:
+            continue
+        if len(f.variables) != f.ftype.arity:
+            excluded.append(flabel)  # multihypo-extended factor
             continue
         recs = [fg.variables[v] for v in f.variables]
         if all(r.solvable <= 0 or r.marginalized for r in recs):
@@ -159,6 +172,11 @@ def lower(
                 params=params,
                 weight=np.ones(n),
                 labels=[f.label for f in fs],
+                nullhypo=np.array([float(f.nullhypo or 0.0) for f in fs]),
+                inflation=np.array([
+                    float(f.inflation if f.inflation is not None else fg.params.inflation)
+                    for f in fs
+                ]),
             )
         )
 
@@ -178,6 +196,8 @@ def lower(
                 b.vslots = _pad_rows(b.vslots, n)
                 b.params = {k: _pad_rows(v, n) for k, v in b.params.items()}
                 b.weight = np.concatenate([b.weight, np.zeros(n - b.n)])
+                b.nullhypo = _pad_rows(b.nullhypo, n)
+                b.inflation = _pad_rows(b.inflation, n)
                 b.labels = b.labels + [None] * (n - b.n)
                 b.n = n
 
@@ -191,6 +211,7 @@ def lower(
         var_labels=var_labels,
         dtype=dtype,
         device=torch.device(device),
+        excluded_factors=excluded,
     )
     return ga.to_device()
 

@@ -1,8 +1,9 @@
 """Lie-group manifolds with flat-vector point storage, in PyTorch.
 
 Counterpart of ``rome_tpu/manifolds/base.py`` for the groups the batch SE(2)
-solve uses: T(n), SO(2) and SE(2). Every point is a flat fixed-width vector,
-so the variables of one type pack into one dense ``(n, point_dim)`` tensor;
+solve and the nonparametric beehive solve use: T(n), SO(2) and SE(2). Every
+point is a flat fixed-width vector, so the variables of one type pack into
+one dense ``(n, point_dim)`` tensor;
 all ops act on the trailing dim and broadcast over leading dims, which keeps
 them usable batched and under ``torch.func.vmap``.
 
@@ -15,6 +16,7 @@ Tangent convention ("hybrid", as in the JAX package):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from rome_tpu_torch.utils.math import matvec, rot2, sym_rem
@@ -60,6 +62,10 @@ class Manifold:
     def local(self, p, q):
         """Coords of q relative to p: log(p⁻¹ ∘ q). boxplus(p, local(p,q)) == q."""
         return self.log(self.compose(self.inverse(p), q))
+
+    def random_tangent_scale(self):
+        """Per-dim scale hints for random sampling (1.0 everywhere)."""
+        return np.ones(self.dof)
 
     def __repr__(self):
         return f"<{self.name}>"

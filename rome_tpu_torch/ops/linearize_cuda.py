@@ -3,9 +3,8 @@
 The kernel (``csrc/pose2pose2_linearize.cu``, sm_90a, float and double
 instances) is the port of the JAX package's Pallas kernel
 ``rome_tpu/ops/linearize_pallas.py:_kernel``. It is compiled with ``nvcc`` at
-first use into ``build/rome_tpu_torch/`` beside the package (keyed by a hash
-of the source, the nvcc flags and the nvcc version), loaded with ``ctypes`` and launched on PyTorch's current
-stream.
+first use (``ops/nvcc_build.py``), loaded with ``ctypes`` and launched on
+PyTorch's current stream.
 
 Dispatch is by the device of the tensors it is given: a CUDA tensor always
 goes to the kernel (a missing ``nvcc``, a failed build or a refused launch
@@ -16,83 +15,33 @@ raises; there is no fallback), a CPU tensor takes the plain version
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from rome_tpu_torch.ops import nvcc_build
 from rome_tpu_torch.ops.fused_linearize import pose2pose2_linearize_plain
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pose2pose2_linearize.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rome_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = "pose2pose2_linearize.cu"
+_FUNCTIONS = {
+    name: [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
+    for name in ("rome_pose2pose2_linearize_f32", "rome_pose2pose2_linearize_f64")
+}
 
 # Kernel launches made by this wrapper (reset by callers that count them).
 LAUNCHES = 0
-# ptxas report of the last build made in this process ("" if none).
-BUILD_LOG = ""
 
 _lib = None
 
 
-def _find_nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if home and (Path(home) / "bin" / "nvcc").exists():
-            return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the Pose2Pose2 CUDA kernel cannot be built"
-    )
-
-
-def build() -> Path:
-    """Compile the kernel library unless this source has already been built
-    with these flags by this nvcc; returns the path of the shared library."""
-    global BUILD_LOG
-    nvcc = _find_nvcc()
-    version = subprocess.run(
-        [nvcc, "--version"], capture_output=True, text=True, check=True
-    ).stdout
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update("\0".join(NVCC_FLAGS).encode())
-    h.update(version.encode())
-    out = BUILD_DIR / f"libpose2pose2_linearize_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    BUILD_LOG = proc.stderr.strip()
-    return out
+def build():
+    """Compile the kernel library if needed; returns its path."""
+    return nvcc_build.build(SOURCE)
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ("rome_pose2pose2_linearize_f32", "rome_pose2pose2_linearize_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = nvcc_build.load(build(), _FUNCTIONS)  # build raises if it cannot
     return _lib
 
 

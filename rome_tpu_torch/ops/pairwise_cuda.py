@@ -1,0 +1,139 @@
+"""Gibbs pairwise scores: wrappers of the hand-written CUDA kernels K2 and K3.
+
+The kernels (``csrc/pairwise_logw.cu``, sm_90a, float32) are the ports of
+the JAX package's Pallas kernels ``rome_tpu/ops/pairwise.py:_se2_kernel``
+(K2) and ``:_euclid_kernel`` (K3). The library is compiled with ``nvcc`` at
+first use (``ops/nvcc_build.py``), loaded with ``ctypes`` and launched on
+PyTorch's current stream; one launch serves all V variables of a type.
+
+Dispatch is by the device of the tensors given: a CUDA tensor always goes to
+the kernel (a missing ``nvcc``, a failed build or a refused launch raises;
+there is no fallback), a CPU tensor takes the plain version in
+``ops/pairwise.py``. Both take float32 only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rome_tpu_torch.ops import nvcc_build
+from rome_tpu_torch.ops.pairwise import (
+    MAX_DOF,
+    euclid_pairwise_logw_plain,
+    se2_pairwise_logw_plain,
+)
+
+SOURCE = "pairwise_logw.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FUNCTIONS = {
+    "rome_se2_pairwise_logw": [_P] * 5 + [_I] * 3 + [_P],
+    "rome_euclid_pairwise_logw": [_P] * 6 + [_I] * 4 + [_P],
+}
+
+# Kernel launches made by these wrappers (reset by callers that count them).
+LAUNCHES = {"se2_pairwise_logw": 0, "euclid_pairwise_logw": 0}
+
+_lib = None
+
+
+def build():
+    """Compile the kernel library if needed; returns its path."""
+    return nvcc_build.build(SOURCE)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        _lib = nvcc_build.load(build(), _FUNCTIONS)  # build raises if it cannot
+    return _lib
+
+
+def _batched(ref, mu, pts, inv_var):
+    """Accept the unbatched JAX signature as V = 1."""
+    if ref.dim() == 2:
+        return (ref[None], mu[None], pts[None], inv_var[None]), True
+    return (ref, mu, pts, inv_var), False
+
+
+def _check(name, ref, mu, pts, inv_var, d_expect=None):
+    ts = (ref, mu, pts, inv_var)
+    if not all(isinstance(t, torch.Tensor) for t in ts):
+        raise TypeError(f"{name} takes tensors")
+    dev = ref.device
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"{name} takes float32 only, got {[t.dtype for t in ts]}")
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name} inputs must share one device")
+    if ref.dim() != 3:
+        raise ValueError(f"{name}: ref must be (V, N, d) or (N, d), got {tuple(ref.shape)}")
+    V, N, d = ref.shape
+    Nj = pts.shape[1] if pts.dim() == 3 else -1
+    shapes = ((V, N, d), (V, N, d), (V, Nj, d), (V, d))
+    for nm, t, shp in zip(("ref", "mu", "pts", "inv_var"), ts, shapes):
+        if tuple(t.shape) != shp:
+            raise ValueError(f"{name}: {nm} has shape {tuple(t.shape)}, expected {shp}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be contiguous")
+    if d_expect is not None and d != d_expect:
+        raise ValueError(f"{name} takes dof {d_expect}, got {d}")
+    if not 1 <= d <= MAX_DOF:
+        raise ValueError(f"{name} takes 1 <= dof <= {MAX_DOF}, got {d}")
+    if V >= 65536 or (N + 7) // 8 >= 65536:
+        raise ValueError(f"{name}: V={V}, N={N} exceed the kernel's grid")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} has no path for device {dev}")
+    return V, N, Nj, d
+
+
+def _launch(name, fn, out, *args):
+    if out.numel() == 0:
+        return  # nothing to score: no launch
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def se2_pairwise_logw(ref, mu, pts, inv_var):
+    """K2: SE(2) Gibbs log-weights (V, N, Nj) from ref, mu (V, N, 3),
+    pts (V, Nj, 3), inv_var (V, 3); or (N, Nj) from the unbatched shapes."""
+    (ref, mu, pts, inv_var), squeeze = _batched(ref, mu, pts, inv_var)
+    V, N, Nj, _ = _check("se2_pairwise_logw", ref, mu, pts, inv_var, d_expect=3)
+    if ref.device.type == "cpu":
+        out = se2_pairwise_logw_plain(ref, mu, pts, inv_var)
+    else:
+        lib = _library()
+        out = torch.empty((V, N, Nj), dtype=torch.float32, device=ref.device)
+        _launch(
+            "se2_pairwise_logw", lib.rome_se2_pairwise_logw, out,
+            ref.data_ptr(), mu.data_ptr(), pts.data_ptr(), inv_var.data_ptr(),
+            out.data_ptr(), V, N, Nj,
+        )
+    return out[0] if squeeze else out
+
+
+def euclid_pairwise_logw(ref, mu, pts, inv_var, circ):
+    """K3: per-dim linear/circular Gibbs log-weights; ``circ`` (d,) float32
+    is 1 where the dim is an angle. Shapes as :func:`se2_pairwise_logw`."""
+    (ref, mu, pts, inv_var), squeeze = _batched(ref, mu, pts, inv_var)
+    V, N, Nj, d = _check("euclid_pairwise_logw", ref, mu, pts, inv_var)
+    if not isinstance(circ, torch.Tensor) or circ.dtype != torch.float32 or \
+            tuple(circ.shape) != (d,) or circ.device != ref.device or \
+            not circ.is_contiguous():
+        raise ValueError(f"euclid_pairwise_logw: circ must be a contiguous float32 ({d},) "
+                         f"tensor on {ref.device}")
+    if ref.device.type == "cpu":
+        out = euclid_pairwise_logw_plain(ref, mu, pts, inv_var, circ)
+    else:
+        lib = _library()
+        out = torch.empty((V, N, Nj), dtype=torch.float32, device=ref.device)
+        _launch(
+            "euclid_pairwise_logw", lib.rome_euclid_pairwise_logw, out,
+            ref.data_ptr(), mu.data_ptr(), pts.data_ptr(), inv_var.data_ptr(),
+            circ.data_ptr(), out.data_ptr(), V, N, Nj, d,
+        )
+    return out[0] if squeeze else out

@@ -1,0 +1,17 @@
+"""Nonparametric multimodal solver subpackage."""
+from rome_tpu_torch.solvers.multimodal.kde import (
+    ManifoldKernelDensity,
+    gibbs_product,
+    manifold_mean,
+    silverman_bandwidth,
+)
+from rome_tpu_torch.solvers.multimodal.convolve import approx_conv, approxConv
+from rome_tpu_torch.solvers.multimodal.solve import (
+    init_all_beliefs,
+    predict_belief,
+    solve_graph_nonparametric,
+)
+from rome_tpu_torch.solvers.multimodal.batched import (
+    BatchedNonparametricSolver,
+    build_propagator,
+)

@@ -52,6 +52,14 @@ def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (A.to(dt) @ x.to(dt)[..., None])[..., 0]
 
 
+def safe_norm(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Euclidean norm over the last dim, differentiable at zero (particles
+    can land on top of each other in the nonparametric convolution)."""
+    s = torch.sum(v * v, dim=-1)
+    # a tensor constant of s's dtype: see the note in sym_rem
+    return torch.sqrt(s + torch.full((), eps, dtype=s.dtype, device=s.device))
+
+
 def sym_rem_np(theta):
     """Numpy twin of sym_rem for host-side code paths."""
     return np.arctan2(np.sin(theta), np.cos(theta))

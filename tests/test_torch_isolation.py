@@ -41,9 +41,15 @@ def test_port_modules_mirror_the_slice():
         "graph.convert", "ops.fused_linearize", "ops.linearize_cuda",
         "solvers.linearize", "solvers.sparse.symbolic", "solvers.sparse.ndchol",
         "solvers.init2d", "solvers.gauss_newton", "solvers.parametric",
+        "ops.nvcc_build", "ops.pairwise", "ops.pairwise_cuda",
+        "factors.bearing_range", "canonical.generators", "canonical.patterns",
+        "solvers.multimodal.kde", "solvers.multimodal.convolve",
+        "solvers.multimodal.batched", "solvers.multimodal.solve",
+        "solvers.multimodal.metrics",
     ]:
         assert "rome_tpu_torch." + m in mods, m
-    assert os.path.exists(os.path.join(PKG, "csrc", "pose2pose2_linearize.cu"))
+    for src in ("pose2pose2_linearize.cu", "pairwise_logw.cu"):
+        assert os.path.exists(os.path.join(PKG, "csrc", src)), src
 
 
 def test_every_submodule_imports_without_jax():

@@ -29,6 +29,7 @@ from rome_tpu.ops.fused_linearize import pose2pose2_linearize as jax_fused  # no
 from rome_tpu.ops.linearize_pallas import pose2pose2_linearize_packed  # noqa: E402
 from rome_tpu.solvers import linearize as JL  # noqa: E402
 from rome_tpu_torch.ops import linearize_cuda as K  # noqa: E402
+from rome_tpu_torch.ops import nvcc_build as NB  # noqa: E402
 from rome_tpu_torch.ops.fused_linearize import pose2pose2_linearize_plain  # noqa: E402
 from rome_tpu_torch.solvers import linearize as TL  # noqa: E402
 from test_torch_helpers import grid_graph, port_arrays  # noqa: E402
@@ -265,15 +266,15 @@ def test_kernel_build_is_keyed_by_source_flags_and_nvcc(tmp_path, monkeypatch):
         "    open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n"
     )
     nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
-    monkeypatch.setattr(K, "_find_nvcc", lambda: str(nvcc))
-    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(NB, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(NB, "BUILD_DIR", tmp_path / "build")
 
     def compiles():
         return sum("-o" in ln.split() for ln in log.read_text().splitlines())
 
     first = K.build()
     assert K.build() == first and compiles() == 1
-    monkeypatch.setattr(K, "NVCC_FLAGS", K.NVCC_FLAGS + ("--use_fast_math",))
+    monkeypatch.setattr(NB, "NVCC_FLAGS", NB.NVCC_FLAGS + ("--use_fast_math",))
     flagged = K.build()
     assert flagged != first and compiles() == 2
     monkeypatch.setenv("FAKE_NVCC_VERSION", "2")

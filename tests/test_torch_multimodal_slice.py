@@ -1,0 +1,153 @@
+"""The port's nonparametric solve end to end against the JAX package, on
+beehive-10 (11 Pose2, 7 Point2) at N = 50 particles, float32 beliefs on
+both sides, both engines ``engine="batched", init="points"``.
+
+The engines draw from different generators (``jax.random`` keys, a
+``torch.Generator``), so they are compared by what they estimate:
+
+- each engine's mean 2-D pose error of the belief means against the
+  parametric optimum is below 0.5 m (tools/bench_multimodal.py:130's gate);
+- the mean per-pose symmetric k-NN KL between the two engines' beliefs is
+  below 1.0 (tools/bench_multimodal.py:93's cross-engine gate), from each
+  engine's own init and from identical starting particles;
+- frozen variables keep their beliefs bit-identical;
+- what is not ported raises NotImplementedError.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+
+import rome_tpu_torch as T  # noqa: E402
+from rome_tpu import solve_graph_parametric as jax_parametric  # noqa: E402
+from rome_tpu.canonical.patterns import generate_graph_beehive as jax_beehive  # noqa: E402
+from rome_tpu.solvers.multimodal import solve_graph_nonparametric as jax_nonparametric  # noqa: E402
+from rome_tpu.solvers.multimodal.batched import BatchedNonparametricSolver as JaxSolver  # noqa: E402
+from rome_tpu_torch.canonical import generate_graph_beehive as port_beehive  # noqa: E402
+from rome_tpu_torch.graph.convert import beliefs_from_numpy  # noqa: E402
+from rome_tpu_torch.manifolds.base import SE2_  # noqa: E402
+from rome_tpu_torch.solvers.multimodal import solve as S  # noqa: E402
+from rome_tpu_torch.solvers.multimodal.batched import BatchedNonparametricSolver  # noqa: E402
+from rome_tpu_torch.solvers.multimodal.metrics import symmetric_kl_knn  # noqa: E402
+
+POSES, N, SWEEPS = 10, 50, 3
+ERR_GATE_M, KL_GATE = 0.5, 1.0
+
+
+def _beehive(mod_gen):
+    return mod_gen(pose_count_target=POSES, graphinit=False)
+
+
+def _pose_error(fg, truth):
+    return float(np.mean([
+        np.linalg.norm(np.asarray(fg.variables[l].beliefs["default"])[:, :2].mean(0) - truth[l][:2])
+        for l in truth
+    ]))
+
+
+def _mean_kl(fa, fb, labels):
+    return float(np.mean([
+        symmetric_kl_knn(
+            SE2_, torch.as_tensor(np.array(fa.variables[l].beliefs["default"])),
+            torch.as_tensor(np.array(fb.variables[l].beliefs["default"])),
+        )
+        for l in labels
+    ]))
+
+
+@pytest.fixture(scope="module")
+def solved():
+    fp = _beehive(jax_beehive)
+    fp.init_all()
+    jax_parametric(fp, init=False)
+    truth = {l: fp.get_coords(l, "parametric") for l in fp.ls(r"^x\d+$")}
+    fj = _beehive(jax_beehive)
+    jax_nonparametric(fj, sweeps=SWEEPS, N=N, engine="batched", init="points",
+                      key=jax.random.PRNGKey(2024))
+    ft = _beehive(port_beehive)
+    T.solve_graph_nonparametric(ft, sweeps=SWEEPS, N=N, engine="batched", init="points",
+                                seed=2024)
+    return truth, fj, ft
+
+
+def test_both_engines_pass_the_pose_gate(solved):
+    truth, fj, ft = solved
+    for fg in (fj, ft):
+        for l in fg._var_order:
+            bel = np.asarray(fg.variables[l].beliefs["default"])
+            assert bel.shape == (N, fg.variables[l].vtype.point_dim)
+            assert bel.dtype == np.float32 and np.isfinite(bel).all()
+    assert _pose_error(fj, truth) < ERR_GATE_M
+    assert _pose_error(ft, truth) < ERR_GATE_M
+    # the belief means are surfaced as point estimates
+    for l in truth:
+        assert np.linalg.norm(ft.get_point(l, "default")[:2] - truth[l][:2]) < 2.0
+
+
+def test_engines_agree_by_kl(solved):
+    truth, fj, ft = solved
+    assert _mean_kl(fj, ft, list(truth)) < KL_GATE
+
+
+def test_engines_agree_by_kl_from_identical_particles(solved):
+    """Both engines run SWEEPS sweeps from the same starting particles (the
+    JAX package's points init)."""
+    truth, _, _ = solved
+    fj = _beehive(jax_beehive)
+    sj = JaxSolver(fj, "default", N=N)
+    sj.init_beliefs_from_points(jax.random.PRNGKey(5))
+    start = {t: np.asarray(v) for t, v in sj.gather_beliefs().items()}
+    beliefs = sj.gather_beliefs()
+    for s in range(SWEEPS):
+        beliefs = sj.sweep(beliefs, jax.random.PRNGKey(100 + s))
+    sj.scatter_beliefs(beliefs)
+
+    ft = _beehive(port_beehive)
+    st = BatchedNonparametricSolver(ft, "default", N=N)
+    gen = torch.Generator().manual_seed(5)
+    bt = beliefs_from_numpy(start)
+    for _ in range(SWEEPS):
+        bt = st.sweep(bt, gen)
+    st.scatter_beliefs(bt)
+    assert _pose_error(ft, truth) < ERR_GATE_M
+    assert _mean_kl(fj, ft, list(truth)) < KL_GATE
+
+
+def test_frozen_variables_keep_their_beliefs():
+    ft = _beehive(port_beehive)
+    T.solve_graph_nonparametric(ft, sweeps=1, N=N, init="points", seed=3)
+    frozen = ("x3", "l1")
+    before = {l: np.array(ft.variables[l].beliefs["default"]) for l in ft._var_order}
+    points = {l: ft.get_point(l, "default") for l in frozen}
+    for l in frozen:
+        ft.set_solvable(l, 0)
+    T.solve_graph_nonparametric(ft, sweeps=1, N=N, init=False, seed=7)
+    for l in frozen:
+        np.testing.assert_array_equal(ft.variables[l].beliefs["default"], before[l])
+        np.testing.assert_array_equal(ft.get_point(l, "default"), points[l])
+    moved = [l for l in ft._var_order if l not in frozen
+             and not np.array_equal(ft.variables[l].beliefs["default"], before[l])]
+    assert len(moved) == len(ft._var_order) - len(frozen)
+
+
+def test_unported_options_raise():
+    fg = _beehive(port_beehive)
+    with pytest.raises(NotImplementedError, match="init=True"):
+        T.solve_graph_nonparametric(fg, N=10)
+    with pytest.raises(NotImplementedError, match="loop"):
+        T.solve_graph_nonparametric(fg, N=10, engine="loop", init="points")
+    with pytest.raises(ValueError, match="engine"):
+        T.solve_graph_nonparametric(fg, N=10, engine="fast", init="points")
+    fg.params.treeinit = True
+    with pytest.raises(NotImplementedError, match="Bayes-tree"):
+        T.solve_graph_nonparametric(fg, N=10, init="points")
+    for fn in (S.predict_belief, S.init_all_beliefs, S.predictbelief, S.initAll,
+               T.solvers.multimodal.approx_conv):
+        with pytest.raises(NotImplementedError, match="slice C"):
+            fn(fg, "x0")
+    with pytest.raises(NotImplementedError, match="multihypo"):
+        fg.add_factor(["x0", "l0", "l1"],
+                      T.Pose2Point2BearingRange(T.Normal(0, 0.1), T.Normal(20, 0.5)),
+                      multihypo=[1.0, 0.5, 0.5])
