@@ -17,7 +17,9 @@
 4. K2/K3 phase: both kernels against their plain versions, float32 at rtol
    = atol = 2e-5 (tests/test_ops_pairwise.py:43), at (V, N, Nj) = (1, 1, 1),
    (1, 37, 101), the beehive-100 shapes (101, 100, 100) and (74, 100, 100),
-   and (101, 512, 512); K3 at dof 1, 2, 3 and 8 with mixed circular masks
+   the default engine's shapes (1, 100, 100) (one variable's product in a
+   Gauss-Seidel pass or the loop engine), (22, 100, 100) and (14, 100, 100)
+   (the honeycomb-21 Pose2 and Point2 sweeps), and (101, 512, 512); K3 at dof 1, 2, 3 and 8 with mixed circular masks
    and angles at and near +-pi. Kernels and plain versions timed with CUDA
    events at the beehive shapes.
 5. Citygrid path: the batch SE(2) solve of data/citygrid.g2o (10,000 poses,
@@ -36,8 +38,33 @@
    the port's own parametric optimum of the same graph must be below 0.5 m
    (tools/bench_multimodal.py:130's gate), and K2 and K3 must each launch
    3 sweeps x 3 Gibbs sweeps x K = 3 = 27 times per solve.
-7. Prints the kernel table as one JSON line, the card line, and as the last
-   line {"ok": true, "device": {...}}; writes chiprun_out/chip_smoke.json.
+7. Honeycomb grow, the default engine: ``generate_graph_honeycomb`` grown
+   7 -> 14 -> 21 poses (graphinit), after each step
+   ``solve_graph_nonparametric(fg, sweeps=3, N=100, engine="batched",
+   init=True, device="cuda")`` (tools/bench_multimodal.py:154-196). Prints
+   each step's seconds and each Gauss-Seidel pass's; the mean landmark and
+   mean pose errors of the final graph against the port's own parametric
+   optimum must both be below 4.0 m, and K2 and K3 must each launch in every
+   step.
+8. Bayes-tree grow: ``solve_tree(fg, old_tree=tree, N=100, device="cuda")``
+   over the honeycomb grown 7 -> 14 (bench_multimodal.py:199-240). The regrow
+   must recycle at least one clique, every recycled clique's frontal beliefs
+   and points must be bit-identical across the re-solve, and the mean
+   landmark error must be below 4.0 m.
+9. Hexagonal cross-check (bench_multimodal.py:74-95): ``engine="loop"`` and
+   ``engine="batched"``, ``init=True``, N = 100. Both must pass the band
+   check (>= 35 of 100 particles within +-3 m and +-0.3 rad per pose,
+   tests/test_multimodal.py:117-136) and their mean symmetric k-NN KL over
+   the poses must be below 1.0.
+10. Multihypo range-bearing (bench_multimodal.py:243-295): ``approx_conv``
+   toward x0 of the N = 400 multihypo=[1, .5, .5] graph must put balanced
+   mass on both modes; then a batched ``init=True`` solve of the hexagonal
+   graph plus one multihypo bearing-range factor, whose messages take the
+   per-factor fallback, must leave every belief finite.
+11. Prints the kernel table as one JSON line (K2/K3 launches summed over
+   every nonparametric path, each path counted from 0), the card line, and
+   as the last line {"ok": true, "device": {...}}; writes
+   chiprun_out/chip_smoke.json.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
 package is missing, or when any phase fails.
@@ -50,6 +77,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -68,12 +96,22 @@ BIG = dict(
 K1_SIZES = (1, 1000, 8192, 10000, 13085)
 K1_TIMED_N = 13085
 PAIRWISE_TOL = dict(rtol=2e-5, atol=2e-5)
-# (V, N, Nj): one pair, off every tile, the beehive-100 shapes, a large batch
-PAIRWISE_SHAPES = ((1, 1, 1), (1, 37, 101), (101, 100, 100), (74, 100, 100), (101, 512, 512))
+# (V, N, Nj): one pair, off every tile, the beehive-100 shapes, one variable's
+# product (the Gauss-Seidel passes, the loop engine), the honeycomb-21 Pose2
+# and Point2 sweeps, a large batch
+PAIRWISE_SHAPES = ((1, 1, 1), (1, 37, 101), (101, 100, 100), (74, 100, 100), (1, 100, 100),
+                   (22, 100, 100), (14, 100, 100), (101, 512, 512))
 K3_DOFS = (1, 2, 3, 8)
 BEEHIVE_POSES, BEEHIVE_N, BEEHIVE_SWEEPS = 100, 100, 3
 BEEHIVE_GATE_M = 0.5
 GIBBS_SWEEPS = 3
+NP_N = 100                    # particles of the default-engine phases
+HONEYCOMB_STEPS = (7, 14, 21)
+TREE_STEPS = (7, 14)
+GROW_GATE_M = 4.0             # testBeehiveGrow.jl:44-46's landmark atol band
+BAND_M, BAND_RAD, BAND_MIN = 3.0, 0.3, 35  # per 100 particles
+KL_GATE = 1.0
+MULTIHYPO_N = 400
 
 
 class SmokeFailure(RuntimeError):
@@ -83,6 +121,45 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+class PhaseTimer:
+    """CUDA-event spans around wrapped functions, summed per label."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.spans = defaultdict(list)
+        self._restore = []
+
+    def wrap(self, owner, name, label):
+        fn = getattr(owner, name)
+        torch, spans = self.torch, self.spans
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[label].append((start, end))
+            return out
+
+        setattr(owner, name, timed)
+        self._restore.append((owner, name, fn))
+
+    def take(self):
+        """Seconds per label since the last take (call after a sync); the
+        seconds of each call stay in ``self.each``."""
+        self.each = {k: [s.elapsed_time(e) / 1e3 for s, e in v] for k, v in self.spans.items()}
+        out = {k: sum(v) for k, v in self.each.items()}
+        calls = {k: len(v) for k, v in self.spans.items()}
+        self.spans.clear()
+        return out, calls
+
+    def unwrap(self):
+        for owner, name, fn in reversed(self._restore):
+            setattr(owner, name, fn)
+        self._restore.clear()
 
 
 def card_line() -> str:
@@ -352,6 +429,255 @@ def beehive_path(card, device="cuda", poses=BEEHIVE_POSES, N=BEEHIVE_N):
     return runs, dict(P.LAUNCHES)
 
 
+def _sync(device):
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def _reset_launches():
+    from rome_tpu_torch.ops import pairwise_cuda as P
+
+    for k in P.LAUNCHES:
+        P.LAUNCHES[k] = 0
+
+
+def _launches():
+    from rome_tpu_torch.ops import pairwise_cuda as P
+
+    return dict(P.LAUNCHES)
+
+
+def _parametric_truth(fg, device):
+    """The port's parametric optimum of a copy of ``fg``: {label: coords}."""
+    import copy
+
+    from rome_tpu_torch import solve_graph_parametric
+
+    fp = copy.deepcopy(fg)
+    fp.init_all()
+    solve_graph_parametric(fp, init=False, device=device)
+    return {l: fp.get_coords(l, "parametric") for l in fp._var_order}
+
+
+def _mean_err(fg, truth, pattern):
+    errs = [float(np.linalg.norm(np.asarray(fg.variables[l].beliefs["default"])[:, :2].mean(0)
+                                 - truth[l][:2])) for l in fg.ls(pattern)]
+    return float(np.mean(errs)), float(np.max(errs))
+
+
+def _check_beliefs(fg, N):
+    for l in fg._var_order:
+        bel = np.asarray(fg.variables[l].beliefs["default"])
+        check(bel.shape == (N, fg.variables[l].vtype.point_dim) and np.isfinite(bel).all(),
+              f"belief of {l} missing, misshapen or not finite")
+
+
+def _check_launched(device, launches, what):
+    check(device != "cuda" or all(v > 0 for v in launches.values()),
+          f"{what}: K2/K3 launches {launches}, expected both > 0")
+
+
+def honeycomb_path(card, steps=HONEYCOMB_STEPS, N=NP_N):
+    """The default engine over the honeycomb grow; returns the step rows and
+    the path's K2/K3 launch counts. Each Gauss-Seidel pass is timed with CUDA
+    events (``PhaseTimer``)."""
+    import torch
+
+    from rome_tpu_torch import generate_graph_honeycomb, solve_graph_nonparametric
+    from rome_tpu_torch.solvers.multimodal.batched import BatchedNonparametricSolver
+
+    rows, fg = [], None
+    timer = PhaseTimer(torch)
+    _reset_launches()
+    timer.wrap(BatchedNonparametricSolver, "gs_pass", "gs_pass")
+    try:
+        for target in steps:
+            fg = generate_graph_honeycomb(pose_count_target=target, fg=fg, graphinit=True)
+            before = _launches()
+            _sync("cuda")
+            t0 = time.time()
+            solve_graph_nonparametric(fg, sweeps=3, N=N, engine="batched", init=True,
+                                      device="cuda")
+            _sync("cuda")
+            wall = time.time() - t0
+            timer.take()
+            gs_seconds = timer.each.get("gs_pass", [])
+            launches = {k: v - before[k] for k, v in _launches().items()}
+            row = dict(poses=target, variables=fg.num_variables, factors=fg.num_factors,
+                       solve_time_s=wall, gs_pass_s=gs_seconds, launches=launches)
+            rows.append(row)
+            print(f"[{card}] honeycomb_grow_default {target} poses: " + json.dumps(row))
+            check(len(gs_seconds) == 3, f"{len(gs_seconds)} Gauss-Seidel passes, expected 3")
+            _check_launched("cuda", launches, f"honeycomb step {target}")
+    finally:
+        timer.unwrap()
+    _check_beliefs(fg, N)
+    truth = _parametric_truth(fg, "cuda")
+    (l_mean, l_max), (x_mean, x_max) = (_mean_err(fg, truth, r"^l\d+$"),
+                                        _mean_err(fg, truth, r"^x\d+$"))
+    res = dict(steps=rows, landmark_err_m=dict(mean=l_mean, max=l_max),
+               pose_err_m=dict(mean=x_mean, max=x_max))
+    print(f"[{card}] honeycomb_grow_default errors vs the parametric optimum: landmarks "
+          f"{l_mean:.4f} m (max {l_max:.4f}), poses {x_mean:.4f} m (max {x_max:.4f})")
+    check(l_mean < GROW_GATE_M and x_mean < GROW_GATE_M,
+          f"honeycomb grow errors {l_mean}, {x_mean} not below {GROW_GATE_M} m")
+    return res, _launches()
+
+
+def bayes_tree_path(card, device="cuda", steps=TREE_STEPS, N=NP_N):
+    """solve_tree with clique recycling over the honeycomb grow."""
+    from rome_tpu_torch import calc_cliques_recycled, generate_graph_honeycomb, solve_tree
+
+    rows, fg, tree = [], None, None
+    _reset_launches()
+    for target in steps:
+        fg = generate_graph_honeycomb(pose_count_target=target, fg=fg, graphinit=True)
+        before = {l: (np.array(r.beliefs["default"]), np.array(r.points["default"]))
+                  for l, r in fg.variables.items()
+                  if "default" in r.beliefs and "default" in r.points}
+        _sync(device)
+        t0 = time.time()
+        tree = solve_tree(fg, old_tree=tree, N=N, device=device)
+        _sync(device)
+        total, recycled = calc_cliques_recycled(tree)
+        kept = [v for c in tree.cliques if c.index not in tree.dirty for v in c.frontals
+                if v in before]
+        for v in kept:
+            check(np.array_equal(fg.variables[v].beliefs["default"], before[v][0])
+                  and np.array_equal(fg.variables[v].points["default"], before[v][1]),
+                  f"recycled clique variable {v} changed across the re-solve")
+        row = dict(poses=target, solve_time_s=time.time() - t0, cliques=total,
+                   recycled=recycled, recycled_variables=len(kept), levels=len(tree.levels))
+        rows.append(row)
+        print(f"[{card}] bayes_tree_grow {target} poses: " + json.dumps(row))
+    check(rows[-1]["recycled"] >= 1 and rows[-1]["recycled_variables"] >= 1,
+          "the regrow recycled no clique")
+    _check_beliefs(fg, N)
+    l_mean, l_max = _mean_err(fg, _parametric_truth(fg, device), r"^l\d+$")
+    print(f"[{card}] bayes_tree_grow landmark error vs the parametric optimum: "
+          f"{l_mean:.4f} m (max {l_max:.4f})")
+    check(l_mean < GROW_GATE_M, f"tree landmark error {l_mean} not below {GROW_GATE_M} m")
+    launches = _launches()
+    _check_launched(device, launches, "bayes_tree_grow")
+    return dict(steps=rows, landmark_err_m=dict(mean=l_mean, max=l_max)), launches
+
+
+def _in_band(fg, N):
+    """Per pose, the fewest particles within the x, y and heading bands."""
+    from rome_tpu_torch.utils.math import sym_rem_np
+
+    worst = []
+    for l in fg.ls(r"^x\d+$"):
+        sim, pts = fg.get_ppe(l), np.asarray(fg.variables[l].beliefs["default"])
+        worst.append(int(min(np.sum(np.abs(pts[:, 0] - sim[0]) < BAND_M),
+                             np.sum(np.abs(pts[:, 1] - sim[1]) < BAND_M),
+                             np.sum(np.abs(sym_rem_np(pts[:, 2] - sim[2])) < BAND_RAD))))
+    return worst
+
+
+def hexagonal_path(card, device="cuda", N=NP_N):
+    """engine="loop" against engine="batched" on the hexagonal graph."""
+    import torch
+
+    from rome_tpu_torch import generate_graph_hexagonal, solve_graph_nonparametric
+    from rome_tpu_torch.manifolds.base import SE2_
+    from rome_tpu_torch.solvers.multimodal.metrics import symmetric_kl_knn
+
+    graphs, rows = {}, {}
+    _reset_launches()
+    for engine in ("batched", "loop"):
+        fg = generate_graph_hexagonal(N=N)
+        before = _launches()
+        _sync(device)
+        t0 = time.time()
+        solve_graph_nonparametric(fg, sweeps=3, N=N, engine=engine, init=True, device=device)
+        _sync(device)
+        launches = {k: v - before[k] for k, v in _launches().items()}
+        _check_beliefs(fg, N)
+        band = _in_band(fg, N)
+        rows[engine] = dict(solve_time_s=time.time() - t0, min_in_band=band, launches=launches)
+        graphs[engine] = fg
+        print(f"[{card}] hexagonal_7pose {engine}: " + json.dumps(rows[engine]))
+        check(min(band) >= BAND_MIN * N // 100, f"{engine} engine misses the band: {band}")
+        _check_launched(device, launches, f"hexagonal {engine}")
+    kl = float(np.mean([
+        symmetric_kl_knn(SE2_, torch.as_tensor(graphs["loop"].variables[l].beliefs["default"]),
+                         torch.as_tensor(graphs["batched"].variables[l].beliefs["default"]))
+        for l in graphs["loop"].ls(r"^x\d+$")
+    ]))
+    rows["mean_sym_kl_loop_vs_batched"] = kl
+    print(f"[{card}] hexagonal_7pose mean symmetric KL loop vs batched: {kl:.4f}")
+    check(kl < KL_GATE, f"loop and batched engines disagree: KL {kl}")
+    return rows, _launches()
+
+
+def multihypo_graph():
+    """testMultimodalRangeBearing.jl's configuration (bench_multimodal.py:254-271)."""
+    from rome_tpu_torch import (FactorGraph, MvNormal, Normal, Point2, Pose2,
+                                Pose2Point2BearingRange, PriorPoint2, PriorPose2)
+
+    fg = FactorGraph()
+    fg.params.graphinit = False
+    fg.add_variable("x0", Pose2)
+    fg.add_factor(["x0"], PriorPose2(MvNormal([0, 0, 0], [4.0, 4.0, 4.0])), graphinit=True)
+    fg.add_variable("l1", Point2)
+    fg.add_variable("l2", Point2)
+    fg.add_factor(["l1"], PriorPoint2(MvNormal([20.0, 5.0], [0.01, 0.01])))
+    fg.add_factor(["l2"], PriorPoint2(MvNormal([20.0, -5.0], [0.01, 0.01])))
+    f = fg.add_factor(["x0", "l1", "l2"],
+                      Pose2Point2BearingRange(Normal(0.0, 0.01), Normal(20.0, 0.05)),
+                      multihypo=[1.0, 0.5, 0.5])
+    return fg, f.label
+
+
+def multihypo_path(card, device="cuda", N=MULTIHYPO_N, solve_N=NP_N):
+    """approx_conv's mode masses, then a default solve through the fallback."""
+    from rome_tpu_torch import (MvNormal, Normal, Point2, Pose2Point2BearingRange, PriorPoint2,
+                                approx_conv, generate_graph_hexagonal, init_all_beliefs,
+                                solve_graph_nonparametric)
+    from rome_tpu_torch.solvers.multimodal.batched import BatchedNonparametricSolver
+
+    _reset_launches()
+    fg, flabel = multihypo_graph()
+    init_all_beliefs(fg, N=N, device=device)
+    times = []
+    for seed in (0, 3):
+        _sync(device)
+        t0 = time.time()
+        pts = approx_conv(fg, flabel, "x0", N=N, device=device, seed=seed).cpu().numpy()
+        times.append(time.time() - t0)
+    r1 = np.abs(np.linalg.norm(pts[:, :2] - np.array([20.0, 5.0]), axis=1) - 20.0)
+    r2 = np.abs(np.linalg.norm(pts[:, :2] - np.array([20.0, -5.0]), axis=1) - 20.0)
+    m1 = float(np.mean((r1 < 1.0) & (r2 >= 1.0)))
+    m2 = float(np.mean((r2 < 1.0) & (r1 >= 1.0)))
+    res = dict(conv_s=times, mode_mass=[m1, m2])
+    check(pts.shape == (N, 3) and np.isfinite(pts).all(), "multihypo conv not finite")
+    check(m1 > 0.15 and m2 > 0.15 and 0.25 < m1 / (m1 + m2 + 1e-12) < 0.75,
+          f"multihypo mode masses unbalanced: {m1}, {m2}")
+
+    fh = generate_graph_hexagonal(N=solve_N)
+    fh.add_variable("l2", Point2)
+    fh.add_factor(["l2"], PriorPoint2(MvNormal([20.0, 4.0], [0.5, 0.5])))
+    fh.add_factor(["x3", "l1", "l2"],
+                  Pose2Point2BearingRange(Normal(np.pi, 0.05), Normal(20.0, 0.5)),
+                  multihypo=[1.0, 0.5, 0.5])
+    fallback = BatchedNonparametricSolver(fh, "default", N=solve_N, device=device).bp.fallback
+    check(len(fallback) > 0, "the multihypo factor took no fallback message")
+    _sync(device)
+    t0 = time.time()
+    solve_graph_nonparametric(fh, sweeps=3, N=solve_N, init=True, device=device)
+    _sync(device)
+    res.update(solve_time_s=time.time() - t0, fallback_messages=len(fallback))
+    _check_beliefs(fh, solve_N)
+    launches = _launches()
+    res["launches"] = launches
+    print(f"[{card}] multihypo_range_bearing: " + json.dumps(res))
+    _check_launched(device, launches, "multihypo")
+    return res, launches
+
+
 def build_all(card):
     """One nvcc per kernel source, all started together."""
     from rome_tpu_torch.ops import linearize_cuda, nvcc_build, pairwise_cuda
@@ -398,17 +724,28 @@ def main():
     errs = ", ".join(f"{r['mean_pose_err_m']:.4f}" for r in bee)
     print(f"[{card}] beehive_{BEEHIVE_POSES} N={BEEHIVE_N}: solves (cold, warm, warm) "
           f"{secs} s, mean pose error {errs} m, K2/K3 launches {bee_launches}")
+    np_paths = {"beehive_points": (bee, bee_launches)}
+    for name, path in (("honeycomb_grow_default", honeycomb_path),
+                       ("bayes_tree_grow", bayes_tree_path),
+                       ("hexagonal_7pose", hexagonal_path),
+                       ("multihypo_range_bearing", multihypo_path)):
+        t0 = time.time()
+        np_paths[name] = path(card)
+        print(f"[{card}] {name}: {time.time() - t0:.1f} s, K2/K3 launches {np_paths[name][1]}")
+    np_launches = {k: sum(l[k] for _r, l in np_paths.values()) for k in bee_launches}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "build_s": build_s, "k1": k1, "k2_k3": k23, "runs": runs,
-                   "beehive_runs": bee, "seconds": time.time() - t_start}, fh, indent=1)
+                   "nonparametric": {k: {"result": r, "launches": l}
+                                     for k, (r, l) in np_paths.items()},
+                   "seconds": time.time() - t_start}, fh, indent=1)
 
     rows = [("pose2pose2_linearize", "pose2pose2_linearize.cu",
              "rome_tpu/ops/linearize_pallas.py:54", launches, k1),
             ("se2_pairwise_logw", "pairwise_logw.cu", "rome_tpu/ops/pairwise.py:75",
-             bee_launches["se2_pairwise_logw"], k23["K2"]),
+             np_launches["se2_pairwise_logw"], k23["K2"]),
             ("euclid_pairwise_logw", "pairwise_logw.cu", "rome_tpu/ops/pairwise.py:126",
-             bee_launches["euclid_pairwise_logw"], k23["K3"])]
+             np_launches["euclid_pairwise_logw"], k23["K3"])]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -3,10 +3,12 @@
 
     python3 profile_torch.py [--solves 6] [--out chiprun_out]
     python3 profile_torch.py --path beehive [--out chiprun_out]
+    python3 profile_torch.py --path default [--out chiprun_out]
 
 ``--path citygrid`` (the default) profiles the parametric citygrid_10k
-solve; ``--path beehive`` the nonparametric beehive-100 solve (see the end
-of this note).
+solve; ``--path beehive`` the nonparametric beehive-100 solve with the
+points init, ``--path default`` the default nonparametric engine (see the
+end of this note).
 
 Every solve goes through the same entry points and options as chip_smoke.py
 (g2o load, x0 prior, ``solve_graph_parametric(..., device="cuda")`` with the
@@ -45,9 +47,25 @@ init="points", device="cuda")`` of beehive-100, seed 0), once cold, then:
 3. K2 and K3 alone at the beehive shapes: device time per launch against
    the plain versions'.
 
+``--path default``: the default engine, ``solve_graph_nonparametric(fg,
+sweeps=3, N=100, engine="batched", init=True, device="cuda")``, on a fresh
+honeycomb-21 graph (22 Pose2, 14 Point2, 44 factors; graphinit):
+
+1. Phase breakdown of two solves (the first is the process's cold one) with
+   CUDA events: the particle init (``init_all_beliefs``, inside it the
+   per-factor ``approx_conv``), each Gauss-Seidel pass, the Jacobi sweeps
+   and the write-back; across them the batched messages, the per-particle
+   Gauss-Newton, the Gibbs products and the K2/K3 launches.
+2. torch.profiler (device activity only) over one more solve: kernel count,
+   device time, busy share, K2/K3 launches.
+3. One cold ``init=True`` solve of beehive-100 (seed 0) with its phases and
+   its mean pose error against the port's parametric optimum (reported, not
+   gated).
+
 Prints one line per result, each tagged with the card's nvidia-smi name and
 power limit, and writes everything to ``<out>/profile_torch.json`` (or
-``<out>/profile_beehive.json``). Exits non-zero without a CUDA device.
+``<out>/profile_beehive.json``, ``<out>/profile_default.json``). Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -58,7 +76,6 @@ import os
 import sys
 import time
 import warnings
-from collections import defaultdict
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
@@ -68,43 +85,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 import chip_smoke as C  # noqa: E402
-
-
-class PhaseTimer:
-    """CUDA-event spans around wrapped functions, summed per label."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.spans = defaultdict(list)
-        self._restore = []
-
-    def wrap(self, owner, name, label):
-        fn = getattr(owner, name)
-        torch, spans = self.torch, self.spans
-
-        def timed(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            spans[label].append((start, end))
-            return out
-
-        setattr(owner, name, timed)
-        self._restore.append((owner, name, fn))
-
-    def take(self):
-        """Seconds per label since the last take (call after a sync)."""
-        out = {k: sum(s.elapsed_time(e) for s, e in v) / 1e3 for k, v in self.spans.items()}
-        calls = {k: len(v) for k, v in self.spans.items()}
-        self.spans.clear()
-        return out, calls
-
-    def unwrap(self):
-        for owner, name, fn in reversed(self._restore):
-            setattr(owner, name, fn)
-        self._restore.clear()
 
 
 def solve_once(torch, gt):
@@ -148,7 +128,7 @@ def phases(torch, gt, card, n=3):
     from rome_tpu_torch.solvers import gauss_newton as GN
     from rome_tpu_torch.solvers import init2d as I2
 
-    timer = PhaseTimer(torch)
+    timer = C.PhaseTimer(torch)
     timer.wrap(I2, "chordal_init_pose2", "chordal_init")
     timer.wrap(GN, "_symbolic_plan", "symbolic_plan")
     timer.wrap(GN.ParametricSolver, "solve", "lm_loop")
@@ -246,13 +226,14 @@ def beehive_solve(torch, poses=C.BEEHIVE_POSES, N=C.BEEHIVE_N):
 def beehive_phases(torch, card, n=3):
     from rome_tpu_torch.ops import pairwise_cuda as P
     from rome_tpu_torch.solvers.multimodal import batched as B
+    from rome_tpu_torch.solvers.multimodal import convolve as V
 
-    timer = PhaseTimer(torch)
+    timer = C.PhaseTimer(torch)
     timer.wrap(B.BatchedNonparametricSolver, "init_beliefs_from_points", "points_init")
     timer.wrap(B.BatchedNonparametricSolver, "gather_beliefs", "gather_beliefs")
     timer.wrap(B.BatchedNonparametricSolver, "scatter_beliefs", "scatter_beliefs")
     timer.wrap(B, "_messages", "messages")
-    timer.wrap(B, "_gn_solve_target", "messages.gauss_newton")
+    timer.wrap(V, "_gn_solve_target", "messages.gauss_newton")
     timer.wrap(B, "_pad_messages", "pad_messages")
     timer.wrap(B, "_products", "products")
     timer.wrap(P, "se2_pairwise_logw", "products.k2")
@@ -301,10 +282,98 @@ def profile_beehive(torch, card, out_dir):
     return report
 
 
+def default_solve(torch, fg):
+    from rome_tpu_torch import solve_graph_nonparametric
+    from rome_tpu_torch.ops import pairwise_cuda as P
+
+    C._reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    solve_graph_nonparametric(fg, sweeps=3, N=C.NP_N, engine="batched", init=True,
+                              device="cuda")
+    torch.cuda.synchronize()
+    return dict(solve_time_s=time.time() - t0, launches=dict(P.LAUNCHES))
+
+
+def _default_timer(torch):
+    from rome_tpu_torch.ops import pairwise_cuda as P
+    from rome_tpu_torch.solvers.multimodal import batched as B
+    from rome_tpu_torch.solvers.multimodal import convolve as V
+    from rome_tpu_torch.solvers.multimodal import solve as S
+
+    timer = C.PhaseTimer(torch)
+    timer.wrap(S, "init_all_beliefs", "init_all_beliefs")
+    timer.wrap(S, "approx_conv", "init_all_beliefs.approx_conv")
+    timer.wrap(B.BatchedNonparametricSolver, "gs_pass", "gs_pass")
+    timer.wrap(B.BatchedNonparametricSolver, "sweep", "jacobi_sweep")
+    timer.wrap(B.BatchedNonparametricSolver, "write_back", "write_back")
+    timer.wrap(B, "_source_messages", "messages")
+    timer.wrap(V, "_gn_solve_target", "gauss_newton")
+    timer.wrap(B, "_masked_gibbs", "gibbs_products")
+    timer.wrap(P, "se2_pairwise_logw", "k2")
+    timer.wrap(P, "euclid_pairwise_logw", "k3")
+    return timer
+
+
+def default_phases(torch, card, make_graph, tag, n):
+    timer = _default_timer(torch)
+    rows = []
+    try:
+        for _ in range(n):
+            row = default_solve(torch, make_graph())
+            row["phases_s"], row["phase_calls"] = timer.take()
+            row["gs_pass_each_s"] = timer.each.get("gs_pass", [])
+            row["jacobi_sweep_each_s"] = timer.each.get("jacobi_sweep", [])
+            rows.append(row)
+            print(f"[{card}] {tag} phases (CUDA events): " + json.dumps(row))
+    finally:
+        timer.unwrap()
+    return rows
+
+
+def device_profiled(torch, card, solve):
+    """torch.profiler with device activity only over one solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        row = solve()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    total, busy, span = busy_share(kernels) if kernels else (0, 0, 0)
+    res = dict(solve=row, kernels=len(kernels), kernel_time_ms=total / 1e3,
+               device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,
+               busy_share=busy / span if span else None)
+    print(f"[{card}] profiled solve (device activity): " + json.dumps(res))
+    return res
+
+
+def profile_default(torch, card):
+    from rome_tpu_torch import generate_graph_honeycomb
+    from rome_tpu_torch.ops import pairwise_cuda as P
+
+    t0 = time.time()
+    P.build()
+    print(f"[{card}] K2/K3 built in {time.time() - t0:.2f} s")
+
+    def honeycomb():
+        return generate_graph_honeycomb(pose_count_target=21, graphinit=True)
+
+    report = {"honeycomb21": default_phases(torch, card, honeycomb, "honeycomb-21", 2)}
+    report["profile"] = device_profiled(torch, card, lambda: default_solve(torch, honeycomb()))
+    fg = C.beehive_graph(C.BEEHIVE_POSES)
+    row = default_phases(torch, card, lambda: fg, f"beehive-{C.BEEHIVE_POSES} init=True", 1)[0]
+    truth = C._parametric_truth(C.beehive_graph(C.BEEHIVE_POSES), "cuda")
+    row["mean_pose_err_m"], row["max_pose_err_m"] = C._mean_err(fg, truth, r"^x\d+$")
+    print(f"[{card}] beehive-{C.BEEHIVE_POSES} cold init=True solve: "
+          f"{row['solve_time_s']:.3f} s, mean pose error {row['mean_pose_err_m']:.4f} m "
+          f"(max {row['max_pose_err_m']:.4f}) against the parametric optimum")
+    report["beehive_default"] = row
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solves", type=int, default=6)
-    ap.add_argument("--path", choices=("citygrid", "beehive"), default="citygrid")
+    ap.add_argument("--path", choices=("citygrid", "beehive", "default"), default="citygrid")
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"))
     args = ap.parse_args()
 
@@ -319,9 +388,10 @@ def main():
     print(card)
     os.makedirs(args.out, exist_ok=True)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
-    if args.path == "beehive":
-        report.update(profile_beehive(torch, card, args.out))
-        with open(os.path.join(args.out, "profile_beehive.json"), "w") as fh:
+    if args.path in ("beehive", "default"):
+        report.update(profile_beehive(torch, card, args.out) if args.path == "beehive"
+                      else profile_default(torch, card))
+        with open(os.path.join(args.out, f"profile_{args.path}.json"), "w") as fh:
             json.dump(report, fh, indent=1)
         print(card)
         return 0

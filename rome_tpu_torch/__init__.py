@@ -7,9 +7,12 @@ Ported so far:
   batches, chordal initialization and Levenberg-Marquardt with the
   nested-dissection sparse Cholesky (``linear="ndchol"``) or the dense
   solver, with the Pose2Pose2 linearize as a hand-written CUDA kernel (K1);
-- slice C, batched path: the nonparametric (multimodal) solve of a beehive
-  graph with the points init, with the Gibbs pairwise scores as hand-written
-  CUDA kernels (K2 for SE(2), K3 for per-dim manifolds).
+- slice C: the nonparametric (multimodal) engine — the particle graph init
+  and ``approx_conv`` with multihypo/nullhypo, the batched engine (Gauss-
+  Seidel passes, Jacobi sweeps, the per-factor fallback), the loop engine
+  and the Bayes-tree solve with clique recycling — with the Gibbs pairwise
+  scores as hand-written CUDA kernels (K2 for SE(2), K3 for per-dim
+  manifolds).
 
 Every tensor lives on the device the caller names (``device="cpu"`` or
 ``"cuda"``); nothing here picks a device by itself.
@@ -22,13 +25,37 @@ from rome_tpu_torch.variables import (
     list_variable_types,
     register_variable_type,
 )
-from rome_tpu_torch.distributions import MvNormal, Normal
+from rome_tpu_torch.distributions import (
+    Categorical,
+    Mixture,
+    MvNormal,
+    Normal,
+    Uniform,
+    dist_mean_cov,
+)
 from rome_tpu_torch.graph.graph import FactorGraph, SolverParams
 from rome_tpu_torch.factors import *  # noqa: F401,F403 — registers + exports factor ctors
 from rome_tpu_torch.io import import_g2o, load_g2o
 from rome_tpu_torch.solvers.gauss_newton import GNOptions
 from rome_tpu_torch.solvers.parametric import solve_graph_parametric
-from rome_tpu_torch.solvers.multimodal.solve import solve_graph_nonparametric
-from rome_tpu_torch.canonical import generate_graph_beehive
+from rome_tpu_torch.solvers.multimodal import (
+    approx_conv,
+    build_tree_from_ordering,
+    calc_cliques_recycled,
+    get_elimination_order,
+    init_all_beliefs,
+    predict_belief,
+    solve_graph_nonparametric,
+    solve_tree,
+)
+from rome_tpu_torch.canonical import (
+    build_graph_chain,
+    generate_graph_beehive,
+    generate_graph_circle,
+    generate_graph_hexagonal,
+    generate_graph_honeycomb,
+    generate_graph_two_pose_odo,
+    generate_graph_zero_pose,
+)
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Canonical pattern generators (counterpart of
-``rome_tpu/canonical/patterns.py``): the Beehive walk.
+``rome_tpu/canonical/patterns.py``): the Beehive walk and the Honeycomb.
 
 Re-sighted landmarks merge by position against the ``simulated`` ground-truth
 PPEs (``_check_variable_by_reference``). The walk draws from
@@ -77,6 +77,33 @@ def _add_landmark_beehive(
     if not already:
         fg.set_ppe(gen_label, sim, "simulated")
     return gen_label
+
+
+def _drive_hex(
+    fg: FactorGraph,
+    posecount: int,
+    pose_count_target=float("inf"),
+    graphinit: bool = False,
+    add_landmarks: bool = True,
+    landmark_solvable: int = 1,
+    atol: float = 1.0,
+    postpose_cb: Optional[Callable] = None,
+):
+    """_driveHex! (GenerateHoneycomb.jl:103-132): six +pi/3 legs."""
+    for i in range(posecount, posecount + 6):
+        if pose_count_target <= posecount:
+            break
+        psym = f"x{i}"
+        pp = Pose2Pose2(MvNormal([10.0, 0, np.pi / 3], np.diag([0.1, 0.1, 0.1]) ** 2))
+        posecount += 1
+        v = _add_pose_canonical(
+            fg, psym, posecount, pp, graphinit=graphinit, postpose_cb=postpose_cb
+        )
+        if add_landmarks:
+            _add_landmark_beehive(
+                fg, v.label, solvable=landmark_solvable, atol=atol, graphinit=False
+            )
+    return posecount
 
 
 def _offset_hex_leg(
@@ -164,3 +191,57 @@ def generate_graph_beehive(
     for l in fg.lsf():
         fg.set_solvable(l, solvable)
     return fg
+
+
+# pose offset legs of the deterministic honeycomb walk
+# (GenerateHoneycomb.jl:46-49)
+_HONEYCOMB_OFFSET_LEGS = {"x41": "left", "x63": "left", "x78": "left"}
+
+
+def generate_graph_honeycomb(
+    pose_count_target: int = 36,
+    fg: Optional[FactorGraph] = None,
+    graphinit: bool = False,
+    direction: str = "right",
+    solvable: int = 1,
+    add_landmarks: bool = True,
+    landmark_solvable: int = 0,
+    atol: float = 1.0,
+    postpose_cb: Optional[Callable] = None,
+):
+    """generateGraph_Honeycomb! (GenerateHoneycomb.jl:180-232): the
+    deterministic honeycomb, landmarks merged by simulated-position match.
+    Called again on the same graph, it grows it to ``pose_count_target``."""
+    if fg is None:
+        fg = FactorGraph()
+        fg.params.graphinit = graphinit
+    posecount = _posecount(fg)
+    if posecount < 0:
+        generate_graph_zero_pose(fg=fg, var_type=Pose2, postpose_cb=postpose_cb)
+        if add_landmarks:
+            _add_landmark_beehive(
+                fg, "x0", solvable=landmark_solvable, atol=atol, graphinit=False
+            )
+        posecount = 0
+
+    leg = dict(graphinit=graphinit, add_landmarks=add_landmarks,
+               landmark_solvable=landmark_solvable, atol=atol,
+               pose_count_target=pose_count_target, postpose_cb=postpose_cb)
+    while posecount < pose_count_target:
+        posecount = _drive_hex(fg, posecount, **leg)
+        last_pose = f"x{posecount}"
+        if last_pose in _HONEYCOMB_OFFSET_LEGS:
+            posecount = _offset_hex_leg(
+                fg, posecount, direction=_HONEYCOMB_OFFSET_LEGS[last_pose], **leg
+            )
+        posecount = _offset_hex_leg(fg, posecount, direction=direction, **leg)
+    for l in fg.ls():
+        fg.set_solvable(l, solvable)
+    for l in fg.lsf():
+        fg.set_solvable(l, solvable)
+    return fg
+
+
+# reference-style aliases
+generateGraph_Beehive = generate_graph_beehive
+generateGraph_Honeycomb = generate_graph_honeycomb

@@ -6,16 +6,19 @@ Julia convention parity, as in the JAX package:
   - ``MvNormal(mu, S::Matrix)``: matrix argument is a COVARIANCE.
 
 Means and covariances are host numpy; they lower to tensors at graph-lowering
-time. Sampling belongs to the nonparametric engine, which is not ported yet.
+time. ``sample(generator, n, device, dtype)`` draws ``(n, dim)`` samples on
+``device`` from the caller's ``torch.Generator`` (the nonparametric engine's
+measurement sampling).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class Distribution:
-    """Base: a belief with a (mean, cov) parametric summary."""
+    """Base: a samplable belief with a (mean, cov) parametric summary."""
 
     dim: int
 
@@ -24,6 +27,14 @@ class Distribution:
 
     def cov(self) -> np.ndarray:
         raise NotImplementedError
+
+    def sample(self, generator, n: int, device="cpu", dtype=torch.float32) -> torch.Tensor:
+        """Draw (n, dim) samples."""
+        raise NotImplementedError
+
+
+def _randn(generator, shape, device, dtype):
+    return torch.randn(shape, generator=generator, device=device, dtype=dtype)
 
 
 class Normal(Distribution):
@@ -39,6 +50,9 @@ class Normal(Distribution):
 
     def cov(self):
         return np.array([[self.sigma**2]])
+
+    def sample(self, generator, n, device="cpu", dtype=torch.float32):
+        return self.mu + self.sigma * _randn(generator, (n, 1), device, dtype)
 
     def __repr__(self):
         return f"Normal({self.mu}, {self.sigma})"
@@ -66,5 +80,95 @@ class MvNormal(Distribution):
     def cov(self):
         return self._cov.copy()
 
+    def sample(self, generator, n, device="cpu", dtype=torch.float32):
+        L = np.linalg.cholesky(self._cov + 1e-12 * np.eye(self.dim))
+        z = _randn(generator, (n, self.dim), device, dtype)
+        mu = torch.as_tensor(self.mu, dtype=dtype, device=device)
+        return mu + z @ torch.as_tensor(L, dtype=dtype, device=device).T
+
     def __repr__(self):
         return f"MvNormal(dim={self.dim})"
+
+
+class Uniform(Distribution):
+    def __init__(self, a: float = 0.0, b: float = 1.0):
+        self.a, self.b = float(a), float(b)
+        self.dim = 1
+
+    def mean(self):
+        return np.array([0.5 * (self.a + self.b)])
+
+    def cov(self):
+        return np.array([[(self.b - self.a) ** 2 / 12.0]])
+
+    def sample(self, generator, n, device="cpu", dtype=torch.float32):
+        u = torch.rand((n, 1), generator=generator, device=device, dtype=dtype)
+        return self.a + (self.b - self.a) * u
+
+    def __repr__(self):
+        return f"Uniform({self.a}, {self.b})"
+
+
+def _categorical(generator, p, n, device, dtype):
+    """(n,) int64 draws from the probabilities ``p`` (Gumbel-max)."""
+    from rome_tpu_torch.solvers.multimodal.kde import categorical
+
+    logits = torch.log(torch.as_tensor(p, dtype=dtype, device=device))
+    return categorical(logits.expand(n, len(p)), generator)
+
+
+class Categorical(Distribution):
+    """Discrete distribution over 1..K (hypothesis weights, multihypo); draws
+    are the 0-based category indices as floats, as the JAX package's are."""
+
+    def __init__(self, p):
+        self.p = np.asarray(p, dtype=np.float64)
+        self.p = self.p / self.p.sum()
+        self.dim = 1
+
+    def mean(self):
+        return np.array([float(np.argmax(self.p))])
+
+    def cov(self):
+        return np.array([[1.0]])
+
+    def sample(self, generator, n, device="cpu", dtype=torch.float32):
+        return _categorical(generator, self.p, n, device, dtype)[:, None].to(dtype)
+
+    def __repr__(self):
+        return f"Categorical({self.p})"
+
+
+class Mixture(Distribution):
+    """Weighted mixture of component beliefs (cf. IIF ``Mixture`` factors)."""
+
+    def __init__(self, components, weights=None):
+        self.components = list(components)
+        k = len(self.components)
+        self.weights = np.full(k, 1.0 / k) if weights is None else np.asarray(weights, float)
+        self.weights = self.weights / self.weights.sum()
+        self.dim = self.components[0].dim
+
+    def mean(self):
+        return sum(w * c.mean() for w, c in zip(self.weights, self.components))
+
+    def cov(self):
+        # moment-matched covariance
+        m = self.mean()
+        out = np.zeros((self.dim, self.dim))
+        for w, c in zip(self.weights, self.components):
+            d = (c.mean() - m).reshape(-1, 1)
+            out += w * (c.cov() + d @ d.T)
+        return out
+
+    def sample(self, generator, n, device="cpu", dtype=torch.float32):
+        labels = _categorical(generator, self.weights, n, device, dtype)
+        comps = torch.stack([c.sample(generator, n, device, dtype) for c in self.components])
+        return comps[labels, torch.arange(n, device=device)]  # (n, dim)
+
+    def __repr__(self):
+        return f"Mixture({len(self.components)} comps)"
+
+
+def dist_mean_cov(d: Distribution):
+    return d.mean(), d.cov()

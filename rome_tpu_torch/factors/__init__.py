@@ -14,6 +14,11 @@ from rome_tpu_torch.factors.bearing_range import (
     Pose2Point2BearingRange,
     Pose2Point2Range,
 )
+from rome_tpu_torch.factors.point2 import (
+    Point2Point2,
+    Point2Point2Range,
+    PriorPoint2,
+)
 from rome_tpu_torch.factors.pose2 import (
     MutablePose2Pose2Gaussian,
     Pose2Pose2,
@@ -29,9 +34,12 @@ __all__ = [
     "make_gaussian_factor",
     "register_factor_type",
     "MutablePose2Pose2Gaussian",
+    "Point2Point2",
+    "Point2Point2Range",
     "Pose2Point2Bearing",
     "Pose2Point2BearingRange",
     "Pose2Point2Range",
     "Pose2Pose2",
+    "PriorPoint2",
     "PriorPose2",
 ]

@@ -8,7 +8,9 @@ eager float64 torch on the CPU.
 
 from __future__ import annotations
 
+import os
 import re
+import tempfile
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -28,9 +30,20 @@ class SolverParams:
 
     N: int = 100                      # particles per belief
     graphinit: bool = True            # init new variables by factor propagation
-    treeinit: bool = False            # Bayes-tree solve (not ported yet)
+    treeinit: bool = False            # solve_graph_nonparametric routes through the Bayes tree
+    downsolve: bool = True            # the tree solve's root-to-leaves pass
     multiproc: bool = False           # multi-device solve (not ported yet)
+    drawtree: bool = False            # write the ASCII Bayes tree to logpath/bt.txt
+    showtree: bool = False            # print the ASCII Bayes tree after the build
+    # True: the tree upsolve restricts each clique's messages to its
+    # subtree-assigned factors; False: full neighborhood belief products
+    useMsgLikelihoods: bool = True
     inflation: float = 5.0            # nonparametric init-noise scale
+    maxincidence: int = 500           # elimination-order guard against hub variables
+    dbg: bool = False                 # write the tree solve's summary to logpath
+    logpath: str = field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "rome_tpu")
+    )
     max_iters: int = 100
     lm_lambda0: float = 1e-4
     dtype: str = "float32"
@@ -71,6 +84,7 @@ class FactorGraph:
         self._var_order: list[str] = []
         self._fct_order: list[str] = []
         self._type_counts: dict[str, int] = {}
+        self._adj: dict[str, list[str]] = {}  # var label -> factor labels
 
     # -- construction ---------------------------------------------------------
     def add_variable(
@@ -97,6 +111,7 @@ class FactorGraph:
         )
         self.variables[label] = rec
         self._var_order.append(label)
+        self._adj[label] = []
         return rec
 
     def add_factor(
@@ -116,22 +131,37 @@ class FactorGraph:
         for v in var_labels:
             if v not in self.variables:
                 raise KeyError(f"unknown variable {v!r}")
-        if multihypo is not None:
-            raise NotImplementedError(
-                "multihypo factors take the nonparametric engine's per-factor "
-                "fallback, which is not ported yet (ROADMAP slice C)"
-            )
         expect = factor.ftype.variable_types
-        if len(var_labels) != len(expect):
-            raise ValueError(
-                f"{factor.ftype.name} expects {len(expect)} variables, got {len(var_labels)}"
-            )
-        for v, et in zip(var_labels, expect):
-            at = self.variables[v].vtype
-            if at.name != et.name:
-                raise TypeError(
-                    f"{factor.ftype.name} slot expects {et.name}, variable {v} is {at.name}"
+        if multihypo is not None and len(var_labels) > len(expect):
+            # multihypo layout: the extra variables are data-association
+            # candidates for the LAST factor slot; all share that slot's type
+            for v, et in zip(var_labels[: len(expect) - 1], expect[:-1]):
+                at = self.variables[v].vtype
+                if at.name != et.name:
+                    raise TypeError(
+                        f"{factor.ftype.name} slot expects {et.name}, variable {v} is {at.name}"
+                    )
+            last = expect[-1]
+            for v in var_labels[len(expect) - 1:]:
+                at = self.variables[v].vtype
+                if at.name != last.name:
+                    raise TypeError(
+                        f"{factor.ftype.name} candidate slot expects {last.name}, "
+                        f"variable {v} is {at.name}"
+                    )
+            if len(multihypo) != len(var_labels):
+                raise ValueError("multihypo length must match variables")
+        else:
+            if len(var_labels) != len(expect):
+                raise ValueError(
+                    f"{factor.ftype.name} expects {len(expect)} variables, got {len(var_labels)}"
                 )
+            for v, et in zip(var_labels, expect):
+                at = self.variables[v].vtype
+                if at.name != et.name:
+                    raise TypeError(
+                        f"{factor.ftype.name} slot expects {et.name}, variable {v} is {at.name}"
+                    )
         factor.variables = var_labels
         factor.label = label or (factor.ftype.name.lower() + "f_" + "_".join(var_labels))
         if factor.label in self.factors:
@@ -140,7 +170,7 @@ class FactorGraph:
                 k += 1
             factor.label = f"{factor.label}_{k}"
         factor.solvable = int(solvable)
-        factor.multihypo = None
+        factor.multihypo = list(multihypo) if multihypo is not None else None
         factor.nullhypo = float(nullhypo)
         factor.tags = tuple(tags)
         factor.inflation = inflation
@@ -149,6 +179,8 @@ class FactorGraph:
         )
         self.factors[factor.label] = factor
         self._fct_order.append(factor.label)
+        for v in var_labels:
+            self._adj[v].append(factor.label)
 
         do_init = self.params.graphinit if graphinit is None else graphinit
         if do_init:
@@ -181,6 +213,13 @@ class FactorGraph:
 
     def get_factor(self, label: str) -> Factor:
         return self.factors[str(label)]
+
+    def neighbors(self, label: str):
+        """A variable's factor labels, or a factor's variable labels."""
+        label = str(label)
+        if label in self.variables:
+            return list(self._adj[label])
+        return list(self.factors[label].variables)
 
     @property
     def num_variables(self):

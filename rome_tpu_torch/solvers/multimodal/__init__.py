@@ -15,3 +15,15 @@ from rome_tpu_torch.solvers.multimodal.batched import (
     BatchedNonparametricSolver,
     build_propagator,
 )
+from rome_tpu_torch.solvers.multimodal.tree import (
+    BayesTree,
+    Clique,
+    build_tree_from_ordering,
+    buildTreeFromOrdering,
+    calc_cliques_recycled,
+    calcCliquesRecycled,
+    get_elimination_order,
+    getEliminationOrder,
+    solve_tree,
+    solveTree,
+)

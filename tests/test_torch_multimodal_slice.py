@@ -11,7 +11,8 @@ The engines draw from different generators (``jax.random`` keys, a
   below 1.0 (tools/bench_multimodal.py:93's cross-engine gate), from each
   engine's own init and from identical starting particles;
 - frozen variables keep their beliefs bit-identical;
-- what is not ported raises NotImplementedError.
+- unknown options raise ValueError/TypeError, and what is not ported yet
+  raises NotImplementedError naming its slice.
 """
 
 import numpy as np
@@ -28,7 +29,6 @@ from rome_tpu.solvers.multimodal.batched import BatchedNonparametricSolver as Ja
 from rome_tpu_torch.canonical import generate_graph_beehive as port_beehive  # noqa: E402
 from rome_tpu_torch.graph.convert import beliefs_from_numpy  # noqa: E402
 from rome_tpu_torch.manifolds.base import SE2_  # noqa: E402
-from rome_tpu_torch.solvers.multimodal import solve as S  # noqa: E402
 from rome_tpu_torch.solvers.multimodal.batched import BatchedNonparametricSolver  # noqa: E402
 from rome_tpu_torch.solvers.multimodal.metrics import symmetric_kl_knn  # noqa: E402
 
@@ -132,22 +132,46 @@ def test_frozen_variables_keep_their_beliefs():
     assert len(moved) == len(ft._var_order) - len(frozen)
 
 
-def test_unported_options_raise():
+def test_option_errors():
     fg = _beehive(port_beehive)
-    with pytest.raises(NotImplementedError, match="init=True"):
-        T.solve_graph_nonparametric(fg, N=10)
-    with pytest.raises(NotImplementedError, match="loop"):
-        T.solve_graph_nonparametric(fg, N=10, engine="loop", init="points")
     with pytest.raises(ValueError, match="engine"):
         T.solve_graph_nonparametric(fg, N=10, engine="fast", init="points")
+    with pytest.raises(ValueError, match="init"):
+        T.solve_graph_nonparametric(fg, N=10, init="random")
+    with pytest.raises(ValueError, match="init"):
+        T.solve_graph_nonparametric(fg, N=10, engine="loop", init="random")
+    with pytest.raises(ValueError, match="engine"):
+        T.solve_tree(fg, N=10, engine="fast")
     fg.params.treeinit = True
-    with pytest.raises(NotImplementedError, match="Bayes-tree"):
-        T.solve_graph_nonparametric(fg, N=10, init="points")
-    for fn in (S.predict_belief, S.init_all_beliefs, S.predictbelief, S.initAll,
-               T.solvers.multimodal.approx_conv):
-        with pytest.raises(NotImplementedError, match="slice C"):
-            fn(fg, "x0")
-    with pytest.raises(NotImplementedError, match="multihypo"):
-        fg.add_factor(["x0", "l0", "l1"],
-                      T.Pose2Point2BearingRange(T.Normal(0, 0.1), T.Normal(20, 0.5)),
-                      multihypo=[1.0, 0.5, 0.5])
+    with pytest.raises(ValueError, match="engine"):
+        T.solve_graph_nonparametric(fg, N=10, engine="fast")
+    br = T.Pose2Point2BearingRange(T.Normal(0, 0.1), T.Normal(20, 0.5))
+    with pytest.raises(ValueError, match="multihypo length"):
+        fg.add_factor(["x0", "l0", "l1"], br, multihypo=[1.0, 0.5])
+    with pytest.raises(TypeError, match="candidate slot expects Point2"):
+        fg.add_factor(["x0", "l0", "x1"], br, multihypo=[1.0, 0.5, 0.5])
+    with pytest.raises(ValueError, match="expects 2 variables"):
+        fg.add_factor(["x0", "l0", "l1"], br)
+    n = fg.num_factors
+    f = fg.add_factor(["x0", "l0", "l1"], br, multihypo=[1.0, 0.5, 0.5], graphinit=False)
+    assert fg.num_factors == n + 1 and f.multihypo == [1.0, 0.5, 0.5]
+
+
+def test_unported_options_raise():
+    """What the port does not have yet raises NotImplementedError naming the
+    ROADMAP slice that brings it: manifolds without a Gibbs pairwise score
+    and the default priors of the unported variable types (slice B3)."""
+    from rome_tpu_torch.canonical import generate_graph_zero_pose
+    from rome_tpu_torch.manifolds.base import TranslationGroup
+    from rome_tpu_torch.solvers.multimodal.kde import pairwise_logw
+    from rome_tpu_torch.variables import VariableType
+
+    class Wide(TranslationGroup):
+        pass
+
+    with pytest.raises(NotImplementedError, match="slice B3"):
+        pairwise_logw(Wide(9))
+    with pytest.raises(NotImplementedError, match="slice B"):
+        generate_graph_zero_pose(var_type=VariableType("Point9", Wide(9)))
+    fg = generate_graph_zero_pose(var_type=T.Point2, mu0=[1.0, 2.0])
+    assert fg.factors[fg._fct_order[0]].ftype.name == "PriorPoint2"
