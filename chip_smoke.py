@@ -8,20 +8,30 @@
    full float32).
 2. Builds the hand-written CUDA kernel libraries with nvcc from the
    checkout's sources, one nvcc per source, all started together: K1
-   (Pose2Pose2 linearize) and K2/K3 (Gibbs pairwise scores); prints the
-   build seconds and the ptxas reports.
+   (Pose2Pose2 linearize) and K2/K3 (Gibbs pairwise scores and label
+   draws); prints the build seconds and the ptxas reports. Measures the
+   card's stream copy rate (1 GiB, CUDA events).
 3. K1 phase: K1 against its plain PyTorch version on the card, on seeded
    random inputs at n in {1, 1000, 8192, 10000, 13085}, float32 (atol 2e-5,
    the JAX package's Pallas-kernel tolerance) and float64 (atol 1e-10);
-   both timed with CUDA events at n = 13,085.
-4. K2/K3 phase: both kernels against their plain versions, float32 at rtol
-   = atol = 2e-5 (tests/test_ops_pairwise.py:43), at (V, N, Nj) = (1, 1, 1),
-   (1, 37, 101), the beehive-100 shapes (101, 100, 100) and (74, 100, 100),
-   the default engine's shapes (1, 100, 100) (one variable's product in a
-   Gauss-Seidel pass or the loop engine), (22, 100, 100) and (14, 100, 100)
-   (the honeycomb-21 Pose2 and Point2 sweeps), and (101, 512, 512); K3 at dof 1, 2, 3 and 8 with mixed circular masks
-   and angles at and near +-pi. Kernels and plain versions timed with CUDA
-   events at the beehive shapes.
+   both timed at n = 13,085 per host call (CUDA events) and per launch on
+   the device (torch.profiler), beside the bound.
+4. K2/K3 phase: both epilogues of both kernels against their plain
+   versions at (V, N, Nj) = (1, 1, 1), (1, 37, 101), the beehive-100 shapes
+   (101, 100, 100) and (74, 100, 100), the default engine's shapes
+   (1, 100, 100) (one variable's product in a Gauss-Seidel pass or the loop
+   engine), (22, 100, 100) and (14, 100, 100) (the honeycomb-21 Pose2 and
+   Point2 sweeps), and (101, 512, 512); K3 at dof 1, 2, 3 and 8 with mixed
+   circular masks and angles at and near +-pi. The logw epilogue within
+   rtol = atol = 2e-5 (tests/test_ops_pairwise.py:43); the draw epilogue,
+   fed the same uniforms as the plain draw, gives equal labels on >= 99.9 %
+   of each kernel's rows, and every row that differs is a near-tie (the
+   plain score of the kernel's pick within 1e-4 * (1 + |max|) of the plain
+   maximum). At the beehive shapes and at V = 1: device time per call
+   (torch.profiler) of both epilogues, the plain versions, a Gibbs label
+   update as it was (scores, then ``categorical``) and as it is (uniforms,
+   then the draw), and for K3 the one-call library form of its linear case
+   (``torch.cdist``); the draw per host call (CUDA events); the bounds.
 5. Citygrid path: the batch SE(2) solve of data/citygrid.g2o (10,000 poses,
    13,085 odometry/loop-closure edges, x0 prior) through the port's public
    entry points on device "cuda" — g2o load, chordal init, Levenberg-
@@ -36,16 +46,17 @@
    init="points", device="cuda")``, once cold and twice warm, each on a
    fresh graph. Each run's mean 2-D pose error of the belief means against
    the port's own parametric optimum of the same graph must be below 0.5 m
-   (tools/bench_multimodal.py:130's gate), and K2 and K3 must each launch
-   3 sweeps x 3 Gibbs sweeps x K = 3 = 27 times per solve.
+   (tools/bench_multimodal.py:130's gate), and the draw epilogues of K2 and
+   K3 must each launch 3 sweeps x 3 Gibbs sweeps x K = 3 = 27 times per
+   solve, their logw epilogues never.
 7. Honeycomb grow, the default engine: ``generate_graph_honeycomb`` grown
    7 -> 14 -> 21 poses (graphinit), after each step
    ``solve_graph_nonparametric(fg, sweeps=3, N=100, engine="batched",
    init=True, device="cuda")`` (tools/bench_multimodal.py:154-196). Prints
    each step's seconds and each Gauss-Seidel pass's; the mean landmark and
    mean pose errors of the final graph against the port's own parametric
-   optimum must both be below 4.0 m, and K2 and K3 must each launch in every
-   step.
+   optimum must both be below 4.0 m, and the K2 and K3 draws must each
+   launch in every step.
 8. Bayes-tree grow: ``solve_tree(fg, old_tree=tree, N=100, device="cuda")``
    over the honeycomb grown 7 -> 14 (bench_multimodal.py:199-240). The regrow
    must recycle at least one clique, every recycled clique's frontal beliefs
@@ -61,9 +72,14 @@
    mass on both modes; then a batched ``init=True`` solve of the hexagonal
    graph plus one multihypo bearing-range factor, whose messages take the
    per-factor fallback, must leave every belief finite.
-11. Prints the kernel table as one JSON line (K2/K3 launches summed over
-   every nonparametric path, each path counted from 0), the card line, and
-   as the last line {"ok": true, "device": {...}}; writes
+11. Every Gibbs label update of every nonparametric path goes through the
+   draw epilogues: each path launches both draws and no logw, and its draw
+   counts equal the label updates its graphs' structure makes (PATH_DRAWS).
+   Prints the kernel table as one JSON line (K1, and K2/K3 by the draw
+   epilogue the paths launch, with the logw epilogue nested; launches
+   summed over every nonparametric path, each path counted from 0; each
+   with its bound from the published HBM and fp32 peaks), the card line,
+   and as the last line {"ok": true, "device": {...}}; writes
    chiprun_out/chip_smoke.json.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
@@ -96,6 +112,16 @@ BIG = dict(
 K1_SIZES = (1, 1000, 8192, 10000, 13085)
 K1_TIMED_N = 13085
 PAIRWISE_TOL = dict(rtol=2e-5, atol=2e-5)
+# the draw epilogue: labels equal to the plain draw's on >= LABEL_AGREE of the
+# rows of each kernel, and every other row a near-tie within NEAR_TIE * (1 + |max|)
+LABEL_AGREE, NEAR_TIE = 0.999, 1e-4
+# (kernel, V, dof) timed at N = Nj = 100: the beehive-100 Pose2 and Point2
+# products, and one variable's product (Gauss-Seidel passes, loop engine)
+TIMED = (("K2", 101, 3), ("K3", 74, 2), ("K2", 1, 3), ("K3", 1, 2))
+# H100 SXM published peaks (dense, no sparsity): HBM bytes/s, non-tensor fp32
+HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
+# K1 per factor in float32: 19 values read, 21 written; ~60 flops + 2 sincos
+K1_BYTES, K1_FLOPS = 160, 80
 # (V, N, Nj): one pair, off every tile, the beehive-100 shapes, one variable's
 # product (the Gauss-Seidel passes, the loop engine), the honeycomb-21 Pose2
 # and Point2 sweeps, a large batch
@@ -112,6 +138,11 @@ GROW_GATE_M = 4.0             # testBeehiveGrow.jl:44-46's landmark atol band
 BAND_M, BAND_RAD, BAND_MIN = 3.0, 0.3, 35  # per 100 particles
 KL_GATE = 1.0
 MULTIHYPO_N = 400
+# the Gibbs label updates (one draw launch each: K2, K3) each nonparametric
+# path makes at these sizes; they depend on the graphs' structure alone
+PATH_DRAWS = {"beehive_points": (81, 81), "honeycomb_grow_default": (1269, 279),
+              "bayes_tree_grow": (216, 144), "hexagonal_7pose": (297, 54),
+              "multihypo_range_bearing": (27, 27)}
 
 
 class SmokeFailure(RuntimeError):
@@ -198,7 +229,7 @@ def cuda_ms(fn, reps=200):
     return t0.elapsed_time(t1) / reps
 
 
-def kernel_phase(card):
+def kernel_phase(card, bytes_per_s):
     import torch
 
     from rome_tpu_torch.ops import linearize_cuda as K
@@ -221,12 +252,20 @@ def kernel_phase(card):
             check(finite and err <= atol[dt], f"K1 disagrees at n={n} {dt}: {err}")
             worst[dt] = max(worst.get(dt, 0.0), err)
     args = k1_inputs(K1_TIMED_N, torch.float32, "cuda", seed=1)
-    ms = cuda_ms(lambda: K.pose2pose2_linearize(*args))
-    plain_ms = cuda_ms(lambda: pose2pose2_linearize_plain(*args))
-    print(f"[{card}] K1 float32 n={K1_TIMED_N}: kernel {ms * 1e3:.2f} us, "
-          f"plain PyTorch {plain_ms * 1e3:.2f} us (CUDA events, 200 calls)")
+    call_ms = cuda_ms(lambda: K.pose2pose2_linearize(*args))
+    plain_call_ms = cuda_ms(lambda: pose2pose2_linearize_plain(*args))
+    dev = device_ms((("kernel", lambda: K.pose2pose2_linearize(*args)),
+                     ("plain", lambda: pose2pose2_linearize_plain(*args))))
+    bound_ms, bound_by = bound(K1_BYTES * K1_TIMED_N, K1_FLOPS * K1_TIMED_N)
+    bound_stream_ms, _ = bound(K1_BYTES * K1_TIMED_N, K1_FLOPS * K1_TIMED_N, bytes_per_s)
+    print(f"[{card}] K1 float32 n={K1_TIMED_N}: kernel {call_ms * 1e3:.2f} us, "
+          f"plain PyTorch {plain_call_ms * 1e3:.2f} us per host call (CUDA events, 200 calls); "
+          f"device {dev['kernel']['ms'] * 1e3:.3f} us, plain {dev['plain']['ms'] * 1e3:.3f} us "
+          f"(torch.profiler); bound {bound_ms * 1e3:.3f} us ({bound_by})")
     return {"max_abs_err": worst[torch.float32], "max_abs_err_f64": worst[torch.float64],
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": dev["kernel"]["ms"], "plain_ms": dev["plain"]["ms"], "call_ms": call_ms,
+            "plain_call_ms": plain_call_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_stream_ms": bound_stream_ms}
 
 
 def build_graph(path):
@@ -309,9 +348,9 @@ def main_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT):
     return runs, total_launches
 
 
-def pairwise_inputs(V, N, Nj, d, device, seed=0):
-    """Seeded Gibbs-score inputs (ref, mu, pts, inv_var) and a mixed circular
-    mask; angles include values at and next to +-pi."""
+def pairwise_inputs(V, N, Nj, d, device, seed=0, circ=None):
+    """Seeded Gibbs-score inputs (ref, mu, pts, inv_var) and a circular mask
+    (mixed unless given); angles include values at and next to +-pi."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -323,57 +362,210 @@ def pairwise_inputs(V, N, Nj, d, device, seed=0):
     pts[:, :4, -1] = -np.float32(np.pi)
     mu = rng.normal(size=(V, N, d)) * 0.5
     iv = rng.uniform(0.5, 4.0, (V, d))
-    circ = (np.arange(d) % 2 == 0).astype(np.float32)
+    if circ is None:
+        circ = (np.arange(d) % 2 == 0).astype(np.float32)
     arrs = [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
             for a in (ref, mu, pts, iv)]
-    return arrs, torch.as_tensor(circ, device=device)
+    return arrs, torch.as_tensor(np.asarray(circ, np.float32), device=device)
 
 
-def pairwise_phase(card):
+def gibbs_work(kernel, V, N, Nj, d, draw):
+    """(bytes, flops) a Gibbs-score launch must move and compute: each input
+    read once, each output written once; flops per (n, j) pair as the source
+    counts them (an FMA is 2, floor, division and log 1 each)."""
+    pairs = V * N * Nj
+    read = 4 * (2 * V * N * d + V * Nj * d + V * d + (d if kernel == "K3" else 0))
+    flops = pairs * (26 if kernel == "K2" else 10 * d + 1)
+    if draw:  # + u read, labels written; fmax, two logs, two negations, add, compare
+        return read + 4 * pairs + 8 * V * N, flops + 7 * pairs
+    return read + 4 * pairs, flops
+
+
+def bound(nbytes, flops, bytes_per_s=HBM_BYTES_PER_S):
+    """The least time (ms) the card could take, and what bounds it."""
+    t_bytes, t_ops = nbytes / bytes_per_s, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def stream_bandwidth(card, n=1 << 28, reps=20):
+    """Device-to-device copy rate of a 1 GiB float32 buffer (bytes/s; read
+    + write), CUDA events over ``reps`` copies."""
+    import torch
+
+    x = torch.empty(n, dtype=torch.float32, device="cuda").uniform_()
+    y = torch.empty_like(x)
+    ms = cuda_ms(lambda: y.copy_(x), reps=reps)
+    rate = 2 * 4 * n / (ms / 1e3)
+    print(f"[{card}] stream copy of {4 * n / 2**30:.0f} GiB: {ms:.4f} ms, "
+          f"{rate / 1e12:.4f} TB/s (read + write)")
+    del x, y
+    torch.cuda.empty_cache()
+    return rate
+
+
+def device_ms(fns, reps=100):
+    """Device time per call (ms) of each labelled function: the kernels'
+    summed self device time under torch.profiler over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, fn in fns:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        out[label] = dict(ms=sum(e.self_device_time_total for e in ka) / reps / 1e3,
+                          kernels_per_call=sum(e.count for e in ka) / reps)
+    return out
+
+
+def draw_agreement(got, total):
+    """Labels of the kernel's draw against the plain draw's scores ``total``
+    (rows, Nj): (rows that differ, worst score gap at those rows). Every row
+    that differs must be a near-tie: the plain score of the kernel's pick
+    within NEAR_TIE * (1 + |max|) of the plain maximum."""
+    import torch
+
+    mx, want = total.max(dim=-1)
+    differ = torch.nonzero(got != want).flatten()
+    if len(differ) == 0:
+        return 0, 0.0
+    picked = total[differ, got[differ]]
+    gap = mx[differ] - picked
+    check(bool(((got >= 0) & (got < total.shape[-1])).all()), "draw labels out of range")
+    check(bool((gap <= NEAR_TIE * (1.0 + mx[differ].abs())).all()),
+          f"draw labels differ beyond a near-tie: gaps {gap.tolist()[:8]}")
+    return len(differ), float(gap.max())
+
+
+def pairwise_phase(card, bytes_per_s):
+    """K2 and K3, both epilogues, against their plain versions; then their
+    times at the main paths' shapes beside their bounds."""
     import torch
 
     from rome_tpu_torch.ops import pairwise_cuda as P
     from rome_tpu_torch.ops.pairwise import (
+        euclid_gibbs_draw_plain,
         euclid_pairwise_logw_plain,
+        se2_gibbs_draw_plain,
         se2_pairwise_logw_plain,
     )
+    from rome_tpu_torch.solvers.multimodal.kde import categorical
 
     worst = {"K2": 0.0, "K3": 0.0}
+    rows = {"K2": [0, 0, 0.0], "K3": [0, 0, 0.0]}  # rows, rows that differ, worst gap
 
     def compare(tag, got, want):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = bool(torch.isfinite(got).all()) and bool(torch.allclose(got, want, **PAIRWISE_TOL))
-        print(f"[{card}] {tag}: max_abs_err {err:.3e} max|logw| "
+        print(f"[{card}] {tag} logw: max_abs_err {err:.3e} max|logw| "
               f"{float(want.abs().max()):.3e} (rtol=atol=2e-5) ok={ok}")
-        check(ok and got.shape == want.shape, f"{tag} disagrees with its plain version")
+        check(ok and got.shape == want.shape, f"{tag} logw disagrees with its plain version")
         worst[tag[:2]] = max(worst[tag[:2]], err)
 
+    def compare_draw(tag, got, logw, u):
+        torch.cuda.synchronize()
+        V, N, Nj = u.shape
+        check(got.shape == (V, N) and got.dtype == torch.int64, f"{tag} draw misshapen")
+        total = (logw + (-torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny))))
+                 ).reshape(V * N, Nj)
+        differ, gap = draw_agreement(got.reshape(-1), total)
+        r = rows[tag[:2]]
+        r[0], r[1], r[2] = r[0] + V * N, r[1] + differ, max(r[2], gap)
+        print(f"[{card}] {tag} draw: {V * N - differ} of {V * N} labels equal to the plain "
+              f"draw, worst near-tie gap {gap:.3e}")
+
     for V, N, Nj in PAIRWISE_SHAPES:
+        u = torch.rand((V, N, Nj), generator=torch.Generator(device="cuda").manual_seed(V + N),
+                       device="cuda")
         arrs, _ = pairwise_inputs(V, N, Nj, 3, "cuda", seed=V + N)
-        compare(f"K2 V={V} N={N} Nj={Nj}", P.se2_pairwise_logw(*arrs),
-                se2_pairwise_logw_plain(*arrs))
+        logw = se2_pairwise_logw_plain(*arrs)
+        compare(f"K2 V={V} N={N} Nj={Nj}", P.se2_pairwise_logw(*arrs), logw)
+        compare_draw(f"K2 V={V} N={N} Nj={Nj}", P.se2_gibbs_draw(*arrs, u), logw, u)
         for d in K3_DOFS:
             arrs, circ = pairwise_inputs(V, N, Nj, d, "cuda", seed=V + N + d)
-            compare(f"K3 dof={d} V={V} N={N} Nj={Nj}", P.euclid_pairwise_logw(*arrs, circ),
-                    euclid_pairwise_logw_plain(*arrs, circ))
+            logw = euclid_pairwise_logw_plain(*arrs, circ)
+            compare(f"K3 dof={d} V={V} N={N} Nj={Nj}", P.euclid_pairwise_logw(*arrs, circ), logw)
+            compare_draw(f"K3 dof={d} V={V} N={N} Nj={Nj}",
+                         P.euclid_gibbs_draw(*arrs, circ, u), logw, u)
+    for k, (n_rows, differ, gap) in rows.items():
+        agree = 1.0 - differ / n_rows
+        print(f"[{card}] {k} draw: labels equal on {agree:.6f} of {n_rows} rows "
+              f"(gate {LABEL_AGREE})")
+        check(agree >= LABEL_AGREE, f"{k} draw labels equal on {agree} < {LABEL_AGREE} of rows")
 
-    times = {}
-    for name, V, d in (("K2", 101, 3), ("K3", 74, 2)):
-        arrs, circ = pairwise_inputs(V, BEEHIVE_N, BEEHIVE_N, d, "cuda", seed=5)
+    # times at the main paths' shapes: (V, 100, 100) with V the beehive-100
+    # type counts, and V = 1 (the Gauss-Seidel passes, the loop engine)
+    timed = {}
+    for name, V, d in TIMED:
+        N = Nj = BEEHIVE_N
+        circ0 = None if name == "K2" else np.zeros(d, np.float32)  # Point2: linear dims
+        arrs, circ = pairwise_inputs(V, N, Nj, d, "cuda", seed=5, circ=circ0)
+        u = torch.rand((V, N, Nj), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(9)
         if name == "K2":
-            fns = (lambda: P.se2_pairwise_logw(*arrs), lambda: se2_pairwise_logw_plain(*arrs))
+            logw_k = lambda: P.se2_pairwise_logw(*arrs)  # noqa: E731
+            draw_u = lambda uu: P.se2_gibbs_draw(*arrs, uu)  # noqa: E731
+            logw_p = lambda: se2_pairwise_logw_plain(*arrs)  # noqa: E731
+            draw_p = lambda: se2_gibbs_draw_plain(*arrs, u)  # noqa: E731
         else:
-            fns = (lambda: P.euclid_pairwise_logw(*arrs, circ),
-                   lambda: euclid_pairwise_logw_plain(*arrs, circ))
-        # in turns: plain, kernel, kernel, plain
-        plain_a, ms_a, ms_b, plain_b = (cuda_ms(f) for f in (fns[1], fns[0], fns[0], fns[1]))
-        times[name] = dict(ms=min(ms_a, ms_b), plain_ms=min(plain_a, plain_b),
-                           ms_runs=[ms_a, ms_b], plain_ms_runs=[plain_a, plain_b])
-        print(f"[{card}] {name} V={V} N=Nj={BEEHIVE_N} dof={d}: kernel "
-              f"{ms_a * 1e3:.2f}/{ms_b * 1e3:.2f} us, plain PyTorch "
-              f"{plain_a * 1e3:.2f}/{plain_b * 1e3:.2f} us (CUDA events, 200 calls)")
-    return {k: dict(max_abs_err=worst[k], **times[k]) for k in worst}
+            logw_k = lambda: P.euclid_pairwise_logw(*arrs, circ)  # noqa: E731
+            draw_u = lambda uu: P.euclid_gibbs_draw(*arrs, circ, uu)  # noqa: E731
+            logw_p = lambda: euclid_pairwise_logw_plain(*arrs, circ)  # noqa: E731
+            draw_p = lambda: euclid_gibbs_draw_plain(*arrs, circ, u)  # noqa: E731
+
+        def draw_k():
+            return draw_u(u)
+
+        def update_before():  # the scores, then categorical()'s 8 kernels
+            return categorical(logw_k(), gen)
+
+        def update_now():  # the uniforms, then the draw epilogue
+            return draw_u(torch.rand((V, N, Nj), generator=gen, device="cuda"))
+
+        fns = [("logw", logw_k), ("draw", draw_k), ("plain_logw", logw_p),
+               ("plain_draw", draw_p), ("update_before", update_before),
+               ("update_now", update_now)]
+        extra = {}
+        if name == "K3":
+            # the linear case (every Point2 belief) as one library call
+            sq = arrs[3].sqrt()[:, None, :]
+            a, b = (arrs[0] + arrs[1]) * sq, arrs[2] * sq
+
+            def library():
+                return torch.cdist(a, b, compute_mode="donot_use_mm_for_euclid_dist"
+                                   ).square().mul(-0.5)
+
+            extra["library_max_abs_err"] = float((library() - logw_p()).abs().max())
+            fns.append(("library", library))
+        dev = device_ms(fns)
+        # host-call rate: CUDA events over back-to-back calls, in turns
+        plain_a, ms_a, ms_b, plain_b = (cuda_ms(f) for f in (draw_p, draw_k, draw_k, draw_p))
+        row = {k: v["ms"] for k, v in dev.items()}
+        row.update(extra)
+        row["kernels_per_call"] = {k: v["kernels_per_call"] for k, v in dev.items()}
+        row["draw_call_ms"], row["plain_draw_call_ms"] = [ms_a, ms_b], [plain_a, plain_b]
+        for epi, draw in (("logw", False), ("draw", True)):
+            nbytes, flops = gibbs_work(name, V, N, Nj, d, draw)
+            row[f"{epi}_bound_ms"], row[f"{epi}_bound_by"] = bound(nbytes, flops)
+            row[f"{epi}_bound_stream_ms"], _ = bound(nbytes, flops, bytes_per_s)
+            row[f"{epi}_bytes"], row[f"{epi}_flops"] = nbytes, flops
+        timed[(name, V)] = row
+        print(f"[{card}] {name} V={V} N=Nj={N} dof={d} device ms per call: "
+              + json.dumps({k: row[k] for k in dev})
+              + f"; bounds logw {row['logw_bound_ms']:.6f} / draw {row['draw_bound_ms']:.6f} ms "
+              f"({row['draw_bound_by']}); draw per host call {ms_a * 1e3:.2f}/{ms_b * 1e3:.2f} "
+              f"us, plain {plain_a * 1e3:.2f}/{plain_b * 1e3:.2f} us (CUDA events, 200 calls)")
+    return {k: dict(max_abs_err=worst[k], draw_rows=rows[k][0], draw_rows_differ=rows[k][1],
+                    draw_max_gap=rows[k][2],
+                    timed={f"V={V}": r for (n, V), r in timed.items() if n == k})
+            for k in worst}
 
 
 def beehive_graph(poses=BEEHIVE_POSES):
@@ -424,8 +616,10 @@ def beehive_path(card, device="cuda", poses=BEEHIVE_POSES, N=BEEHIVE_N):
         runs.append(row)
         print(f"[{card}] beehive_{poses} {label}: " + json.dumps(row))
         check(err < BEEHIVE_GATE_M, f"{label} run: mean pose error {err} >= {BEEHIVE_GATE_M} m")
-        check(device != "cuda" or all(v == per_solve for v in launches.values()),
-              f"{label} run: K2/K3 launches {launches}, expected {per_solve} each")
+        check(device != "cuda" or launches == dict(
+            se2_pairwise_logw=0, euclid_pairwise_logw=0, se2_gibbs_draw=per_solve,
+            euclid_gibbs_draw=per_solve),
+              f"{label} run: K2/K3 launches {launches}, expected {per_solve} draws each")
     return runs, dict(P.LAUNCHES)
 
 
@@ -475,11 +669,15 @@ def _check_beliefs(fg, N):
 
 
 def _check_launched(device, launches, what):
-    check(device != "cuda" or all(v > 0 for v in launches.values()),
-          f"{what}: K2/K3 launches {launches}, expected both > 0")
+    """Every Gibbs label update of a path goes through the draw epilogues:
+    both draw kernels launched, the logw epilogues never."""
+    check(device != "cuda" or (
+        launches["se2_gibbs_draw"] > 0 and launches["euclid_gibbs_draw"] > 0
+        and launches["se2_pairwise_logw"] == 0 and launches["euclid_pairwise_logw"] == 0),
+          f"{what}: K2/K3 launches {launches}, expected both draws > 0 and no logw")
 
 
-def honeycomb_path(card, steps=HONEYCOMB_STEPS, N=NP_N):
+def honeycomb_path(card, device="cuda", steps=HONEYCOMB_STEPS, N=NP_N):
     """The default engine over the honeycomb grow; returns the step rows and
     the path's K2/K3 launch counts. Each Gauss-Seidel pass is timed with CUDA
     events (``PhaseTimer``)."""
@@ -489,32 +687,35 @@ def honeycomb_path(card, steps=HONEYCOMB_STEPS, N=NP_N):
     from rome_tpu_torch.solvers.multimodal.batched import BatchedNonparametricSolver
 
     rows, fg = [], None
-    timer = PhaseTimer(torch)
+    timer = PhaseTimer(torch) if device == "cuda" else None
     _reset_launches()
-    timer.wrap(BatchedNonparametricSolver, "gs_pass", "gs_pass")
+    if timer:
+        timer.wrap(BatchedNonparametricSolver, "gs_pass", "gs_pass")
     try:
         for target in steps:
             fg = generate_graph_honeycomb(pose_count_target=target, fg=fg, graphinit=True)
             before = _launches()
-            _sync("cuda")
+            _sync(device)
             t0 = time.time()
             solve_graph_nonparametric(fg, sweeps=3, N=N, engine="batched", init=True,
-                                      device="cuda")
-            _sync("cuda")
+                                      device=device)
+            _sync(device)
             wall = time.time() - t0
-            timer.take()
-            gs_seconds = timer.each.get("gs_pass", [])
+            if timer:
+                timer.take()
+            gs_seconds = timer.each.get("gs_pass", []) if timer else [None] * 3
             launches = {k: v - before[k] for k, v in _launches().items()}
             row = dict(poses=target, variables=fg.num_variables, factors=fg.num_factors,
                        solve_time_s=wall, gs_pass_s=gs_seconds, launches=launches)
             rows.append(row)
             print(f"[{card}] honeycomb_grow_default {target} poses: " + json.dumps(row))
             check(len(gs_seconds) == 3, f"{len(gs_seconds)} Gauss-Seidel passes, expected 3")
-            _check_launched("cuda", launches, f"honeycomb step {target}")
+            _check_launched(device, launches, f"honeycomb step {target}")
     finally:
-        timer.unwrap()
+        if timer:
+            timer.unwrap()
     _check_beliefs(fg, N)
-    truth = _parametric_truth(fg, "cuda")
+    truth = _parametric_truth(fg, device)
     (l_mean, l_max), (x_mean, x_max) = (_mean_err(fg, truth, r"^l\d+$"),
                                         _mean_err(fg, truth, r"^x\d+$"))
     res = dict(steps=rows, landmark_err_m=dict(mean=l_mean, max=l_max),
@@ -678,6 +879,34 @@ def multihypo_path(card, device="cuda", N=MULTIHYPO_N, solve_N=NP_N):
     return res, launches
 
 
+def kernel_table(k1, k23, k1_launches, np_launches):
+    """The kernels JSON line: K1, and K2/K3 by their draw epilogues (what
+    the paths launch) with their logw epilogues nested."""
+    k1_row = dict(name="pose2pose2_linearize", source="pose2pose2_linearize.cu",
+                  replaces="rome_tpu/ops/linearize_pallas.py:54", launches=k1_launches,
+                  max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
+                  bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None,
+                  shape=[K1_TIMED_N])
+    kernels = [k1_row]
+    for k, name, tpu, V in (("K2", "se2", "rome_tpu/ops/pairwise.py:75", 101),
+                            ("K3", "euclid", "rome_tpu/ops/pairwise.py:126", 74)):
+        t = k23[k]["timed"][f"V={V}"]
+        # the draw epilogue is what the paths launch; its error is the worst
+        # score gap of a label that differs from the plain draw's
+        kernels.append(dict(
+            name=f"{name}_gibbs_draw", source="pairwise_logw.cu", replaces=tpu,
+            launches=np_launches[f"{name}_gibbs_draw"], max_abs_err=k23[k]["draw_max_gap"],
+            ms=t["draw"], plain_ms=t["plain_draw"], bound_ms=t["draw_bound_ms"],
+            bound_by=t["draw_bound_by"], library_ms=None, shape=[V, BEEHIVE_N, BEEHIVE_N],
+            label_agreement=1.0 - k23[k]["draw_rows_differ"] / k23[k]["draw_rows"],
+            logw=dict(launches=np_launches[f"{name}_pairwise_logw"],
+                      max_abs_err=k23[k]["max_abs_err"], ms=t["logw"], plain_ms=t["plain_logw"],
+                      bound_ms=t["logw_bound_ms"], bound_by=t["logw_bound_by"],
+                      library_ms=t.get("library"))))
+    return [dict(r, route="cuda", source=f"rome_tpu_torch/csrc/{r['source']}")
+            for r in kernels]
+
+
 def build_all(card):
     """One nvcc per kernel source, all started together."""
     from rome_tpu_torch.ops import linearize_cuda, nvcc_build, pairwise_cuda
@@ -712,8 +941,9 @@ def main():
 
     t_start = time.time()
     build_s = build_all(card)
-    k1 = kernel_phase(card)
-    k23 = pairwise_phase(card)
+    bytes_per_s = stream_bandwidth(card)
+    k1 = kernel_phase(card, bytes_per_s)
+    k23 = pairwise_phase(card, bytes_per_s)
     runs, launches = main_path(card)
     warm = [r["solve_time_s"] for r in runs[1:]]
     print(f"[{card}] citygrid_10k: cold {runs[0]['solve_time_s']:.3f} s, warm "
@@ -732,30 +962,20 @@ def main():
         t0 = time.time()
         np_paths[name] = path(card)
         print(f"[{card}] {name}: {time.time() - t0:.1f} s, K2/K3 launches {np_paths[name][1]}")
+    for name, (_r, l) in np_paths.items():
+        draws = (l["se2_gibbs_draw"], l["euclid_gibbs_draw"])
+        check(draws == PATH_DRAWS[name],
+              f"{name}: K2/K3 draw launches {draws}, expected {PATH_DRAWS[name]}")
     np_launches = {k: sum(l[k] for _r, l in np_paths.values()) for k in bee_launches}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
-        json.dump({"card": card, "build_s": build_s, "k1": k1, "k2_k3": k23, "runs": runs,
+        json.dump({"card": card, "build_s": build_s, "stream_bytes_per_s": bytes_per_s,
+                   "k1": k1, "k2_k3": k23, "runs": runs,
                    "nonparametric": {k: {"result": r, "launches": l}
                                      for k, (r, l) in np_paths.items()},
                    "seconds": time.time() - t_start}, fh, indent=1)
 
-    rows = [("pose2pose2_linearize", "pose2pose2_linearize.cu",
-             "rome_tpu/ops/linearize_pallas.py:54", launches, k1),
-            ("se2_pairwise_logw", "pairwise_logw.cu", "rome_tpu/ops/pairwise.py:75",
-             np_launches["se2_pairwise_logw"], k23["K2"]),
-            ("euclid_pairwise_logw", "pairwise_logw.cu", "rome_tpu/ops/pairwise.py:126",
-             np_launches["euclid_pairwise_logw"], k23["K3"])]
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": f"rome_tpu_torch/csrc/{src}",
-        "replaces": tpu,
-        "launches": n,
-        "max_abs_err": m["max_abs_err"],
-        "ms": m["ms"],
-        "plain_ms": m["plain_ms"],
-    } for name, src, tpu, n, m in rows]}))
+    print(json.dumps({"kernels": kernel_table(k1, k23, launches, np_launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -41,11 +41,11 @@ init="points", device="cuda")`` of beehive-100, seed 0), once cold, then:
 1. Phase breakdown of three warm solves with CUDA events: the points init,
    the belief gather/scatter, and per sweep the messages (inside them the
    per-particle Gauss-Newton), the padding scatter and the Gibbs products
-   (inside them the K2/K3 launches and the categorical draws).
+   (inside them the K2/K3 draw launches: score and Gumbel-max label draw).
 2. torch.profiler over one more solve: kernel count, device time, busy
    share; the op table goes to ``<out>/profile_beehive_ops.txt``.
-3. K2 and K3 alone at the beehive shapes: device time per launch against
-   the plain versions'.
+3. K2 and K3 alone at the beehive shapes, both epilogues (logw and draw):
+   device time per launch against the plain versions'.
 
 ``--path default``: the default engine, ``solve_graph_nonparametric(fg,
 sweeps=3, N=100, engine="batched", init=True, device="cuda")``, on a fresh
@@ -55,7 +55,7 @@ honeycomb-21 graph (22 Pose2, 14 Point2, 44 factors; graphinit):
    CUDA events: the particle init (``init_all_beliefs``, inside it the
    per-factor ``approx_conv``), each Gauss-Seidel pass, the Jacobi sweeps
    and the write-back; across them the batched messages, the per-particle
-   Gauss-Newton, the Gibbs products and the K2/K3 launches.
+   Gauss-Newton, the Gibbs products and the K2/K3 draw launches.
 2. torch.profiler (device activity only) over one more solve: kernel count,
    device time, busy share, K2/K3 launches.
 3. One cold ``init=True`` solve of beehive-100 (seed 0) with its phases and
@@ -236,9 +236,8 @@ def beehive_phases(torch, card, n=3):
     timer.wrap(V, "_gn_solve_target", "messages.gauss_newton")
     timer.wrap(B, "_pad_messages", "pad_messages")
     timer.wrap(B, "_products", "products")
-    timer.wrap(P, "se2_pairwise_logw", "products.k2")
-    timer.wrap(P, "euclid_pairwise_logw", "products.k3")
-    timer.wrap(B, "categorical", "products.categorical")
+    timer.wrap(P, "se2_gibbs_draw", "products.k2_draw")
+    timer.wrap(P, "euclid_gibbs_draw", "products.k3_draw")
     rows = []
     try:
         for _ in range(n):
@@ -253,15 +252,26 @@ def beehive_phases(torch, card, n=3):
 
 def k23_device_time(torch, card):
     from rome_tpu_torch.ops import pairwise_cuda as P
-    from rome_tpu_torch.ops.pairwise import euclid_pairwise_logw_plain, se2_pairwise_logw_plain
+    from rome_tpu_torch.ops.pairwise import (
+        euclid_gibbs_draw_plain,
+        euclid_pairwise_logw_plain,
+        se2_gibbs_draw_plain,
+        se2_pairwise_logw_plain,
+    )
 
-    a2, _ = C.pairwise_inputs(101, C.BEEHIVE_N, C.BEEHIVE_N, 3, "cuda", seed=5)
-    a3, circ = C.pairwise_inputs(74, C.BEEHIVE_N, C.BEEHIVE_N, 2, "cuda", seed=5)
+    n = C.BEEHIVE_N
+    a2, _ = C.pairwise_inputs(101, n, n, 3, "cuda", seed=5)
+    a3, circ = C.pairwise_inputs(74, n, n, 2, "cuda", seed=5, circ=[0.0, 0.0])
+    u2, u3 = torch.rand((101, n, n), device="cuda"), torch.rand((74, n, n), device="cuda")
     return device_time(torch, card, "K2 (V=101) / K3 (V=74, dof 2) at N=Nj=100", (
         ("k2", lambda: P.se2_pairwise_logw(*a2)),
         ("k2_plain", lambda: se2_pairwise_logw_plain(*a2)),
+        ("k2_draw", lambda: P.se2_gibbs_draw(*a2, u2)),
+        ("k2_draw_plain", lambda: se2_gibbs_draw_plain(*a2, u2)),
         ("k3", lambda: P.euclid_pairwise_logw(*a3, circ)),
         ("k3_plain", lambda: euclid_pairwise_logw_plain(*a3, circ)),
+        ("k3_draw", lambda: P.euclid_gibbs_draw(*a3, circ, u3)),
+        ("k3_draw_plain", lambda: euclid_gibbs_draw_plain(*a3, circ, u3)),
     ))
 
 
@@ -310,8 +320,8 @@ def _default_timer(torch):
     timer.wrap(B, "_source_messages", "messages")
     timer.wrap(V, "_gn_solve_target", "gauss_newton")
     timer.wrap(B, "_masked_gibbs", "gibbs_products")
-    timer.wrap(P, "se2_pairwise_logw", "k2")
-    timer.wrap(P, "euclid_pairwise_logw", "k3")
+    timer.wrap(P, "se2_gibbs_draw", "k2_draw")
+    timer.wrap(P, "euclid_gibbs_draw", "k3_draw")
     return timer
 
 

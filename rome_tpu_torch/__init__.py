@@ -14,8 +14,10 @@ Ported so far:
   scores as hand-written CUDA kernels (K2 for SE(2), K3 for per-dim
   manifolds).
 
-Every tensor lives on the device the caller names (``device="cpu"`` or
-``"cuda"``); nothing here picks a device by itself.
+Every entry point runs on the card (``device="cuda"``, its default) unless
+the caller asks for the CPU with ``device="cpu"``, as the tests do; nothing
+probes for a device and nothing falls back: without CUDA, an entry point
+called without ``device=`` raises.
 """
 
 from rome_tpu_torch.variables import (

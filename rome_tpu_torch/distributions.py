@@ -7,8 +7,8 @@ Julia convention parity, as in the JAX package:
 
 Means and covariances are host numpy; they lower to tensors at graph-lowering
 time. ``sample(generator, n, device, dtype)`` draws ``(n, dim)`` samples on
-``device`` from the caller's ``torch.Generator`` (the nonparametric engine's
-measurement sampling).
+``device`` (default: the generator's) from the caller's ``torch.Generator``
+(the nonparametric engine's measurement sampling).
 """
 
 from __future__ import annotations
@@ -28,13 +28,17 @@ class Distribution:
     def cov(self) -> np.ndarray:
         raise NotImplementedError
 
-    def sample(self, generator, n: int, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    def sample(self, generator, n: int, device=None, dtype=torch.float32) -> torch.Tensor:
         """Draw (n, dim) samples."""
         raise NotImplementedError
 
 
+def _on(generator, device):
+    return generator.device if device is None else device
+
+
 def _randn(generator, shape, device, dtype):
-    return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    return torch.randn(shape, generator=generator, device=_on(generator, device), dtype=dtype)
 
 
 class Normal(Distribution):
@@ -51,7 +55,7 @@ class Normal(Distribution):
     def cov(self):
         return np.array([[self.sigma**2]])
 
-    def sample(self, generator, n, device="cpu", dtype=torch.float32):
+    def sample(self, generator, n, device=None, dtype=torch.float32):
         return self.mu + self.sigma * _randn(generator, (n, 1), device, dtype)
 
     def __repr__(self):
@@ -80,8 +84,9 @@ class MvNormal(Distribution):
     def cov(self):
         return self._cov.copy()
 
-    def sample(self, generator, n, device="cpu", dtype=torch.float32):
+    def sample(self, generator, n, device=None, dtype=torch.float32):
         L = np.linalg.cholesky(self._cov + 1e-12 * np.eye(self.dim))
+        device = _on(generator, device)
         z = _randn(generator, (n, self.dim), device, dtype)
         mu = torch.as_tensor(self.mu, dtype=dtype, device=device)
         return mu + z @ torch.as_tensor(L, dtype=dtype, device=device).T
@@ -101,8 +106,8 @@ class Uniform(Distribution):
     def cov(self):
         return np.array([[(self.b - self.a) ** 2 / 12.0]])
 
-    def sample(self, generator, n, device="cpu", dtype=torch.float32):
-        u = torch.rand((n, 1), generator=generator, device=device, dtype=dtype)
+    def sample(self, generator, n, device=None, dtype=torch.float32):
+        u = torch.rand((n, 1), generator=generator, device=_on(generator, device), dtype=dtype)
         return self.a + (self.b - self.a) * u
 
     def __repr__(self):
@@ -113,7 +118,7 @@ def _categorical(generator, p, n, device, dtype):
     """(n,) int64 draws from the probabilities ``p`` (Gumbel-max)."""
     from rome_tpu_torch.solvers.multimodal.kde import categorical
 
-    logits = torch.log(torch.as_tensor(p, dtype=dtype, device=device))
+    logits = torch.log(torch.as_tensor(p, dtype=dtype, device=_on(generator, device)))
     return categorical(logits.expand(n, len(p)), generator)
 
 
@@ -132,7 +137,7 @@ class Categorical(Distribution):
     def cov(self):
         return np.array([[1.0]])
 
-    def sample(self, generator, n, device="cpu", dtype=torch.float32):
+    def sample(self, generator, n, device=None, dtype=torch.float32):
         return _categorical(generator, self.p, n, device, dtype)[:, None].to(dtype)
 
     def __repr__(self):
@@ -161,7 +166,8 @@ class Mixture(Distribution):
             out += w * (c.cov() + d @ d.T)
         return out
 
-    def sample(self, generator, n, device="cpu", dtype=torch.float32):
+    def sample(self, generator, n, device=None, dtype=torch.float32):
+        device = _on(generator, device)
         labels = _categorical(generator, self.weights, n, device, dtype)
         comps = torch.stack([c.sample(generator, n, device, dtype) for c in self.components])
         return comps[labels, torch.arange(n, device=device)]  # (n, dim)

@@ -15,6 +15,7 @@ import torch
 
 from rome_tpu_torch.factors.base import get_factor_type
 from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays
+from rome_tpu_torch.utils.device import entry_device
 from rome_tpu_torch.variables import get_variable_type
 
 
@@ -26,7 +27,7 @@ def graph_arrays_from_numpy(
     batches,
     var_labels=None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     excluded_factors=(),
 ) -> GraphArrays:
     """Assemble a GraphArrays on ``device``.
@@ -38,6 +39,7 @@ def graph_arrays_from_numpy(
     ``inflation`` ((n,) each, the nonparametric engine's per-factor data).
     ``var_labels``: type name -> labels by slot (defaults to ``t{slot}``).
     """
+    entry_device(device)
     fbs = []
     for b in batches:
         ftype = get_factor_type(b["ftype"])
@@ -72,9 +74,10 @@ def graph_arrays_from_numpy(
     return ga.to_device()
 
 
-def beliefs_from_numpy(beliefs, device="cpu", dtype=torch.float32) -> dict:
+def beliefs_from_numpy(beliefs, device="cuda", dtype=torch.float32) -> dict:
     """Particle beliefs ``{type: (V, N, point_dim)}`` as tensors on
     ``device``: the same particles for both engines."""
+    entry_device(device)
     return {
         t: torch.tensor(np.asarray(v), dtype=dtype, device=device)
         for t, v in beliefs.items()

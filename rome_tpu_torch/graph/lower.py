@@ -15,6 +15,7 @@ import torch
 
 from rome_tpu_torch.factors.base import FactorType
 from rome_tpu_torch.graph.graph import FactorGraph
+from rome_tpu_torch.utils.device import entry_device
 
 
 @dataclass
@@ -102,14 +103,16 @@ def lower(
     solve_key: str = "parametric",
     dtype=torch.float32,
     pad: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> GraphArrays:
-    """Build dense solver tensors from the graph on ``device``.
+    """Build dense solver tensors from the graph on ``device`` (the card
+    unless the caller passes ``device="cpu"``).
 
     Variables with solvable=0 or marginalized=True stay in the arrays as
     constants (free=0); factors with solvable=0 or with every variable frozen
     are dropped.
     """
+    entry_device(device)
     type_names, var_labels = [], {}
     for label in fg._var_order:
         t = fg.variables[label].vtype.name

@@ -7,13 +7,18 @@ the Gaussian product-of-others conditional of every output particle n:
     logw[v, n, j] = -0.5 * sum_d inv_var[v, d] * (local(ref[v, n], pts[v, j])[d] - mu[v, n, d])**2
 
 for every variable v of a type at once (the JAX package ran its Pallas
-kernels ``rome_tpu/ops/pairwise.py`` once per variable under ``jax.vmap``).
-The plain versions here materialise the (V, N, Nj, dof) tangent tensor; the
-CUDA kernels (``ops/pairwise_cuda.py``) keep it in registers.
+kernels ``rome_tpu/ops/pairwise.py`` once per variable under ``jax.vmap``),
+and draws each row's new kernel label by Gumbel-max from uniforms u:
 
-Shapes: ref, mu (V, N, d); pts (V, Nj, d); inv_var (V, d); circ (d,) ->
-logw (V, N, Nj), float32. The unbatched JAX signature (N, d) / (Nj, d) /
-(d,) -> (N, Nj) is accepted as V = 1.
+    labels[v, n] = argmax_j logw[v, n, j] - log(-log(max(u[v, n, j], tiny)))
+
+The plain versions here materialise the (V, N, Nj, dof) tangent tensor and
+the scores; the CUDA kernels (``ops/pairwise_cuda.py``) keep the tangent in
+registers, and their draw epilogue keeps the scores out of device memory.
+
+Shapes: ref, mu (V, N, d); pts (V, Nj, d); inv_var (V, d); circ (d,);
+u (V, N, Nj) -> logw (V, N, Nj) float32, labels (V, N) int64. The unbatched
+JAX signature (N, d) / (Nj, d) / (d,) -> (N, Nj) is accepted as V = 1.
 """
 
 from __future__ import annotations
@@ -65,8 +70,48 @@ def euclid_pairwise_logw_plain(ref, mu, pts, inv_var, circ):
     return -0.5 * acc
 
 
+def gumbel_argmax(logits, u):
+    """One Gumbel-max draw per row over the last dim, given uniforms ``u`` of
+    the logits' shape; among equal values the first index (``torch.argmax``).
+    ``kde.categorical`` with its ``torch.rand`` lifted out."""
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
+def se2_gibbs_draw_plain(ref, mu, pts, inv_var, u):
+    """K2's draw epilogue, plain: (V, N) int64 labels."""
+    return gumbel_argmax(se2_pairwise_logw_plain(ref, mu, pts, inv_var), u)
+
+
+def euclid_gibbs_draw_plain(ref, mu, pts, inv_var, circ, u):
+    """K3's draw epilogue, plain: (V, N) int64 labels."""
+    return gumbel_argmax(euclid_pairwise_logw_plain(ref, mu, pts, inv_var, circ), u)
+
+
 def _per_dim(man) -> bool:
     return isinstance(man, (TranslationGroup, SO2))
+
+
+def _for(man, se2_fn, euclid_fn):
+    """``se2_fn`` for SE(2); for a per-dim linear/circular manifold (T(n),
+    SO(2)) with point_dim == dof <= 8, ``euclid_fn`` with the manifold's
+    circular-dim mask bound; else None."""
+    if isinstance(man, SE2):
+        return se2_fn
+    if _per_dim(man) and man.dof <= MAX_DOF and man.point_dim == man.dof:
+        circ = [1.0 if c == "c" else 0.0 for c in man.coord_types]
+        cache = {}
+
+        def euclid(ref, mu, pts, inv_var, *rest):
+            c = cache.get(ref.device)
+            if c is None:
+                c = cache[ref.device] = torch.tensor(
+                    circ, dtype=torch.float32, device=ref.device
+                )
+            return euclid_fn(ref, mu, pts, inv_var, c, *rest)
+
+        return euclid
+    return None
 
 
 def pairwise_logw_for(man):
@@ -76,19 +121,13 @@ def pairwise_logw_for(man):
     circular-dim mask. Returned functions take (ref, mu, pts, inv_var)."""
     from rome_tpu_torch.ops import pairwise_cuda
 
-    if isinstance(man, SE2):
-        return pairwise_cuda.se2_pairwise_logw
-    if _per_dim(man) and man.dof <= MAX_DOF and man.point_dim == man.dof:
-        circ = [1.0 if c == "c" else 0.0 for c in man.coord_types]
-        cache = {}
+    return _for(man, pairwise_cuda.se2_pairwise_logw, pairwise_cuda.euclid_pairwise_logw)
 
-        def euclid(ref, mu, pts, inv_var):
-            c = cache.get(ref.device)
-            if c is None:
-                c = cache[ref.device] = torch.tensor(
-                    circ, dtype=torch.float32, device=ref.device
-                )
-            return pairwise_cuda.euclid_pairwise_logw(ref, mu, pts, inv_var, c)
 
-        return euclid
-    return None
+def pairwise_draw_for(man):
+    """The fused score + Gumbel-max label draw for ``man`` (K2's or K3's draw
+    epilogue), chosen as :func:`pairwise_logw_for` chooses, or None.
+    Returned functions take (ref, mu, pts, inv_var, u) -> (V, N) labels."""
+    from rome_tpu_torch.ops import pairwise_cuda
+
+    return _for(man, pairwise_cuda.se2_gibbs_draw, pairwise_cuda.euclid_gibbs_draw)

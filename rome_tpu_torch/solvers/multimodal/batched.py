@@ -13,9 +13,9 @@ batches the parametric path uses (graph/lower.py):
    spliced into the same product tensors.
 2. **Products**: messages scatter into a padded (V, K_max, N, point_dim)
    tensor per variable type; a masked parallel-Gibbs KDE product runs over
-   all V variables of the type at once, its pairwise scores in the CUDA
-   kernels K2 (SE(2)) and K3 (per-dim manifolds), one launch per Gibbs
-   label update.
+   all V variables of the type at once, its pairwise scores and Gumbel-max
+   label draws in the CUDA kernels K2 (SE(2)) and K3 (per-dim manifolds),
+   one launch of the draw epilogue per Gibbs label update.
 
 The default schedule (``init=True``) first runs the particle graph init and
 three sequential Gauss-Seidel passes over the chronological variable order
@@ -37,21 +37,22 @@ from rome_tpu_torch.graph.graph import FactorGraph
 from rome_tpu_torch.graph.lower import GraphArrays, lower
 from rome_tpu_torch.solvers.multimodal.convolve import approx_conv, conv_particles
 from rome_tpu_torch.solvers.multimodal.kde import (
-    categorical,
     manifold_mean,
-    pairwise_logw,
+    pairwise_draw,
     silverman_bandwidth,
 )
+from rome_tpu_torch.utils.device import entry_device
 from rome_tpu_torch.utils.math import einsum
 
 
-def set_points_from_beliefs(fg: FactorGraph, labels, solve_key: str, device="cpu",
+def set_points_from_beliefs(fg: FactorGraph, labels, solve_key: str, device="cuda",
                             beliefs=None):
     """Surface each belief's manifold mean as the variable's point estimate.
     ``beliefs``: the labels' beliefs as one (V, N, point_dim) tensor of one
     variable type, rows in label order, whose means are taken in one call;
     otherwise each label's belief is read from its record."""
     if beliefs is None:
+        entry_device(device)
         for label in labels:
             bel = torch.as_tensor(np.asarray(fg.variables[label].beliefs[solve_key]),
                                   device=device)
@@ -284,7 +285,7 @@ def _masked_gibbs(man, msgs, mask, gibbs_sweeps, gen):
     lam = mask[..., None] / (bw * bw)                     # (V, K, dof) masked precisions
     labels = torch.randint(0, N, (V, K, N), generator=gen, device=dev)
     vidx = torch.arange(V, device=dev)
-    logw_fn = pairwise_logw(man)
+    draw_fn = pairwise_draw(man)
 
     def selected(labels):
         # (V, K, N, pdim): each density's chosen kernel per output particle
@@ -308,11 +309,12 @@ def _masked_gibbs(man, msgs, mask, gibbs_sweeps, gen):
             inc[:, j] = 0.0  # exclude j from the reference choice too
             ref, mu_c, prec = estimate(sel, inc)
             var = 1.0 / prec.clamp_min(1e-12) + bw[:, j] * bw[:, j]
-            logw = logw_fn(
+            # the uniforms categorical() would draw for the (V, N, Nj) scores
+            u = torch.rand((V, N, N), generator=gen, dtype=torch.float32, device=dev)
+            new_j = draw_fn(
                 ref.contiguous(), mu_c.contiguous(), msgs[:, j].contiguous(),
-                (1.0 / var).contiguous(),
-            )                                              # (V, N, Nj)
-            new_j = categorical(logw, gen)
+                (1.0 / var).contiguous(), u,
+            )                                              # (V, N)
             labels[:, j] = torch.where(mask[:, j, None] > 0, new_j, labels[:, j])
 
     ref, mu_c, prec = estimate(selected(labels), mask)
@@ -396,7 +398,7 @@ class BatchedNonparametricSolver:
     """The batched belief-propagation solve of one graph on one device."""
 
     def __init__(self, fg: FactorGraph, solve_key: str = "default", N=None,
-                 gibbs_sweeps: int = 3, device="cpu"):
+                 gibbs_sweeps: int = 3, device="cuda"):
         self.fg = fg
         self.solve_key = solve_key
         self.N = N or fg.params.N

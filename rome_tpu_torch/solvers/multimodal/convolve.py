@@ -25,14 +25,16 @@ from torch.func import jacfwd, vmap
 
 from rome_tpu_torch.graph.graph import FactorGraph
 from rome_tpu_torch.solvers.multimodal.kde import categorical, silverman_bandwidth
+from rome_tpu_torch.utils.device import entry_device
 from rome_tpu_torch.utils.math import matvec
 
 DTYPE = torch.float32
 
 
-def sample_measurements(factor, gen, n: int, device="cpu", dtype=DTYPE) -> torch.Tensor:
+def sample_measurements(factor, gen, n: int, device="cuda", dtype=DTYPE) -> torch.Tensor:
     """getSample analogue: (n, zdim) measurement coordinate samples from the
     factor's belief(s), or its mean ``z`` when it has none."""
+    entry_device(device)
     cols = [d.sample(gen, n, device, dtype) for d in factor.dists]
     if not cols:
         z = torch.as_tensor(factor.params["z"], dtype=dtype, device=device)
@@ -111,7 +113,7 @@ def approx_conv(
     gen: Optional[torch.Generator] = None,
     N: Optional[int] = None,
     skip_hypo: bool = False,
-    device="cpu",
+    device="cuda",
     seed: int = 0,
 ) -> torch.Tensor:
     """approxConv(fg, :factor, :target): (N, point_dim) float32 particle
@@ -119,6 +121,7 @@ def approx_conv(
     the other variables' current beliefs. Draws come from ``gen`` (a
     ``torch.Generator`` on ``device``), else from one seeded by ``seed``.
     ``skip_hypo`` ignores the factor's multihypo association (graph init)."""
+    entry_device(device)
     f = fg.factors[str(factor_label)]
     target_label = str(target_label)
     if gen is None:

@@ -5,8 +5,8 @@
   bandwidth; every function here broadcasts over leading dims, so a whole
   variable type is one call;
 - the multi-density product is a parallel Gibbs label sampler over kernel
-  selections (the prodAppxMSGibbsS analogue), whose pairwise scores run in
-  the kernels K2/K3 (``ops/pairwise.py``).
+  selections (the prodAppxMSGibbsS analogue), whose pairwise scores and
+  Gumbel-max label draws run in the kernels K2/K3 (``ops/pairwise.py``).
 
 Random draws come from the ``torch.Generator`` the caller passes; nothing
 here touches the global RNG. Categorical draws are Gumbel-max, as
@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from rome_tpu_torch.manifolds.base import Manifold
-from rome_tpu_torch.ops.pairwise import pairwise_logw_for
+from rome_tpu_torch.ops.pairwise import gumbel_argmax, pairwise_draw_for, pairwise_logw_for
 
 
 def manifold_mean(man: Manifold, points, iters: int = 3):
@@ -51,21 +51,30 @@ def categorical(logits, generator):
     u = torch.rand(
         logits.shape, generator=generator, dtype=logits.dtype, device=logits.device
     )
-    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
-    return torch.argmax(logits + gumbel, dim=-1)
+    return gumbel_argmax(logits, u)
+
+
+def _fused(fn, man: Manifold):
+    if fn is None:
+        raise NotImplementedError(
+            f"no Gibbs pairwise score for {man.name}: its manifold is not ported "
+            "yet (ROADMAP slice B3)"
+        )
+    return fn
 
 
 def pairwise_logw(man: Manifold):
     """The Gibbs scoring function (ref, mu, pts, inv_var) -> logw for
     ``man``: K2 or K3. Every manifold of the port has one; the manifolds
     that take the JAX package's generic vmapped form are not ported yet."""
-    fused = pairwise_logw_for(man)
-    if fused is None:
-        raise NotImplementedError(
-            f"no Gibbs pairwise score for {man.name}: its manifold is not ported "
-            "yet (ROADMAP slice B3)"
-        )
-    return fused
+    return _fused(pairwise_logw_for(man), man)
+
+
+def pairwise_draw(man: Manifold):
+    """The Gibbs label update (ref, mu, pts, inv_var, u) -> labels for
+    ``man``: K2's or K3's draw epilogue, the score and the Gumbel-max draw
+    of :func:`categorical` from the uniforms u in one launch."""
+    return _fused(pairwise_draw_for(man), man)
 
 
 @dataclass
@@ -134,7 +143,7 @@ def gibbs_product(generator, densities, n_out: int = None, sweeps: int = 3):
         torch.randint(0, d.N, (N,), generator=generator, device=dev) for d in densities
     ]
     lam = [1.0 / (d.bandwidth ** 2) for d in densities]  # (dof,) precisions
-    logw_fn = pairwise_logw(man)
+    draw_fn = pairwise_draw(man)
 
     def product_estimate(sel, exclude=None):
         """Tangent-space precision-weighted mean of the selected kernels,
@@ -153,11 +162,13 @@ def gibbs_product(generator, densities, n_out: int = None, sweeps: int = 3):
             sel = [d.points[l] for d, l in zip(densities, labels)]
             ref, mu_c, prec = product_estimate(sel, exclude=j)
             var = 1.0 / prec + densities[j].bandwidth ** 2
-            logw = logw_fn(
+            # the uniforms categorical() would draw for the (N, Nj) scores
+            u = torch.rand((1, N, densities[j].N), generator=generator,
+                           dtype=torch.float32, device=dev)
+            labels[j] = draw_fn(
                 ref[None].contiguous(), mu_c[None].contiguous(),
-                densities[j].points[None].contiguous(), (1.0 / var)[None].contiguous(),
+                densities[j].points[None].contiguous(), (1.0 / var)[None].contiguous(), u,
             )[0]
-            labels[j] = categorical(logw, generator)
 
     sel = [d.points[l] for d, l in zip(densities, labels)]
     ref, mu_c, prec = product_estimate(sel)

@@ -22,6 +22,7 @@ from rome_tpu_torch.solvers.multimodal.batched import (
 )
 from rome_tpu_torch.solvers.multimodal.convolve import DTYPE, approx_conv
 from rome_tpu_torch.solvers.multimodal.kde import ManifoldKernelDensity, gibbs_product
+from rome_tpu_torch.utils.device import entry_device
 
 
 def _generator(gen, device, seed):
@@ -44,12 +45,13 @@ def init_all_beliefs(
     N: Optional[int] = None,
     gen: Optional[torch.Generator] = None,
     force: bool = False,
-    device="cpu",
+    device="cuda",
     seed: int = 42,
 ):
     """initAll! for particle beliefs: priors sample directly; relatives
     propagate through ``approx_conv`` once their neighbors are initialized
     (the graphinit ordering); leftovers seed at identity + noise."""
+    entry_device(device)
     N = N or fg.params.N
     gen = _generator(gen, device, seed)
     if force:
@@ -95,13 +97,14 @@ def predict_belief(
     solve_key: str = "default",
     gen: Optional[torch.Generator] = None,
     N: Optional[int] = None,
-    device="cpu",
+    device="cuda",
     seed: int = 0,
 ):
     """predictbelief: the Gibbs product of the ``approx_conv`` messages from
     the given (default: all) adjacent factors, as an (N, point_dim) tensor on
     ``device``; the current belief when no factor sends one (None when there
     is none)."""
+    entry_device(device)
     label = str(label)
     N = N or fg.params.N
     gen = _generator(gen, device, seed)
@@ -128,9 +131,10 @@ def solve_graph_nonparametric(
     seed: int = 2024,
     init=True,
     engine: str = "batched",
-    device="cpu",
+    device="cuda",
 ):
-    """Batch nonparametric solve on ``device``; beliefs land in
+    """Batch nonparametric solve on ``device`` (the card unless the caller
+    passes ``device="cpu"``); beliefs land in
     ``rec.beliefs[solve_key]`` and their means in ``rec.points[solve_key]``.
 
     ``engine="batched"`` (default): the batched engine. ``init=True`` runs
@@ -146,6 +150,7 @@ def solve_graph_nonparametric(
         raise ValueError(f"unknown engine {engine!r}")
     if init not in (True, False, "points"):
         raise ValueError(f"unknown init {init!r}")
+    entry_device(device)
     if fg.params.treeinit:
         from rome_tpu_torch.solvers.multimodal.tree import solve_tree
 

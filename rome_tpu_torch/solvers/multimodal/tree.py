@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from rome_tpu_torch.graph.graph import FactorGraph
+from rome_tpu_torch.utils.device import entry_device
 
 
 # ----------------------- elimination ordering -------------------------------
@@ -244,7 +245,7 @@ def solve_tree(
     init: bool = True,
     downsolve: Optional[bool] = None,
     engine: str = "batched",
-    device="cpu",
+    device="cuda",
 ) -> BayesTree:
     """solveTree!(fg[, oldtree]) analogue: build the tree (recycling against
     the old one), then clique-scheduled nonparametric belief propagation on
@@ -268,6 +269,7 @@ def solve_tree(
 
     if engine not in ("batched", "loop"):
         raise ValueError(f"unknown engine {engine!r}")
+    entry_device(device)
     N = N or fg.params.N
     gen = torch.Generator(device=device).manual_seed(int(seed))
     downsolve = fg.params.downsolve if downsolve is None else downsolve
@@ -355,7 +357,7 @@ drawTree = format_tree
 
 
 def _solve_tree_batched(fg, tree, dirty, solve_key, N, gen, downsolve,
-                        restrict_subtree=True, device="cpu"):
+                        restrict_subtree=True, device="cuda"):
     """Level-batched tree schedule over the batched engine's sweep."""
     from rome_tpu_torch.solvers.multimodal.batched import BatchedNonparametricSolver
 

@@ -12,6 +12,7 @@ import torch
 from rome_tpu_torch.graph.graph import FactorGraph
 from rome_tpu_torch.graph.lower import lower, write_back
 from rome_tpu_torch.solvers.gauss_newton import GNOptions, ParametricSolver
+from rome_tpu_torch.utils.device import entry_device
 
 logger = logging.getLogger("rome_tpu_torch")
 
@@ -26,9 +27,10 @@ def solve_graph_parametric(
     chordal_init: bool = True,
     pad: bool = False,
     schedule: str = "fused",
-    device="cpu",
+    device="cuda",
 ):
-    """Batch nonlinear least-squares solve of the whole graph on ``device``.
+    """Batch nonlinear least-squares solve of the whole graph on ``device``
+    (the card unless the caller passes ``device="cpu"``).
 
     Stacks every factor's (mean, sqrt-info) measurement, minimizes the
     whitened residual sum over the product manifold, and writes the results
@@ -41,6 +43,7 @@ def solve_graph_parametric(
 
     Returns a result dict with stats.
     """
+    entry_device(device)
     if compute_covariances:
         raise NotImplementedError(
             "marginal covariances are not ported yet (ROADMAP slice B1)"

@@ -113,7 +113,7 @@ GRAPHS = {"odometry": (odometry, 200), "donut": (donut, 300),
 def _port(name, seed=0):
     build, N = GRAPHS[name]
     fg, flabel = build(T)
-    init_all_beliefs(fg, N=N, seed=seed)
+    init_all_beliefs(fg, N=N, seed=seed, device="cpu")
     return fg, flabel, N
 
 
@@ -134,7 +134,7 @@ def _pair(name, dtype=np.float32):
 
 def test_approx_conv_odometry_projection():
     fg, flabel, N = _port("odometry")
-    pts = approx_conv(fg, flabel, "x1", N=N)
+    pts = approx_conv(fg, flabel, "x1", N=N, device="cpu")
     assert pts.shape == (N, 3) and pts.dtype == torch.float32
     mu = manifold_mean(SE2_, pts).numpy()
     expect = SE2_.compose(torch.tensor([1, 2, np.pi / 3]), torch.tensor([2.0, 0, 0.5])).numpy()
@@ -144,7 +144,7 @@ def test_approx_conv_odometry_projection():
 
 def test_approx_conv_range_donut():
     fg, flabel, N = _port("donut")
-    pts = approx_conv(fg, flabel, "l1", N=N).numpy()
+    pts = approx_conv(fg, flabel, "l1", N=N, device="cpu").numpy()
     radii = np.linalg.norm(pts, axis=1)
     # particles concentrate on the r = 10 ring with wide angular support
     assert abs(np.median(radii) - 10.0) < 0.3
@@ -162,20 +162,20 @@ def test_bearing_range_landmark_init():
 
 def test_nullhypo_keeps_prior_mass():
     fg, flabel, N = _port("nullhypo")
-    pts = approx_conv(fg, flabel, "l1", N=N).numpy()
+    pts = approx_conv(fg, flabel, "l1", N=N, device="cpu").numpy()
     frac = np.mean(np.linalg.norm(pts - np.array([20.0, 0.0]), axis=1) < 2.0)
     assert 0.25 < frac < 0.75
 
 
 def test_multihypo_splits_association():
     fg, flabel, N = _port("multihypo")
-    pts = approx_conv(fg, flabel, "l1", N=N).numpy()
+    pts = approx_conv(fg, flabel, "l1", N=N, device="cpu").numpy()
     at_meas = np.mean(np.linalg.norm(pts - np.array([20.0, 0.0]), axis=1) < 1.5)
     assert 0.2 < at_meas < 0.8
-    pts_pose = approx_conv(fg, flabel, "x0", N=N).numpy()
+    pts_pose = approx_conv(fg, flabel, "x0", N=N, device="cpu").numpy()
     assert pts_pose.shape == (N, 3) and np.all(np.isfinite(pts_pose))
     # graph init ignores the association: every particle takes the first candidate
-    init = approx_conv(fg, flabel, "l1", N=N, skip_hypo=True).numpy()
+    init = approx_conv(fg, flabel, "l1", N=N, skip_hypo=True, device="cpu").numpy()
     assert np.mean(np.linalg.norm(init - np.array([20.0, 0.0]), axis=1) < 1.5) > 0.9
 
 
@@ -240,7 +240,7 @@ def test_core_matches_jax_in_float64(name, target):
 def test_approx_conv_agrees_with_jax_by_kl(name, target):
     fj, ft, flabel, N = _pair(name)
     pj = np.asarray(jax_conv(fj, flabel, target, key=jax.random.PRNGKey(4), N=N))
-    pt = approx_conv(ft, flabel, target, N=N, seed=4)
+    pt = approx_conv(ft, flabel, target, N=N, seed=4, device="cpu")
     man = SE2_ if pj.shape[1] == 3 else T2
     assert symmetric_kl_knn(man, torch.as_tensor(pj), pt) < KL_GATE
 

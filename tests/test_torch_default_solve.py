@@ -34,7 +34,7 @@ def _truth(poses):
     """The port's parametric optimum of honeycomb-``poses``."""
     fp = generate_graph_honeycomb(pose_count_target=poses, graphinit=True)
     fp.init_all()
-    T.solve_graph_parametric(fp, init=False)
+    T.solve_graph_parametric(fp, init=False, device="cpu")
     return {l: fp.get_coords(l, "parametric") for l in fp._var_order}
 
 
@@ -48,7 +48,7 @@ def test_default_solve_passes_the_gates_in_both_packages():
     fj = jax_honeycomb(pose_count_target=7, graphinit=True)
     jax_nonparametric(fj, sweeps=3, N=N, key=jax.random.PRNGKey(3))
     ft = generate_graph_honeycomb(pose_count_target=7, graphinit=True)
-    T.solve_graph_nonparametric(ft, sweeps=3, N=N, seed=3)
+    T.solve_graph_nonparametric(ft, sweeps=3, N=N, seed=3, device="cpu")
     for fg in (fj, ft):
         assert np.mean(_errors(fg, truth, r"^l\d+$")) < GATE_M
         assert np.mean(_errors(fg, truth, r"^x\d+$")) < GATE_M
@@ -62,7 +62,7 @@ def test_default_solve_regrows():
     """A grown graph re-solves from the beliefs it already holds: only the
     new variables take the particle init."""
     ft = generate_graph_honeycomb(pose_count_target=3, graphinit=True)
-    T.solve_graph_nonparametric(ft, sweeps=1, N=N, seed=1)
+    T.solve_graph_nonparametric(ft, sweeps=1, N=N, seed=1, device="cpu")
     x1 = np.array(ft.variables["x1"].beliefs["default"])
     generate_graph_honeycomb(pose_count_target=5, fg=ft, graphinit=True)
     inits = []
@@ -74,11 +74,11 @@ def test_default_solve_regrows():
 
     TS.approx_conv = spy
     try:
-        TS.init_all_beliefs(copy.deepcopy(ft), N=N)
+        TS.init_all_beliefs(copy.deepcopy(ft), N=N, device="cpu")
     finally:
         TS.approx_conv = orig
     assert inits and "x1" not in inits and "x5" in inits
-    T.solve_graph_nonparametric(ft, sweeps=1, N=N, seed=2)
+    T.solve_graph_nonparametric(ft, sweeps=1, N=N, seed=2, device="cpu")
     assert not np.array_equal(ft.variables["x1"].beliefs["default"], x1)
     assert np.mean(_errors(ft, _truth(5), r"^x\d+$")) < GATE_M
 
@@ -90,9 +90,9 @@ def test_multihypo_graph_solves_through_the_fallback():
     fg.add_factor(["x3", "l1", "l2"],
                   T.Pose2Point2BearingRange(T.Normal(np.pi, 0.05), T.Normal(20.0, 0.5)),
                   multihypo=[1.0, 0.5, 0.5])
-    solver = TB.BatchedNonparametricSolver(fg, "default", N=N)
+    solver = TB.BatchedNonparametricSolver(fg, "default", N=N, device="cpu")
     assert [f for f, *_ in solver.bp.fallback] == [fg._fct_order[-1]] * 3
-    T.solve_graph_nonparametric(fg, sweeps=2, N=N, seed=4)
+    T.solve_graph_nonparametric(fg, sweeps=2, N=N, seed=4, device="cpu")
     for l in fg._var_order:
         assert np.isfinite(fg.variables[l].beliefs["default"]).all()
     assert np.linalg.norm(fg.get_point("l1", "default") - [20.0, 0.0]) < 4.0

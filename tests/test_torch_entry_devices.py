@@ -1,0 +1,126 @@
+"""The port's entry points run on the card unless the caller asks for the CPU.
+
+- Every public entry point takes ``device="cuda"`` as its default: the
+  parametric and nonparametric solves, the particle init and belief
+  prediction, the Bayes-tree solve and its batched schedule, the batched
+  solver, measurement sampling and ``approx_conv``, the lowering and the two
+  numpy converters.
+- On a machine without CUDA, an entry point called without ``device=``
+  raises (a RuntimeError that names ``device="cpu"``) before it does any
+  work: it never returns a CPU result and leaves the graph as it was.
+- With ``device="cpu"`` the same calls run (the other tests of the port).
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import rome_tpu_torch as T  # noqa: E402
+from rome_tpu_torch.graph import convert, lower  # noqa: E402
+from rome_tpu_torch.solvers import parametric  # noqa: E402
+from rome_tpu_torch.solvers.multimodal import batched, convolve, solve, tree  # noqa: E402
+
+ENTRY_POINTS = {
+    "solve_graph_parametric": parametric.solve_graph_parametric,
+    "init_all_beliefs": solve.init_all_beliefs,
+    "predict_belief": solve.predict_belief,
+    "solve_graph_nonparametric": solve.solve_graph_nonparametric,
+    "solve_tree": tree.solve_tree,
+    "_solve_tree_batched": tree._solve_tree_batched,
+    "set_points_from_beliefs": batched.set_points_from_beliefs,
+    "BatchedNonparametricSolver": batched.BatchedNonparametricSolver,
+    "sample_measurements": convolve.sample_measurements,
+    "approx_conv": convolve.approx_conv,
+    "lower": lower.lower,
+    "graph_arrays_from_numpy": convert.graph_arrays_from_numpy,
+    "beliefs_from_numpy": convert.beliefs_from_numpy,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    fn = ENTRY_POINTS[name]
+    params = inspect.signature(fn.__init__ if inspect.isclass(fn) else fn).parameters
+    assert params["device"].default == "cuda"
+
+
+def test_package_exports_are_the_checked_entry_points():
+    for name in ("solve_graph_parametric", "solve_graph_nonparametric", "init_all_beliefs",
+                 "predict_belief", "solve_tree", "approx_conv"):
+        assert getattr(T, name) is ENTRY_POINTS[name]
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("the machine has CUDA: the default device runs")
+
+
+def _hexagonal():
+    fg = T.generate_graph_hexagonal(N=10)
+    fg.init_all()
+    return fg
+
+
+def _state(fg):
+    return {l: (dict(r.points), dict(r.beliefs)) for l, r in fg.variables.items()}
+
+
+def _calls():
+    """Each entry point called without ``device=`` (and what it would touch)."""
+    fg = _hexagonal()
+    f = fg._fct_order[1]
+    gen = torch.Generator().manual_seed(0)
+    return fg, {
+        "solve_graph_parametric": lambda: T.solve_graph_parametric(fg),
+        "init_all_beliefs": lambda: T.init_all_beliefs(fg, N=10),
+        "predict_belief": lambda: T.predict_belief(fg, "x1", N=10),
+        "solve_graph_nonparametric": lambda: T.solve_graph_nonparametric(fg, N=10),
+        "solve_tree": lambda: T.solve_tree(fg, N=10),
+        "_solve_tree_batched": lambda: tree._solve_tree_batched(
+            fg, tree.build_tree_from_ordering(fg), set(), "default", 10, gen, True),
+        "set_points_from_beliefs": lambda: batched.set_points_from_beliefs(
+            fg, ["x0"], "default"),
+        "BatchedNonparametricSolver": lambda: batched.BatchedNonparametricSolver(fg, N=10),
+        "sample_measurements": lambda: convolve.sample_measurements(fg.factors[f], gen, 10),
+        "approx_conv": lambda: T.approx_conv(fg, f, "x1", N=10),
+        "lower": lambda: lower.lower(fg),
+        "graph_arrays_from_numpy": lambda: convert.graph_arrays_from_numpy(
+            ["Pose2"], {"Pose2": 1}, {"Pose2": np.zeros((1, 3))}, {"Pose2": np.ones(1)}, []),
+        "beliefs_from_numpy": lambda: convert.beliefs_from_numpy(
+            {"Pose2": np.zeros((1, 10, 3))}),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_without_cuda_the_default_raises(no_cuda, name):
+    fg, calls = _calls()
+    assert set(calls) == set(ENTRY_POINTS)
+    before = _state(fg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[name]()
+    after = _state(fg)
+    assert after.keys() == before.keys()
+    for label, (points, beliefs) in before.items():
+        assert after[label][0].keys() == points.keys(), label
+        assert after[label][1].keys() == beliefs.keys(), label
+
+
+def test_the_solves_return_no_cpu_result_without_cuda(no_cuda):
+    """The two solves a user calls first: no result, no estimate written."""
+    fg = _hexagonal()
+    points = {l: {k: np.array(v) for k, v in r.points.items()} for l, r in fg.variables.items()}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.solve_graph_parametric(fg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.solve_graph_nonparametric(fg, N=10)
+    for label, rec in fg.variables.items():
+        assert rec.points.keys() == points[label].keys()
+        for key, p in points[label].items():
+            np.testing.assert_array_equal(rec.points[key], p)
+        assert "default" not in rec.beliefs
+    res = T.solve_graph_parametric(fg, device="cpu")
+    assert res["stats"].converged

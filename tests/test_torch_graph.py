@@ -59,7 +59,7 @@ def citygrid_pair():
         fg_j = _with_prior(R, jax_load_g2o(None, CITYGRID))
         ga_j = jax_lower(fg_j)
     fg_t = _with_prior(T, load_g2o(None, CITYGRID))
-    return fg_j, ga_j, fg_t, lower(fg_t)
+    return fg_j, ga_j, fg_t, lower(fg_t, device="cpu")
 
 
 def test_citygrid_graph_matches(citygrid_pair):
@@ -96,7 +96,7 @@ def test_octagon_lowering_is_exact(tmp_path):
         ga_j = jax_lower(fg_j)
     fg_t = load_g2o(None, path)
     fg_t.init_all()
-    ga_t = lower(fg_t)
+    ga_t = lower(fg_t, device="cpu")
     _assert_lowered_equal(ga_j, ga_t)
     # no VERTEX lines: init_all propagated the ring through the odometry
     for lbl in fg_j.ls():
@@ -107,7 +107,7 @@ def test_padded_lowering_matches(tmp_path):
     with jax.enable_x64():
         fg_j = grid_graph(R, 3, 4, seed=1, frozen=("x2",))
         ga_j = jax_lower(fg_j, pad=True)
-    ga_t = lower(grid_graph(T, 3, 4, seed=1, frozen=("x2",)), pad=True)
+    ga_t = lower(grid_graph(T, 3, 4, seed=1, frozen=("x2",)), pad=True, device="cpu")
     _assert_lowered_equal(ga_j, ga_t)
     assert ga_t.counts["Pose2"] == bucket_size(12) == 16
 
@@ -149,7 +149,7 @@ def test_unported_g2o_lines_raise(tmp_path, line):
 def test_write_back_skips_frozen():
     fg = grid_graph(T, 2, 2, seed=2, frozen=("x1",))
     before = fg.get_point("x1").copy()
-    ga = lower(fg)
+    ga = lower(fg, device="cpu")
     vals = {"Pose2": ga.values0["Pose2"] + 0.5}
     write_back(fg, ga, vals)
     np.testing.assert_array_equal(fg.get_point("x1"), before)

@@ -49,7 +49,7 @@ def truth():
     """The port's parametric optimum of honeycomb-7."""
     fp = _honeycomb(generate_graph_honeycomb)
     fp.init_all()
-    T.solve_graph_parametric(fp, init=False)
+    T.solve_graph_parametric(fp, init=False, device="cpu")
     return {l: fp.get_coords(l, "parametric") for l in fp._var_order}
 
 
@@ -62,7 +62,7 @@ def test_gs_routing_equals_jax():
     fj = jax_beehive(pose_count_target=10, graphinit=False)
     ft = generate_graph_beehive(pose_count_target=10, graphinit=False)
     sj, st = JB.BatchedNonparametricSolver(fj, "default", N=20), \
-        TB.BatchedNonparametricSolver(ft, "default", N=20)
+        TB.BatchedNonparametricSolver(ft, "default", N=20, device="cpu")
     rj = JB._build_gs_routing(sj.bp, fj)
     rt = TB._build_gs_routing(st.bp, ft, st.ga)
     assert rt["order"].dtype == rj["order"].dtype
@@ -93,7 +93,7 @@ def _with_fallback(M):
 def test_fallback_routing_equals_jax():
     fj, ft = _with_fallback(R), _with_fallback(T)
     sj, st = JB.BatchedNonparametricSolver(fj, "default", N=20), \
-        TB.BatchedNonparametricSolver(ft, "default", N=20)
+        TB.BatchedNonparametricSolver(ft, "default", N=20, device="cpu")
     assert st.ga.excluded_factors == sj.ga.excluded_factors != []
     assert st.bp.fallback == sj.bp.fallback
     # the multihypo factor's 3 messages, and 2 of every bearing-range factor:
@@ -130,7 +130,7 @@ def test_init_all_beliefs_visits_factors_in_the_jax_order(monkeypatch):
         visits["jax"].clear()
         visits["port"].clear()
         JS.init_all_beliefs(gj, N=N)
-        TS.init_all_beliefs(gt, N=N)
+        TS.init_all_beliefs(gt, N=N, device="cpu")
         assert visits["port"] == visits["jax"]
         assert len(visits["port"]) == len({v for _f, v, _s in visits["port"]})
         assert all(s for _f, _v, s in visits["port"])
@@ -142,10 +142,10 @@ def test_init_all_beliefs_visits_factors_in_the_jax_order(monkeypatch):
 def test_gs_pass_seeded_at_the_optimum_stays_there():
     fg = generate_graph_beehive(pose_count_target=10, graphinit=False)
     fg.init_all()
-    T.solve_graph_parametric(fg, init=False)
+    T.solve_graph_parametric(fg, init=False, device="cpu")
     truth = {l: fg.get_coords(l, "parametric") for l in fg.ls(r"^x\d+$")}
     fg.set_solvable("l1", 0)
-    solver = TB.BatchedNonparametricSolver(fg, "default", N=N)
+    solver = TB.BatchedNonparametricSolver(fg, "default", N=N, device="cpu")
     gen = torch.Generator().manual_seed(0)
     solver.init_beliefs_from_points(gen)
     start = solver.gather_beliefs()
@@ -175,9 +175,9 @@ def test_gs_pass_agrees_with_jax_from_identical_particles(truth):
     bj = sj.gs_pass(bj, jax.random.PRNGKey(7), reverse=True)
 
     ft = _honeycomb(generate_graph_honeycomb)
-    st = TB.BatchedNonparametricSolver(ft, "default", N=N)
+    st = TB.BatchedNonparametricSolver(ft, "default", N=N, device="cpu")
     gen = torch.Generator().manual_seed(6)
-    bt = st.gs_pass(beliefs_from_numpy(start), gen)
+    bt = st.gs_pass(beliefs_from_numpy(start, device="cpu"), gen)
     bt = st.gs_pass(bt, gen, reverse=True)
     for t, man in (("Pose2", SE2_), ("Point2", T2)):
         kl = np.mean([symmetric_kl_knn(man, torch.as_tensor(np.asarray(bj[t][s])), bt[t][s])

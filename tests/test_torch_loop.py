@@ -46,7 +46,7 @@ def solved():
     out = {}
     for engine in ("loop", "batched"):
         fg = generate_graph_hexagonal(N=N)
-        T.solve_graph_nonparametric(fg, sweeps=3, N=N, engine=engine, seed=11)
+        T.solve_graph_nonparametric(fg, sweeps=3, N=N, engine=engine, seed=11, device="cpu")
         out[engine] = fg
     return out
 
@@ -105,7 +105,7 @@ def test_predict_belief_agrees_with_jax_by_kl(jax_loop, label, man):
     assert ft.neighbors(label) == jax_loop.neighbors(label)
     assert len(ft.neighbors(label)) >= 2
     want = np.asarray(jax_predict(jax_loop, label, key=jax.random.PRNGKey(3), N=N))
-    got = predict_belief(ft, label, N=N, seed=3)
+    got = predict_belief(ft, label, N=N, seed=3, device="cpu")
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert _kl(man, want, got) < KL_GATE
 
@@ -114,17 +114,17 @@ def test_predict_belief_factor_selection(solved):
     fg = solved["loop"]
     x3 = fg.neighbors("x3")
     assert len(x3) == 2
-    both = predict_belief(fg, "x3", N=N, seed=1)
-    one = predict_belief(fg, "x3", factor_labels=x3[:1], N=N, seed=1)
+    both = predict_belief(fg, "x3", N=N, seed=1, device="cpu")
+    one = predict_belief(fg, "x3", factor_labels=x3[:1], N=N, seed=1, device="cpu")
     assert both.shape == one.shape == (N, 3) and torch.isfinite(both).all()
     # one message: the product is the message itself, drawn from the same seed
-    want = T.approx_conv(fg, x3[0], "x3", N=N, seed=1)
+    want = T.approx_conv(fg, x3[0], "x3", N=N, seed=1, device="cpu")
     assert torch.equal(one, want)
     # no solvable factor: the current belief comes back
     for fl in x3:
         fg.set_solvable(fl, 0)
     try:
-        np.testing.assert_array_equal(predict_belief(fg, "x3", N=N).numpy(),
+        np.testing.assert_array_equal(predict_belief(fg, "x3", N=N, device="cpu").numpy(),
                                       fg.variables["x3"].beliefs["default"])
     finally:
         for fl in x3:

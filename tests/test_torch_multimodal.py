@@ -79,7 +79,7 @@ def test_lowering_carries_the_nonparametric_fields():
     fj.factors[fj._fct_order[3]].nullhypo = 0.25
     ft.factors[ft._fct_order[4]].inflation = 2.0
     fj.factors[fj._fct_order[4]].inflation = 2.0
-    gj, gt = jax_lower(fj, "default"), lower(ft, "default")
+    gj, gt = jax_lower(fj, "default"), lower(ft, "default", device="cpu")
     assert gt.excluded_factors == gj.excluded_factors == []
     assert [b.ftype.name for b in gt.batches] == [b.ftype.name for b in gj.batches]
     for bt, bj in zip(gt.batches, gj.batches):
@@ -94,19 +94,20 @@ def test_lowering_carries_the_nonparametric_fields():
               params={k: np.asarray(v) for k, v in b.params.items()},
               weight=np.asarray(b.weight), labels=b.labels,
               nullhypo=b.nullhypo, inflation=b.inflation) for b in gj.batches],
-        var_labels=gj.var_labels, excluded_factors=gj.excluded_factors,
+        var_labels=gj.var_labels, excluded_factors=gj.excluded_factors, device="cpu",
     )
     for bh, bt in zip(hand.batches, gt.batches):
         assert bh.labels == bt.labels
         np.testing.assert_array_equal(bh.nullhypo.numpy(), bt.nullhypo.numpy())
         np.testing.assert_array_equal(bh.inflation.numpy(), bt.inflation.numpy())
-    bel = beliefs_from_numpy({"Pose2": np.zeros((11, 5, 3)), "Point2": np.ones((7, 5, 2))})
+    bel = beliefs_from_numpy({"Pose2": np.zeros((11, 5, 3)), "Point2": np.ones((7, 5, 2))},
+                             device="cpu")
     assert bel["Pose2"].dtype == torch.float32 and bel["Point2"].shape == (7, 5, 2)
 
 
 def test_propagator_routing_matches_jax():
     fj, ft = _graphs()
-    gj, gt = jax_lower(fj, "default"), lower(ft, "default")
+    gj, gt = jax_lower(fj, "default"), lower(ft, "default", device="cpu")
     bj = JB.build_propagator(fj, gj, N=30)
     bt = TB.build_propagator(ft, gt, N=30)
     assert bt.kmax == bj.kmax and bt.kmax["Pose2"] == 3
@@ -120,11 +121,12 @@ def test_propagator_routing_matches_jax():
         np.testing.assert_array_equal(bt.has_msg[t], bj.has_msg[t])
         np.testing.assert_array_equal(bt.msg_factor[t], bj.msg_factor[t])
     # the structure cache hands the same routing to a same-shape graph
-    assert TB.get_propagator(ft, gt, 30) is TB.get_propagator(ft, lower(ft, "default"), 30)
+    again = lower(ft, "default", device="cpu")
+    assert TB.get_propagator(ft, gt, 30) is TB.get_propagator(ft, again, 30)
 
 
 def _batch(fj, ft, name):
-    gj, gt = jax_lower(fj, "default"), lower(ft, "default")
+    gj, gt = jax_lower(fj, "default"), lower(ft, "default", device="cpu")
     i = [b.ftype.name for b in gj.batches].index(name)
     return gj.batches[i], gt.batches[i], gj
 
@@ -189,7 +191,7 @@ def test_parametric_solve_of_beehive_matches_jax():
         fj.set_point(lbl, fj.get_point(lbl) + d)
         ft.set_point(lbl, ft.get_point(lbl) + d)
     rj = R.solve_graph_parametric(fj, init=False)
-    rt = T.solve_graph_parametric(ft, init=False)
+    rt = T.solve_graph_parametric(ft, init=False, device="cpu")
     assert rt["stats"].converged and rj["stats"].converged
     for lbl in fj._var_order:
         np.testing.assert_allclose(ft.get_point(lbl), fj.get_point(lbl), rtol=0, atol=1e-3)

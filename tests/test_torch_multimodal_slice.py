@@ -11,6 +11,7 @@ The engines draw from different generators (``jax.random`` keys, a
   below 1.0 (tools/bench_multimodal.py:93's cross-engine gate), from each
   engine's own init and from identical starting particles;
 - frozen variables keep their beliefs bit-identical;
+- a seeded CPU solve keeps its recorded belief means;
 - unknown options raise ValueError/TypeError, and what is not ported yet
   raises NotImplementedError naming its slice.
 """
@@ -68,7 +69,7 @@ def solved():
                       key=jax.random.PRNGKey(2024))
     ft = _beehive(port_beehive)
     T.solve_graph_nonparametric(ft, sweeps=SWEEPS, N=N, engine="batched", init="points",
-                                seed=2024)
+                                seed=2024, device="cpu")
     return truth, fj, ft
 
 
@@ -105,9 +106,9 @@ def test_engines_agree_by_kl_from_identical_particles(solved):
     sj.scatter_beliefs(beliefs)
 
     ft = _beehive(port_beehive)
-    st = BatchedNonparametricSolver(ft, "default", N=N)
+    st = BatchedNonparametricSolver(ft, "default", N=N, device="cpu")
     gen = torch.Generator().manual_seed(5)
-    bt = beliefs_from_numpy(start)
+    bt = beliefs_from_numpy(start, device="cpu")
     for _ in range(SWEEPS):
         bt = st.sweep(bt, gen)
     st.scatter_beliefs(bt)
@@ -117,13 +118,13 @@ def test_engines_agree_by_kl_from_identical_particles(solved):
 
 def test_frozen_variables_keep_their_beliefs():
     ft = _beehive(port_beehive)
-    T.solve_graph_nonparametric(ft, sweeps=1, N=N, init="points", seed=3)
+    T.solve_graph_nonparametric(ft, sweeps=1, N=N, init="points", seed=3, device="cpu")
     frozen = ("x3", "l1")
     before = {l: np.array(ft.variables[l].beliefs["default"]) for l in ft._var_order}
     points = {l: ft.get_point(l, "default") for l in frozen}
     for l in frozen:
         ft.set_solvable(l, 0)
-    T.solve_graph_nonparametric(ft, sweeps=1, N=N, init=False, seed=7)
+    T.solve_graph_nonparametric(ft, sweeps=1, N=N, init=False, seed=7, device="cpu")
     for l in frozen:
         np.testing.assert_array_equal(ft.variables[l].beliefs["default"], before[l])
         np.testing.assert_array_equal(ft.get_point(l, "default"), points[l])
@@ -132,19 +133,52 @@ def test_frozen_variables_keep_their_beliefs():
     assert len(moved) == len(ft._var_order) - len(frozen)
 
 
+def test_seeded_cpu_solve_keeps_its_beliefs():
+    """A seeded CPU solve of the batched engine keeps the belief means it
+    had before the Gibbs label draw moved into the K2/K3 draw epilogue: the
+    draw takes the uniforms ``categorical`` drew, from the same generator
+    (a changed random stream moves these means by far more than 1e-5)."""
+    ft = _beehive(port_beehive)
+    T.solve_graph_nonparametric(ft, sweeps=1, N=N, init="points", seed=3, device="cpu")
+    want = {
+        "x0": (-0.004070677161216736, -0.016549290139228106, 2.090567693710327),
+        "l0": (-9.999231424331665, 17.00493860244751),
+        "x1": (-5.0549108505249025, 8.389872150421143, -0.25697638511657717),
+        "l1": (-22.991270809173585, 8.361895747184754),
+        "x2": (-14.708292083740234, 8.729582424163818, 2.1015099239349366),
+        "l2": (-23.003725662231446, 24.848541593551637),
+        "x3": (-20.00161193847656, 17.092149238586426, -0.006162967681884766),
+        "l3": (-37.95355266571045, 16.315371294021606),
+        "x4": (-29.81987979888916, 17.177132968902587, -2.1087033796310424),
+        "l4": (-38.58431133270264, 0.7872952073812485),
+        "x5": (-34.90328853607178, 8.654721298217773, -1.0364316272735596),
+        "l5": (-26.72656669616699, -6.544493331909179),
+        "x6": (-30.034590339660646, 0.21691193282604218, -0.005698728561401367),
+        "l6": (-11.927199096679688, 2.1757591152191162),
+        "x7": (-20.186201095581055, -0.036592465192079544, 1.0594116687774657),
+        "x8": (-15.589160003662109, 8.519627771377564, 2.068341999053955),
+        "x9": (-19.91798946380615, 17.206352291107176, 0.2512718391418457),
+        "x10": (-30.118274765014647, 16.992714767456054, -2.0920704984664917),
+    }
+    assert list(ft._var_order) == list(want)
+    for label, mean in want.items():
+        got = np.asarray(ft.variables[label].beliefs["default"], dtype=np.float64).mean(0)
+        np.testing.assert_allclose(got, mean, rtol=0, atol=1e-5, err_msg=label)
+
+
 def test_option_errors():
     fg = _beehive(port_beehive)
     with pytest.raises(ValueError, match="engine"):
-        T.solve_graph_nonparametric(fg, N=10, engine="fast", init="points")
+        T.solve_graph_nonparametric(fg, N=10, engine="fast", init="points", device="cpu")
     with pytest.raises(ValueError, match="init"):
-        T.solve_graph_nonparametric(fg, N=10, init="random")
+        T.solve_graph_nonparametric(fg, N=10, init="random", device="cpu")
     with pytest.raises(ValueError, match="init"):
-        T.solve_graph_nonparametric(fg, N=10, engine="loop", init="random")
+        T.solve_graph_nonparametric(fg, N=10, engine="loop", init="random", device="cpu")
     with pytest.raises(ValueError, match="engine"):
-        T.solve_tree(fg, N=10, engine="fast")
+        T.solve_tree(fg, N=10, engine="fast", device="cpu")
     fg.params.treeinit = True
     with pytest.raises(ValueError, match="engine"):
-        T.solve_graph_nonparametric(fg, N=10, engine="fast")
+        T.solve_graph_nonparametric(fg, N=10, engine="fast", device="cpu")
     br = T.Pose2Point2BearingRange(T.Normal(0, 0.1), T.Normal(20, 0.5))
     with pytest.raises(ValueError, match="multihypo length"):
         fg.add_factor(["x0", "l0", "l1"], br, multihypo=[1.0, 0.5])

@@ -114,7 +114,7 @@ def test_lm_rejects_nan_step_and_recovers():
     """A linear solve that returns a non-finite step is rejected like any
     bad step (lam grows) and the solve still converges."""
     fg = grid_graph(T, 4, 4, seed=6)
-    ga = lower(fg)
+    ga = lower(fg, device="cpu")
     solver = ParametricSolver(ga, T.GNOptions(linear="ndchol", **NDCHOL_OPTS))
     real = solver._solve_ndchol
     calls = {"n": 0}
@@ -135,13 +135,13 @@ def test_lm_rejects_nan_step_and_recovers():
 
 @pytest.mark.parametrize("linear", ["dense32", "pcg", "mixed"])
 def test_unported_linear_solvers_raise(linear):
-    ga = lower(grid_graph(T, 3, 3))
+    ga = lower(grid_graph(T, 3, 3), device="cpu")
     with pytest.raises(NotImplementedError, match="B2"):
         ParametricSolver(ga, T.GNOptions(linear=linear))
 
 
 def test_auto_picks_dense_when_small_and_raises_above_threshold():
-    ga = lower(grid_graph(T, 3, 3))
+    ga = lower(grid_graph(T, 3, 3), device="cpu")
     assert ParametricSolver(ga, T.GNOptions()).linear == "dense"
     with pytest.raises(NotImplementedError, match="B2"):
         ParametricSolver(ga, T.GNOptions(dense_threshold=10))
@@ -149,7 +149,7 @@ def test_auto_picks_dense_when_small_and_raises_above_threshold():
 
 def test_covariances_not_ported():
     with pytest.raises(NotImplementedError, match="B1"):
-        T.solve_graph_parametric(grid_graph(T, 2, 2), compute_covariances=True)
+        T.solve_graph_parametric(grid_graph(T, 2, 2), compute_covariances=True, device="cpu")
 
 
 @pytest.mark.parametrize("option", ["speculative", "precond_reuse"])

@@ -149,7 +149,7 @@ def _medians_ok(fg, n, gate=0.6):
 @pytest.mark.parametrize("engine", ["batched", "loop"])
 def test_solve_tree_chain_accuracy(engine):
     fg = chain(T, 4)
-    tree = TT.solve_tree(fg, N=N, engine=engine, seed=3)
+    tree = TT.solve_tree(fg, N=N, engine=engine, seed=3, device="cpu")
     assert tree.num_cliques >= 1 and tree.dirty == set(range(tree.num_cliques))
     _medians_ok(fg, 4)
     for i in range(4):
@@ -159,7 +159,7 @@ def test_solve_tree_chain_accuracy(engine):
 def test_solve_tree_agrees_with_jax_by_kl():
     fj, ft = chain(R, 4), chain(T, 4)
     JT.solve_tree(fj, N=N, key=jax.random.PRNGKey(1))
-    TT.solve_tree(ft, N=N, seed=1)
+    TT.solve_tree(ft, N=N, seed=1, device="cpu")
     kl = np.mean([
         symmetric_kl_knn(SE2_, torch.as_tensor(np.asarray(fj.variables[l].beliefs["default"])),
                          torch.as_tensor(ft.variables[l].beliefs["default"]))
@@ -170,11 +170,11 @@ def test_solve_tree_agrees_with_jax_by_kl():
 
 def test_recycled_cliques_bit_identical():
     fg = chain(T, 8)
-    tree1 = TT.solve_tree(fg, N=N, seed=5)
+    tree1 = TT.solve_tree(fg, N=N, seed=5, device="cpu")
     before = {v: np.array(fg.variables[v].beliefs["default"]) for v in fg.ls()}
     pts_before = {v: np.array(fg.get_point(v, "default")) for v in fg.ls()}
     grow(T, fg, 8)
-    tree2 = TT.solve_tree(fg, tree1, N=N, seed=6)
+    tree2 = TT.solve_tree(fg, tree1, N=N, seed=6, device="cpu")
     assert tree2.num_recycled > 0
     recycled = [v for c in tree2.cliques if c.index not in tree2.dirty
                 for v in c.frontals if v in before]
@@ -190,7 +190,7 @@ def test_treeinit_routes_through_the_tree_and_writes_logs(tmp_path, capsys):
     fg.params.treeinit = True
     fg.params.showtree = fg.params.drawtree = fg.params.dbg = True
     fg.params.logpath = str(tmp_path)
-    T.solve_graph_nonparametric(fg, N=N, seed=2)
+    T.solve_graph_nonparametric(fg, N=N, seed=2, device="cpu")
     _medians_ok(fg, 3)
     text = (tmp_path / "bt.txt").read_text()
     assert text.startswith("BayesTree: ") and text in capsys.readouterr().out
