@@ -11,11 +11,21 @@
    (Pose2Pose2 linearize) and K2/K3 (Gibbs pairwise scores and label
    draws); prints the build seconds and the ptxas reports. Measures the
    card's stream copy rate (1 GiB, CUDA events).
-3. K1 phase: K1 against its plain PyTorch version on the card, on seeded
-   random inputs at n in {1, 1000, 8192, 10000, 13085}, float32 (atol 2e-5,
-   the JAX package's Pallas-kernel tolerance) and float64 (atol 1e-10);
-   both timed at n = 13,085 per host call (CUDA events) and per launch on
-   the device (torch.profiler), beside the bound.
+3. K1 phase: both epilogues of K1 against their plain PyTorch versions on
+   the card, on seeded random inputs at n in {1, 1000, 8192, 10000, 13085}
+   and 1,048,576. The lin epilogue (the Pallas contract) in float32 (atol
+   2e-5, the JAX package's Pallas-kernel tolerance) and float64 (atol
+   1e-10), also from inputs one element off a 16-byte boundary. The normal
+   epilogue (the ndchol LM path's launch: float64 pose table of n / 2 poses,
+   int64 slots, float32 z, S, w) with its entry block at offsets of 0 and 9
+   floats (36 B, the grid graphs' layout) in the entry vector: the float64
+   residual at atol 1e-12, the float32 Jacobians within 2e-5 or 1e-5
+   relative, the JtJ entry values within 2e-5 or 1e-5 of the summed
+   magnitudes of their products, the float64 Jtr contributions at 1e-9 relative
+   against the plain contraction of the kernel's own J and r, and the entry
+   vector untouched outside the block. Both timed at n = 13,085 and
+   1,048,576 per host call (CUDA events) and per launch on the device
+   (torch.profiler), beside each epilogue's bound.
 4. K2/K3 phase: both epilogues of both kernels against their plain
    versions at (V, N, Nj) = (1, 1, 1), (1, 37, 101), the beehive-100 shapes
    (101, 100, 100) and (74, 100, 100), the default engine's shapes
@@ -39,7 +49,8 @@
    the benchmark's ``big`` options — once cold and three times warm. Each
    run must converge, reach an SE(2)-aligned ATE <= 1.0 m against the f64
    optimum in data/citygrid_gt.npz, and a cost <= 1.002 * optimum + 1e-3;
-   K1's launch count over the runs must cover every LM iteration.
+   each run must launch K1's normal epilogue at least once per LM iteration
+   and its lin epilogue never.
 6. Beehive path: the nonparametric solve of the beehive-100 graph (101
    Pose2, 74 Point2, 202 factors; seed 0) through
    ``solve_graph_nonparametric(..., sweeps=3, N=100, engine="batched",
@@ -48,7 +59,9 @@
    the port's own parametric optimum of the same graph must be below 0.5 m
    (tools/bench_multimodal.py:130's gate), and the draw epilogues of K2 and
    K3 must each launch 3 sweeps x 3 Gibbs sweeps x K = 3 = 27 times per
-   solve, their logw epilogues never.
+   solve, their logw epilogues never. The parametric optimum (the dense
+   solver) must launch K1's lin epilogue and not its normal one; so must the
+   optima of the honeycomb and Bayes-tree paths.
 7. Honeycomb grow, the default engine: ``generate_graph_honeycomb`` grown
    7 -> 14 -> 21 poses (graphinit), after each step
    ``solve_graph_nonparametric(fg, sweeps=3, N=100, engine="batched",
@@ -75,10 +88,12 @@
 11. Every Gibbs label update of every nonparametric path goes through the
    draw epilogues: each path launches both draws and no logw, and its draw
    counts equal the label updates its graphs' structure makes (PATH_DRAWS).
-   Prints the kernel table as one JSON line (K1, and K2/K3 by the draw
-   epilogue the paths launch, with the logw epilogue nested; launches
-   summed over every nonparametric path, each path counted from 0; each
-   with its bound from the published HBM and fp32 peaks), the card line,
+   Prints the kernel table as one JSON line (K1 by its two epilogues,
+   normal with the citygrid path's launches and lin with the parametric
+   optima's, and K2/K3 by the draw epilogue the paths launch, with the logw
+   epilogue nested; launches summed over every nonparametric path, each
+   path counted from 0; each with its bound from the published HBM, fp32
+   and fp64 peaks), the card line,
    and as the last line {"ok": true, "device": {...}}; writes
    chiprun_out/chip_smoke.json.
 
@@ -89,6 +104,7 @@ package is missing, or when any phase fails.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -109,8 +125,13 @@ BIG = dict(
     chol_jitter=1e-7, dtol=0.0025, dtol_auto=True, ftol=1e-9,
     gtol=1e-8, fused_chordal=True,
 )
-K1_SIZES = (1, 1000, 8192, 10000, 13085)
-K1_TIMED_N = 13085
+K1_SIZES = (1, 1000, 8192, 10000, 13085, 1 << 20)
+K1_TIMED = (13085, 1 << 20)
+K1_TIMED_N = K1_TIMED[0]
+# the normal epilogue's entry block: at the start of the entry vector (the
+# loaded g2o graphs) and after one PriorPose2 row's 9 entries (36 B)
+K1_ENTRY_OFFSETS = (0, 9)
+K1_SENTINEL = -7.0  # the entry vector outside the block must keep it
 PAIRWISE_TOL = dict(rtol=2e-5, atol=2e-5)
 # the draw epilogue: labels equal to the plain draw's on >= LABEL_AGREE of the
 # rows of each kernel, and every other row a near-tie within NEAR_TIE * (1 + |max|)
@@ -118,10 +139,17 @@ LABEL_AGREE, NEAR_TIE = 0.999, 1e-4
 # (kernel, V, dof) timed at N = Nj = 100: the beehive-100 Pose2 and Point2
 # products, and one variable's product (Gauss-Seidel passes, loop engine)
 TIMED = (("K2", 101, 3), ("K3", 74, 2), ("K2", 1, 3), ("K3", 1, 2))
-# H100 SXM published peaks (dense, no sparsity): HBM bytes/s, non-tensor fp32
-HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
-# K1 per factor in float32: 19 values read, 21 written; ~60 flops + 2 sincos
-K1_BYTES, K1_FLOPS = 160, 80
+# H100 SXM published peaks (NVIDIA's data sheet, dense, no sparsity): HBM
+# bytes/s, non-tensor fp32 and fp64
+HBM_BYTES_PER_S, FP32_FLOPS_PER_S, FP64_FLOPS_PER_S = 3.35e12, 67e12, 34e12
+# K1 lin per factor: 19 values read, 21 written (4 or 8 B each); ~60 flops
+# + 2 sincos
+K1_VALUES, K1_FLOPS = 40, 80
+# K1 normal per factor: slots 16 B, z 12, S 36, w 4 read; r 24, J 72,
+# entries 144, Jtr 48 written; ~130 fp64 operations (the residual with two
+# sincos, whitening, Jtr) and ~300 fp32 (the closed form with two sincosf,
+# four 3x3 products); plus the pose table, 24 B a pose, read once
+K1N_BYTES, K1N_FP64, K1N_FP32, POSE_BYTES = 356, 130, 300, 24
 # (V, N, Nj): one pair, off every tile, the beehive-100 shapes, one variable's
 # product (the Gauss-Seidel passes, the loop engine), the honeycomb-21 Pose2
 # and Point2 sweeps, a large batch
@@ -201,8 +229,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def k1_inputs(n, dtype, device, seed=0):
-    """Random Pose2Pose2 batch as tests/test_linearize_pallas.py makes it."""
+def k1_inputs(n, dtype, device, seed=0, offset=0):
+    """Random Pose2Pose2 batch as tests/test_linearize_pallas.py makes it;
+    with ``offset``, each tensor a view ``offset`` elements into its buffer."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -211,7 +240,44 @@ def k1_inputs(n, dtype, device, seed=0):
     z = rng.normal(0, 1, (n, 3))
     S = rng.normal(0, 1, (n, 3, 3)) + 5 * np.eye(3)
     w = rng.uniform(0.5, 1, (n,))
-    return [torch.as_tensor(a, dtype=dtype, device=device).contiguous() for a in (p, q, z, S, w)]
+    out = []
+    for a in (p, q, z, S, w):
+        buf = torch.empty(offset + a.size, dtype=dtype, device=device)
+        buf[offset:] = torch.as_tensor(a.reshape(-1), dtype=dtype, device=device)
+        out.append(buf[offset:].view(a.shape))
+    return out
+
+
+def k1_normal_inputs(n, device, seed=0):
+    """Seeded inputs of K1's normal epilogue at k1_inputs' scale: a float64
+    table of max(2, n // 2) poses, (n, 2) int64 slots, float32 z, S, w."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    count = max(2, n // 2)
+    values = rng.normal(0, 2, (count, 3))
+    vslots = rng.integers(0, count, (n, 2))
+    z = rng.normal(0, 1, (n, 3))
+    S = rng.normal(0, 1, (n, 3, 3)) + 5 * np.eye(3)
+    w = rng.uniform(0.5, 1, (n,))
+    return [torch.as_tensor(values, dtype=torch.float64, device=device),
+            torch.as_tensor(vslots, dtype=torch.int64, device=device)] + [
+        torch.as_tensor(a, dtype=torch.float32, device=device) for a in (z, S, w)]
+
+
+def normal_plan(args, offset):
+    """K1's normal plan for ``args`` with its entry block ``offset`` floats
+    into an entry vector of sentinels; returns (plan, vector)."""
+    import torch
+
+    from rome_tpu_torch.ops import linearize_cuda as K
+
+    values, vslots, z, S, w = args
+    n = vslots.shape[0]
+    vec = torch.full((offset + 36 * n + 7,), K1_SENTINEL, dtype=torch.float32,
+                     device=values.device)
+    return K.Pose2Pose2Normal(vslots, z, S, w, values.shape[0],
+                              vec[offset: offset + 36 * n]), vec
 
 
 def cuda_ms(fn, reps=200):
@@ -229,7 +295,20 @@ def cuda_ms(fn, reps=200):
     return t0.elapsed_time(t1) / reps
 
 
-def kernel_phase(card, bytes_per_s):
+def _f32_err(got, want, scale=None):
+    """(largest |got - want|, every element finite and within 2e-5 or 1e-5
+    relative to ``scale``: |want|, or for a sum of products the sum of their
+    magnitudes, since a float32 sum that cancels keeps only that accuracy)."""
+    import torch
+
+    d = (got - want).abs()
+    scale = want.abs() if scale is None else scale
+    ok = bool(torch.isfinite(got).all()) and bool(((d <= 2e-5) | (d <= 1e-5 * scale)).all())
+    return (float(d.max()) if d.numel() else 0.0), ok
+
+
+def check_lin(card):
+    """K1's lin epilogue against its plain version: worst error per dtype."""
     import torch
 
     from rome_tpu_torch.ops import linearize_cuda as K
@@ -237,35 +316,124 @@ def kernel_phase(card, bytes_per_s):
 
     atol = {torch.float32: 2e-5, torch.float64: 1e-10}
     worst = {}
-    for dt in (torch.float32, torch.float64):
-        for n in K1_SIZES:
-            args = k1_inputs(n, dt, "cuda")
-            r, (J1, J2) = K.pose2pose2_linearize(*args)
+    cases = [(n, dt, 0) for dt in atol for n in K1_SIZES] + [
+        (K1_TIMED_N, dt, 1) for dt in atol]
+    for n, dt, offset in cases:
+        args = k1_inputs(n, dt, "cuda", offset=offset)
+        r, (J1, J2) = K.pose2pose2_linearize(*args)
+        torch.cuda.synchronize()
+        rp, (J1p, J2p) = pose2pose2_linearize_plain(*args)
+        err = max(float((a - b).abs().max()) for a, b in ((r, rp), (J1, J1p), (J2, J2p)))
+        finite = all(bool(torch.isfinite(a).all()) for a in (r, J1, J2))
+        print(f"[{card}] K1 lin {str(dt)[6:]} n={n} offset={offset}: max_abs_err {err:.3e} "
+              f"(atol {atol[dt]:g}) finite={finite}")
+        check(finite and err <= atol[dt], f"K1 lin disagrees at n={n} {dt}: {err}")
+        worst[dt] = max(worst.get(dt, 0.0), err)
+    return worst
+
+
+def check_normal(card):
+    """K1's normal epilogue against its plain version at every size and
+    entry offset: worst errors per output."""
+    import torch
+
+    from rome_tpu_torch.ops.fused_linearize import pose2pose2_normal_plain
+    from rome_tpu_torch.utils.math import einsum
+
+    worst = dict(r=0.0, J=0.0, entries=0.0, jtr_rel=0.0, jtr_vs_plain=0.0)
+    for n in K1_SIZES:
+        for offset in K1_ENTRY_OFFSETS:
+            args = k1_normal_inputs(n, "cuda", seed=n + offset)
+            plan, vec = normal_plan(args, offset)
+            r, Js, jtr = plan(args[0])
             torch.cuda.synchronize()
-            rp, (J1p, J2p) = pose2pose2_linearize_plain(*args)
-            err = max(
-                float((a - b).abs().max()) for a, b in ((r, rp), (J1, J1p), (J2, J2p))
-            )
-            finite = all(bool(torch.isfinite(a).all()) for a in (r, J1, J2))
-            print(f"[{card}] K1 {str(dt)[6:]} n={n}: max_abs_err {err:.3e} "
-                  f"(atol {atol[dt]:g}) finite={finite}")
-            check(finite and err <= atol[dt], f"K1 disagrees at n={n} {dt}: {err}")
-            worst[dt] = max(worst.get(dt, 0.0), err)
-    args = k1_inputs(K1_TIMED_N, torch.float32, "cuda", seed=1)
-    call_ms = cuda_ms(lambda: K.pose2pose2_linearize(*args))
-    plain_call_ms = cuda_ms(lambda: pose2pose2_linearize_plain(*args))
-    dev = device_ms((("kernel", lambda: K.pose2pose2_linearize(*args)),
-                     ("plain", lambda: pose2pose2_linearize_plain(*args))))
-    bound_ms, bound_by = bound(K1_BYTES * K1_TIMED_N, K1_FLOPS * K1_TIMED_N)
-    bound_stream_ms, _ = bound(K1_BYTES * K1_TIMED_N, K1_FLOPS * K1_TIMED_N, bytes_per_s)
-    print(f"[{card}] K1 float32 n={K1_TIMED_N}: kernel {call_ms * 1e3:.2f} us, "
-          f"plain PyTorch {plain_call_ms * 1e3:.2f} us per host call (CUDA events, 200 calls); "
-          f"device {dev['kernel']['ms'] * 1e3:.3f} us, plain {dev['plain']['ms'] * 1e3:.3f} us "
-          f"(torch.profiler); bound {bound_ms * 1e3:.3f} us ({bound_by})")
-    return {"max_abs_err": worst[torch.float32], "max_abs_err_f64": worst[torch.float64],
-            "ms": dev["kernel"]["ms"], "plain_ms": dev["plain"]["ms"], "call_ms": call_ms,
-            "plain_call_ms": plain_call_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_stream_ms": bound_stream_ms}
+            rp, Jps, ep, jp = pose2pose2_normal_plain(*args)
+            err_r = float((r - rp).abs().max())
+            err_J, ok_J = max(_f32_err(J, Jp) for J, Jp in zip(Js, Jps))
+            terms = torch.stack([einsum("nij,nik->njk", Jps[k].abs(), Jps[l].abs())
+                                 for k in (0, 1) for l in (0, 1)])
+            err_e, ok_e = _f32_err(vec[offset: offset + 36 * n], ep.reshape(-1),
+                                   terms.reshape(-1))
+            outside = torch.cat([vec[:offset], vec[offset + 36 * n:]])
+            # Jtr against the plain contraction of the kernel's own J and r
+            own = torch.stack([einsum("nij,ni->nj", J, r) for J in Js])
+            rel = float((jtr - own).abs().max() / own.abs().max().clamp_min(1e-300))
+            worst.update(r=max(worst["r"], err_r), J=max(worst["J"], err_J),
+                         entries=max(worst["entries"], err_e),
+                         jtr_rel=max(worst["jtr_rel"], rel),
+                         jtr_vs_plain=max(worst["jtr_vs_plain"],
+                                          float((jtr - jp).abs().max())))
+            finite = all(bool(torch.isfinite(t).all()) for t in (r, jtr))
+            print(f"[{card}] K1 normal n={n} entry offset={offset}: r {err_r:.3e} (atol 1e-12), "
+                  f"J {err_J:.3e} (2e-5 or 1e-5 rel), entries {err_e:.3e} (2e-5 or 1e-5 of "
+                  f"the products' magnitudes), Jtr {rel:.3e} rel "
+                  f"(1e-9) finite={finite}")
+            check(finite and err_r <= 1e-12 and ok_J and ok_e and rel <= 1e-9,
+                  f"K1 normal disagrees at n={n}, offset {offset}")
+            check(bool((outside == K1_SENTINEL).all()),
+                  f"K1 normal wrote outside its entry block at n={n}, offset {offset}")
+    return worst
+
+
+def time_k1(card, bytes_per_s):
+    """Both epilogues at K1_TIMED: device time per launch (torch.profiler)
+    and per host call (CUDA events) beside the plain versions and bounds."""
+    import torch
+
+    from rome_tpu_torch.ops import linearize_cuda as K
+    from rome_tpu_torch.ops.fused_linearize import (
+        pose2pose2_linearize_plain,
+        pose2pose2_normal_plain,
+    )
+
+    rows = {}
+    for n in K1_TIMED:
+        lin = k1_inputs(n, torch.float32, "cuda", seed=1)
+        nargs = k1_normal_inputs(n, "cuda", seed=1)
+        plan, _vec = normal_plan(nargs, K1_ENTRY_OFFSETS[1])
+        fns = {"lin": lambda: K.pose2pose2_linearize(*lin),
+               "lin_plain": lambda: pose2pose2_linearize_plain(*lin),
+               "normal": lambda: plan(nargs[0]),
+               "normal_plain": lambda: pose2pose2_normal_plain(*nargs)}
+        dev = device_ms(list(fns.items()))
+        calls = {k: cuda_ms(fns[k]) for k in ("lin", "normal")}
+        count = nargs[0].shape[0]
+        work = {"lin": (4 * K1_VALUES * n, K1_FLOPS * n, 0),
+                "normal": (K1N_BYTES * n + POSE_BYTES * count, K1N_FP32 * n, K1N_FP64 * n)}
+        for epi, (nbytes, f32, f64) in work.items():
+            b_ms, b_by = bound(nbytes, f32, fp64_flops=f64)
+            b_stream, _ = bound(nbytes, f32, bytes_per_s, fp64_flops=f64)
+            row = dict(ms=dev[epi]["ms"], plain_ms=dev[f"{epi}_plain"]["ms"],
+                       kernels_per_call=dev[epi]["kernels_per_call"],
+                       plain_kernels_per_call=dev[f"{epi}_plain"]["kernels_per_call"],
+                       timer=dev[epi]["timer"], plain_timer=dev[f"{epi}_plain"]["timer"],
+                       call_ms=calls[epi], bound_ms=b_ms, bound_by=b_by,
+                       bound_stream_ms=b_stream, bytes=nbytes,
+                       share_of_bound=b_ms / dev[epi]["ms"],
+                       share_of_stream_bound=b_stream / dev[epi]["ms"])
+            rows[(epi, n)] = row
+            print(f"[{card}] K1 {epi} n={n}: device {row['ms'] * 1e3:.3f} us "
+                  f"({row['kernels_per_call']:g} kernels), plain {row['plain_ms'] * 1e3:.3f} us "
+                  f"({row['plain_kernels_per_call']:g} kernels) ({row['timer']}, "
+                  f"{row['plain_timer']}); "
+                  f"{row['call_ms'] * 1e3:.2f} us per host call (CUDA events, 200 calls); bound "
+                  f"{b_ms * 1e3:.3f} us ({b_by}, {nbytes} B), {row['share_of_bound']:.3f} of it; "
+                  f"{b_stream * 1e3:.3f} us at the stream rate, "
+                  f"{row['share_of_stream_bound']:.3f}")
+    return rows
+
+
+def kernel_phase(card, bytes_per_s):
+    """K1: both epilogues checked against their plain versions, then timed."""
+    lin_err = check_lin(card)
+    normal_err = check_normal(card)
+    timed = time_k1(card, bytes_per_s)
+    out = {epi: {f"n={n}": timed[(epi, n)] for n in K1_TIMED} for epi in ("lin", "normal")}
+    out["lin"].update(max_abs_err=max(lin_err.values()),
+                      max_abs_err_by_dtype={str(k)[6:]: v for k, v in lin_err.items()})
+    out["normal"].update(max_abs_err=max(normal_err["J"], normal_err["entries"]),
+                         errors=normal_err)
+    return out
 
 
 def build_graph(path):
@@ -305,12 +473,13 @@ def main_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT):
     ref_cost = float(gt["final_cost"])
     runs = []
     total_iters = 0
-    K.LAUNCHES = 0
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
     for label in ("cold", "warm", "warm", "warm"):
         t_load = time.time()
         fg = build_graph(g2o)
         t_load = time.time() - t_load
-        before = K.LAUNCHES
+        before = dict(K.LAUNCHES)
         t0 = time.time()
         res = solve_graph_parametric(
             fg, init=False, options=GNOptions(**BIG), chordal_init=True, device=device,
@@ -319,7 +488,7 @@ def main_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT):
             torch.cuda.synchronize()
         wall = time.time() - t0
         st = res["stats"]
-        launches = K.LAUNCHES - before
+        launches = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
         total_iters += st.iterations
         pts = np.stack([fg.get_point(l) for l in fg.ls(r"^x\d+$")])
         ate, ate_raw = ate_rmse(fg, gt["poses"])
@@ -339,12 +508,14 @@ def main_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT):
         check(ate <= ATE_GATE_M, f"{label} run ATE {ate} > {ATE_GATE_M}")
         check(st.final_cost <= ref_cost * 1.002 + 1e-3,
               f"{label} run cost {st.final_cost} > 1.002 * {ref_cost}")
-        # (a CPU rehearsal takes the plain path and launches nothing)
-        check(device != "cuda" or launches >= st.iterations,
-              f"{label} run: {launches} K1 launches for {st.iterations} iterations")
-    total_launches = K.LAUNCHES
-    check(device != "cuda" or total_launches >= total_iters,
-          "K1 launches do not cover the LM iterations")
+        # one normal-epilogue launch per LM iteration, no lin launch (a CPU
+        # rehearsal takes the plain path and launches nothing)
+        check(device != "cuda" or (launches["normal"] >= st.iterations
+                                   and launches["lin"] == 0),
+              f"{label} run: K1 launches {launches} for {st.iterations} iterations")
+    total_launches = dict(K.LAUNCHES)
+    check(device != "cuda" or total_launches["normal"] >= total_iters,
+          "K1 normal launches do not cover the LM iterations")
     return runs, total_launches
 
 
@@ -381,9 +552,12 @@ def gibbs_work(kernel, V, N, Nj, d, draw):
     return read + 4 * pairs, flops
 
 
-def bound(nbytes, flops, bytes_per_s=HBM_BYTES_PER_S):
-    """The least time (ms) the card could take, and what bounds it."""
-    t_bytes, t_ops = nbytes / bytes_per_s, flops / FP32_FLOPS_PER_S
+def bound(nbytes, flops, bytes_per_s=HBM_BYTES_PER_S, fp64_flops=0):
+    """The least time (ms) the card could take, and what bounds it: the
+    bytes over ``bytes_per_s``, or the fp32 ``flops`` and ``fp64_flops``
+    over their peaks."""
+    t_bytes = nbytes / bytes_per_s
+    t_ops = flops / FP32_FLOPS_PER_S + fp64_flops / FP64_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -403,9 +577,17 @@ def stream_bandwidth(card, n=1 << 28, reps=20):
     return rate
 
 
-def device_ms(fns, reps=100):
-    """Device time per call (ms) of each labelled function: the kernels'
-    summed self device time under torch.profiler over ``reps`` calls."""
+def device_ms(fns, reps=100, windows=4):
+    """Device time per call (ms) of each labelled function: the device
+    operations it launched under torch.profiler over ``reps`` calls, their
+    mean duration times the operations a call launches (the profiler can
+    miss a few of the first operations of a window).
+
+    The profiler can also drop a whole window, so a function whose window
+    holds no timed device operation is profiled again, up to ``windows``
+    times. If every window is empty, its time per call comes from CUDA
+    events over back-to-back calls instead (an upper bound that holds the
+    host's launch cost, ``timer`` says so, and its operation count is 0)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -414,13 +596,24 @@ def device_ms(fns, reps=100):
         for _ in range(10):
             fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        out[label] = dict(ms=sum(e.self_device_time_total for e in ka) / reps / 1e3,
-                          kernels_per_call=sum(e.count for e in ka) / reps)
+        for _ in range(windows):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+            total_us = sum(e.time_range.end - e.time_range.start for e in ev)
+            if ev and total_us > 0:
+                break
+        if not (ev and total_us > 0):
+            print(f"torch.profiler recorded no device operation of {label} in {windows} "
+                  f"windows; timing it with CUDA events", file=sys.stderr)
+            out[label] = dict(ms=cuda_ms(fn, reps), kernels_per_call=0, recorded_share=0.0,
+                              timer="cuda_events")
+            continue
+        per_call = math.ceil(len(ev) / reps - 1e-9)
+        out[label] = dict(ms=total_us / len(ev) * per_call / 1e3, kernels_per_call=per_call,
+                          recorded_share=len(ev) / (reps * per_call), timer="torch.profiler")
     return out
 
 
@@ -550,6 +743,7 @@ def pairwise_phase(card, bytes_per_s):
         row = {k: v["ms"] for k, v in dev.items()}
         row.update(extra)
         row["kernels_per_call"] = {k: v["kernels_per_call"] for k, v in dev.items()}
+        row["timer"] = {k: v["timer"] for k, v in dev.items()}
         row["draw_call_ms"], row["plain_draw_call_ms"] = [ms_a, ms_b], [plain_a, plain_b]
         for epi, draw in (("logw", False), ("draw", True)):
             nbytes, flops = gibbs_work(name, V, N, Nj, d, draw)
@@ -583,14 +777,14 @@ def beehive_path(card, device="cuda", poses=BEEHIVE_POSES, N=BEEHIVE_N):
     from rome_tpu_torch import solve_graph_nonparametric, solve_graph_parametric
     from rome_tpu_torch.ops import pairwise_cuda as P
 
+    _reset_launches()
     fp = beehive_graph(poses)
     fp.init_all()
     solve_graph_parametric(fp, init=False, device=device)
+    _check_truth_launches(device, "the beehive optimum")
     truth = {l: fp.get_coords(l, "parametric") for l in fp.ls(r"^x\d+$")}
     per_solve = BEEHIVE_SWEEPS * GIBBS_SWEEPS * 3  # K = 3 messages per variable
     runs = []
-    for k in P.LAUNCHES:
-        P.LAUNCHES[k] = 0
     for label in ("cold", "warm", "warm"):
         fg = beehive_graph(poses)
         before = dict(P.LAUNCHES)
@@ -620,7 +814,7 @@ def beehive_path(card, device="cuda", poses=BEEHIVE_POSES, N=BEEHIVE_N):
             se2_pairwise_logw=0, euclid_pairwise_logw=0, se2_gibbs_draw=per_solve,
             euclid_gibbs_draw=per_solve),
               f"{label} run: K2/K3 launches {launches}, expected {per_solve} draws each")
-    return runs, dict(P.LAUNCHES)
+    return runs, _launches()
 
 
 def _sync(device):
@@ -631,16 +825,29 @@ def _sync(device):
 
 
 def _reset_launches():
+    from rome_tpu_torch.ops import linearize_cuda as K
     from rome_tpu_torch.ops import pairwise_cuda as P
 
-    for k in P.LAUNCHES:
-        P.LAUNCHES[k] = 0
+    for counts in (P.LAUNCHES, K.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _launches():
+    """K2/K3's launches by epilogue, and K1's as k1_lin / k1_normal."""
+    from rome_tpu_torch.ops import linearize_cuda as K
     from rome_tpu_torch.ops import pairwise_cuda as P
 
-    return dict(P.LAUNCHES)
+    return dict(P.LAUNCHES, **{f"k1_{k}": v for k, v in K.LAUNCHES.items()})
+
+
+def _check_truth_launches(device, what):
+    """A parametric optimum (the dense solver) goes through K1's lin
+    epilogue, never its normal one (the ndchol path's)."""
+    from rome_tpu_torch.ops import linearize_cuda as K
+
+    check(device != "cuda" or (K.LAUNCHES["lin"] > 0 and K.LAUNCHES["normal"] == 0),
+          f"{what}: K1 launches {K.LAUNCHES}, expected lin > 0 and no normal")
 
 
 def _parametric_truth(fg, device):
@@ -652,6 +859,7 @@ def _parametric_truth(fg, device):
     fp = copy.deepcopy(fg)
     fp.init_all()
     solve_graph_parametric(fp, init=False, device=device)
+    _check_truth_launches(device, "a parametric optimum")
     return {l: fp.get_coords(l, "parametric") for l in fp._var_order}
 
 
@@ -880,14 +1088,22 @@ def multihypo_path(card, device="cuda", N=MULTIHYPO_N, solve_N=NP_N):
 
 
 def kernel_table(k1, k23, k1_launches, np_launches):
-    """The kernels JSON line: K1, and K2/K3 by their draw epilogues (what
-    the paths launch) with their logw epilogues nested."""
-    k1_row = dict(name="pose2pose2_linearize", source="pose2pose2_linearize.cu",
-                  replaces="rome_tpu/ops/linearize_pallas.py:54", launches=k1_launches,
-                  max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
-                  bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None,
-                  shape=[K1_TIMED_N])
-    kernels = [k1_row]
+    """The kernels JSON line: K1 by its two epilogues (normal launched by the
+    citygrid path, lin by the parametric optima of the nonparametric paths),
+    and K2/K3 by their draw epilogues (what the paths launch) with their logw
+    epilogues nested. Times and bounds at n = 13,085, with 1,048,576 nested."""
+    kernels = []
+    for epi, name, launches in (("lin", "pose2pose2_linearize", np_launches["k1_lin"]),
+                                ("normal", "pose2pose2_normal", k1_launches["normal"])):
+        t, big = k1[epi][f"n={K1_TIMED[0]}"], k1[epi][f"n={K1_TIMED[1]}"]
+        kernels.append(dict(
+            name=name, source="pose2pose2_linearize.cu",
+            replaces="rome_tpu/ops/linearize_pallas.py:54", launches=launches,
+            max_abs_err=k1[epi]["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            shape=[K1_TIMED[0]],
+            **{f"n={K1_TIMED[1]}": {k: big[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "share_of_bound")}}))
     for k, name, tpu, V in (("K2", "se2", "rome_tpu/ops/pairwise.py:75", 101),
                             ("K3", "euclid", "rome_tpu/ops/pairwise.py:126", 74)):
         t = k23[k]["timed"][f"V={V}"]
@@ -948,7 +1164,7 @@ def main():
     warm = [r["solve_time_s"] for r in runs[1:]]
     print(f"[{card}] citygrid_10k: cold {runs[0]['solve_time_s']:.3f} s, warm "
           f"{', '.join(f'{w:.3f}' for w in warm)} s, best {10000 / min(warm):.1f} poses/s, "
-          f"{runs[-1]['iterations']} LM iterations, K1 launches {launches}")
+          f"{[r['iterations'] for r in runs]} LM iterations, K1 launches {launches}")
     bee, bee_launches = beehive_path(card)
     secs = ", ".join(f"{r['solve_time_s']:.3f}" for r in bee)
     errs = ", ".join(f"{r['mean_pose_err_m']:.4f}" for r in bee)
@@ -961,7 +1177,7 @@ def main():
                        ("multihypo_range_bearing", multihypo_path)):
         t0 = time.time()
         np_paths[name] = path(card)
-        print(f"[{card}] {name}: {time.time() - t0:.1f} s, K2/K3 launches {np_paths[name][1]}")
+        print(f"[{card}] {name}: {time.time() - t0:.1f} s, launches {np_paths[name][1]}")
     for name, (_r, l) in np_paths.items():
         draws = (l["se2_gibbs_draw"], l["euclid_gibbs_draw"])
         check(draws == PATH_DRAWS[name],

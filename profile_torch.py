@@ -26,13 +26,20 @@ benchmark's ``big`` options). The phases:
    around each phase on the current stream (no added synchronization): the
    chordal init, the symbolic-plan lookup, the LM loop and, inside it, the
    linearize, the linear solve (normal-equation entries, ND assembly,
-   factorization, CG polish) and the cost evaluations.
-3. torch.profiler over one more solve: kernel count, device time, and the
+   factorization, CG polish) and the cost evaluations; inside the linear
+   solve the JᵀJ entry values and the gradient.
+3. One more solve with the linearize, the entry values and the gradient
+   each counted per call: host seconds (the host clock around the call, no
+   synchronization) and, under a torch.profiler session of its own, the
+   device operations the call launched and their device time; reported per
+   LM iteration.
+4. torch.profiler over one more solve: kernel count, device time, and the
    device busy share (union of kernel intervals over the span from the first
    kernel's start to the last one's end); the op table goes to
    ``<out>/profile_ops.txt``.
-4. K1 alone at n = 13,085 (float32): device time per launch from the
-   profiler, against the plain PyTorch version's device time per call.
+5. K1's lin epilogue alone at n = 13,085 (float32): device time per launch
+   from the profiler, against the plain PyTorch version's device time per
+   call.
 
 ``--path beehive``: the solve of chip_smoke.py's beehive path
 (``solve_graph_nonparametric(..., sweeps=3, N=100, engine="batched",
@@ -134,6 +141,8 @@ def phases(torch, gt, card, n=3):
     timer.wrap(GN.ParametricSolver, "solve", "lm_loop")
     timer.wrap(GN.ParametricSolver, "_linearize", "lm.linearize")
     timer.wrap(GN.ParametricSolver, "_solve_ndchol", "lm.linear_solve")
+    timer.wrap(GN, "normal_eq_entry_values", "lm.linear_solve.entry_values")
+    timer.wrap(GN, "gradient_from_lins", "lm.linear_solve.gradient")
     timer.wrap(GN, "cost_at", "lm.cost_at")
     rows = []
     try:
@@ -145,6 +154,58 @@ def phases(torch, gt, card, n=3):
     finally:
         timer.unwrap()
     return rows
+
+
+# the per-iteration work the normal epilogue took over: (owner, name, label)
+LIN_PHASES = (("solver", "_linearize", "lm.linearize"),
+              ("module", "normal_eq_entry_values", "lm.entry_values"),
+              ("module", "gradient_from_lins", "lm.gradient"))
+
+
+def per_call(torch, gt, card):
+    """One solve with each of LIN_PHASES counted per call: host seconds, and
+    device operations and device time under a profiler session per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rome_tpu_torch.solvers import gauss_newton as GN
+
+    rows = {label: [] for _o, _n, label in LIN_PHASES}
+    restore = []
+
+    def counted(fn, label):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+            ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+            rows[label].append((host, len(ev), sum(e.time_range.end - e.time_range.start
+                                                   for e in ev)))
+            return out
+        return call
+
+    for owner, name, label in LIN_PHASES:
+        obj = GN.ParametricSolver if owner == "solver" else GN
+        restore.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, counted(getattr(obj, name), label))
+    try:
+        solve = solve_once(torch, gt)
+    finally:
+        for obj, name, fn in restore:
+            setattr(obj, name, fn)
+    iters = solve["iterations"]
+    res = {label: dict(calls=len(r), host_ms_per_iteration=1e3 * sum(x[0] for x in r) / iters,
+                       device_ops_per_iteration=sum(x[1] for x in r) / iters,
+                       device_us_per_iteration=sum(x[2] for x in r) / iters)
+           for label, r in rows.items()}
+    res["total"] = {k: sum(v[k] for v in res.values()) for k in
+                    ("host_ms_per_iteration", "device_ops_per_iteration",
+                     "device_us_per_iteration")}
+    print(f"[{card}] per LM iteration ({iters} iterations; host clock, device ops under "
+          f"torch.profiler): " + json.dumps(res))
+    return dict(solve=solve, per_iteration=res)
 
 
 def busy_share(events):
@@ -413,6 +474,7 @@ def main():
     gt = np.load(C.CITYGRID_GT)
     report["repeatability"] = repeatability(torch, gt, card, args.solves)
     report["phases"] = phases(torch, gt, card)
+    report["per_call"] = per_call(torch, gt, card)
     report["profile"] = profiled(
         torch, card, os.path.join(args.out, "profile_ops.txt"), lambda: solve_once(torch, gt)
     )

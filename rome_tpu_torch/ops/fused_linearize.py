@@ -2,7 +2,10 @@
 
 Counterpart of ``rome_tpu/ops/fused_linearize.py``: the same whitened
 residual and Jacobians, with the factor weight applied (the contract of the
-hand kernel in ``ops/linearize_cuda.py``, whose plain version this is).
+hand kernel K1's ``lin`` epilogue in ``ops/linearize_cuda.py``, whose plain
+version this is). :func:`pose2pose2_normal_plain` is the plain version of
+K1's ``normal`` epilogue: the ndchol LM path's composition for a Pose2Pose2
+batch, in the order the solver ran it before the epilogue existed.
 
 Derivation (Pose2Pose2, hybrid SE(2) tangent — Pose2D.jl:48-67):
   qhat = p ∘ exp(z);  r_raw = log(q'⁻¹ ∘ qhat) with q' = q ∘ exp(dq),
@@ -18,7 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from rome_tpu_torch.utils.math import sym_rem
+from rome_tpu_torch.factors.pose2 import POSE2POSE2
+from rome_tpu_torch.manifolds.base import SE2_
+from rome_tpu_torch.utils.math import einsum, matvec, sym_rem
 
 
 def pose2pose2_linearize_plain(p, q, z, S, w):
@@ -72,3 +77,27 @@ def pose2pose2_linearize_plain(p, q, z, S, w):
     J1 = S @ J1
     J2 = S @ J2
     return r0 * w[:, None], (J1 * w[:, None, None], J2 * w[:, None, None])
+
+
+def pose2pose2_normal_plain(values, vslots, z, S, w):
+    """K1's normal epilogue, plain: one Pose2Pose2 batch of the ndchol LM path.
+
+    values: (count, 3) float64 pose table; vslots: (n, 2) int64 slots of p
+    and q; z (n, 3), S (n, 3, 3), w (n,) in the graph's float32. Returns
+    r (n, 3) float64 (the generic residual route, ``batch_residual`` on the
+    float64 graph), (J1, J2) (n, 3, 3) float32 (the lin epilogue on the
+    float32-rounded poses), the JᵀJ entry values (4, n, 3, 3) float32 in the
+    symbolic phase's order J1ᵀJ1, J1ᵀJ2, J2ᵀJ1, J2ᵀJ2, and the Jᵀr
+    contributions (2, n, 3) float64 (J promoted), each computed as
+    ``normal_eq_entry_values`` and ``gradient_from_lins`` compute them.
+    """
+    p, q = values[vslots[:, 0]], values[vslots[:, 1]]
+    zero = (torch.zeros(p.shape, dtype=values.dtype, device=values.device),
+            torch.zeros(q.shape, dtype=values.dtype, device=values.device))
+    raw = POSE2POSE2.residual({"z": z}, SE2_.boxplus(p, zero[0]), SE2_.boxplus(q, zero[1]))
+    r = matvec(S, raw) * w[:, None]
+    _r32, Js = pose2pose2_linearize_plain(
+        p.to(torch.float32), q.to(torch.float32), z, S, w)
+    entries = torch.stack([einsum("nij,nik->njk", Js[k], Js[l]) for k in (0, 1) for l in (0, 1)])
+    jtr = torch.stack([einsum("nij,ni->nj", J, r) for J in Js])
+    return r, Js, entries, jtr

@@ -14,9 +14,11 @@ Linear solvers ported so far:
 ``dense32``, ``pcg`` and ``mixed`` are not ported yet (ROADMAP slice B2).
 
 Precision split of the ndchol path: values, residuals, cost, gradient and CG
-in f64; Jacobians (through the hand kernel K1), normal-equation entries and
-the front factorization in f32; the Hvp in f32 only where the JAX package
-allows it (loose polish tolerance and a metric scale <= 3).
+in f64; Jacobians, normal-equation entries and the front factorization in
+f32; the Hvp in f32 only where the JAX package allows it (loose polish
+tolerance and a metric scale <= 3). A Pose2Pose2 batch's f64 residual, f32
+Jacobians, entry values and Jᵀr contributions come from one launch of the
+hand kernel K1's normal epilogue per iteration.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from rome_tpu_torch.graph.lower import GraphArrays
 from rome_tpu_torch.solvers.linearize import (
+    NormalEqWorkspace,
     cost_at,
     dense_normal_eqs,
     flatten_tangent,
@@ -183,12 +186,16 @@ class ParametricSolver:
         # cost accumulation dtype: always f64
         self._cdt = F64
         self._mixed_j = linear == "ndchol" and opts.mixed_jacobians and self._use64
+        # the mixed path's entry vector and K1 normal-epilogue plans, reused
+        # by every iteration
+        self._ws = NormalEqWorkspace(self._gaW) if self._mixed_j else None
 
     # -- building blocks ---------------------------------------------------------
     def _linearize(self, values, rt):
+        """(lins, NormalParts or None)."""
         if self._mixed_j:
-            return linearize_all_mixed_j(self._gaW, self.ga, values, rt)
-        return linearize_all(self._gaW, values, rt)
+            return linearize_all_mixed_j(self._gaW, self.ga, values, rt, self._ws)
+        return linearize_all(self._gaW, values, rt), None
 
     def _boxplus_all(self, values, delta, rt):
         out = {}
@@ -220,7 +227,7 @@ class ParametricSolver:
             k += 1
         return x, r, k
 
-    def _solve_dense(self, lins, lam, rt):
+    def _solve_dense(self, lins, lam, rt, _parts=None):
         """f64 assembly, Jacobi scaling, f32 Cholesky, safeguarded f64
         iterative refinement."""
         ga, opts = self.ga, self.opts
@@ -255,9 +262,11 @@ class ParametricSolver:
         x = ((y * d) * free_vector(ga, rt).to(hdt)).to(ga.dtype)
         return unflatten_tangent(ga, x), g.to(ga.dtype), True, {}
 
-    def _solve_ndchol(self, lins, lam, rt):
+    def _solve_ndchol(self, lins, lam, rt, parts=None):
         """ND multifrontal f32 Cholesky preconditioning a short matrix-free
-        CG on the true damped system (f64 RHS, Hvp as gated below)."""
+        CG on the true damped system (f64 RHS, Hvp as gated below). ``parts``
+        carries the entry values and Jᵀr contributions of the batches the
+        normal epilogue served."""
         from rome_tpu_torch.solvers.sparse import (
             ndchol_assemble, ndchol_factorize, ndchol_solve,
         )
@@ -266,7 +275,7 @@ class ParametricSolver:
         sym, nd = self._sym, self._nd
         wdt = gaW.dtype
         jitter, ptol = opts.chol_jitter, opts.polish_tol
-        vals = normal_eq_entry_values(gaW, lins, dtype=F32)
+        vals = normal_eq_entry_values(gaW, lins, dtype=F32, parts=parts)
         fvec32 = free_vector(gaW, rt).to(F32)
         lam32 = torch.tensor(lam, dtype=F32, device=ga.device)
         diag_H = torch.zeros(sym.D, dtype=F32, device=ga.device).index_add_(
@@ -282,7 +291,7 @@ class ParametricSolver:
             y = ndchol_solve(sym, nd, Linvs, L21s, r.to(F32) * df)
             return (y * df).to(wdt)
 
-        g = gradient_from_lins(gaW, lins, rt)
+        g = gradient_from_lins(gaW, lins, rt, parts=parts)
         fvecW = free_vector(gaW, rt).to(wdt)
         diagW = diag_H.to(wdt)
         lamW = lam32.to(wdt)
@@ -319,10 +328,10 @@ class ParametricSolver:
         Returns (trial values, cost0, cost1, gnorm, dnorm, exact, pred,
         cg_iters) with the scalars as host floats."""
         gaW = self._gaW
-        lins = self._linearize(values, rt)
+        lins, parts = self._linearize(values, rt)
         cost0 = sum(0.5 * torch.sum(r0.to(self._cdt) ** 2) for _b, r0, _J, _v in lins)
         solve = self._solve_ndchol if self.linear == "ndchol" else self._solve_dense
-        delta, g, exact, extras = solve(lins, lam, rt)
+        delta, g, exact, extras = solve(lins, lam, rt, parts)
         gvec = g if isinstance(g, dict) else unflatten_tangent(gaW, g)
         gnorm = torch.sqrt(_tdot(gvec, gvec))
         dnorm = torch.sqrt(_tdot(delta, delta))

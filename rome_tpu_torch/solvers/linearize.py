@@ -8,15 +8,22 @@ through the hand kernel K1 (ops/linearize_cuda.py); every other type through
 ``torch.func.vmap(jacfwd)`` of its residual. ``lins`` entries are
 ``(batch, r0, Js, vslots)``; ``rt`` (``runtime_state``) carries the batch
 data so a caller can hand in a different graph's values.
+
+The ndchol LM path (``linearize_all_mixed_j``) sends each Pose2Pose2 batch
+through K1's ``normal`` epilogue instead, which also writes the batch's JᵀJ
+entry values and Jᵀr contributions (``NormalParts``); the entry-value and
+gradient functions below take those instead of recomputing them.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 from torch.func import jacfwd, vmap
 
 from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays
-from rome_tpu_torch.ops.linearize_cuda import FUSED_LINEARIZE
+from rome_tpu_torch.ops.linearize_cuda import FUSED_LINEARIZE, FUSED_NORMAL
 from rome_tpu_torch.utils.math import einsum, matvec
 
 
@@ -110,19 +117,78 @@ def linearize_all(ga: GraphArrays, values, rt=None):
     return out
 
 
-def linearize_all_mixed_j(ga64, ga32, values, rt):
+@dataclass
+class NormalParts:
+    """What the normal epilogue wrote for the batches it served.
+
+    ``vals``: the float32 JᵀJ entry vector of every batch in the symbolic
+    phase's order (``normal_eq_entry_values``), each batch's block starting
+    at ``offsets[i]``; the served batches' blocks are filled. ``jtr``: batch
+    index -> (arity, n, dof) float64 Jᵀr contributions of a served batch.
+    """
+
+    vals: torch.Tensor
+    offsets: tuple
+    jtr: dict
+
+
+class NormalEqWorkspace:
+    """Buffers the ndchol LM path keeps across iterations of one graph: the
+    entry vector and, per Pose2Pose2 batch, K1's normal-epilogue plan (its
+    inputs checked once, its outputs in one allocation). A call of
+    ``linearize_all_mixed_j`` with a workspace overwrites what the previous
+    call with it returned."""
+
+    def __init__(self, ga: GraphArrays):
+        offsets, o = [], 0
+        for b in ga.batches:
+            offsets.append(o)
+            dofs = [ga.manifolds[t].dof for t in b.vtypes]
+            o += b.n * sum(dk * dl for dk in dofs for dl in dofs)
+        self.offsets = tuple(offsets)
+        self.vals = torch.empty(o, dtype=torch.float32, device=ga.device)
+        self._plans = {}
+
+    def normal(self, i, plan_type, vslots, z, S, w, count):
+        """Batch ``i``'s plan for these inputs, made on first use."""
+        plan = self._plans.get(i)
+        if plan is None or not plan.serves(vslots, z, S, w) or plan.count != count:
+            o = self.offsets[i]
+            plan = plan_type(vslots, z, S, w, count, self.vals[o: o + 36 * vslots.shape[0]])
+            self._plans[i] = plan
+        return plan
+
+
+def linearize_all_mixed_j(ga64, ga32, values, rt, ws=None):
     """f64 residuals + f32 Jacobians, per batch: only the residual feeds the
     f64-critical quantities (cost, gradient); every consumer of J in the
-    ndchol path works in f32."""
-    v32 = {t: v.to(torch.float32) for t, v in values.items()}
-    out = []
+    ndchol path works in f32.
+
+    Pose2Pose2 batches go through K1's normal epilogue, which also writes
+    their f32 JᵀJ entry values and f64 Jᵀr contributions; every other batch
+    is linearized generically. Returns ``(lins, NormalParts)``; the served
+    batches' outputs live in ``ws`` (a fresh ``NormalEqWorkspace`` when not
+    given) until its next call.
+    """
+    ws = ws if ws is not None else NormalEqWorkspace(ga64)
+    v32 = None
+    out, jtr = [], {}
     for i, b in enumerate(ga64.batches):
         p, vs, w = rt["params"][i], rt["vslots"][i], rt["weight"][i]
+        plan_type = FUSED_NORMAL.get(b.ftype.name)
+        if plan_type is not None:
+            table = values[b.vtypes[0]]
+            plan = ws.normal(i, plan_type, vs, p["z"], p["sqrt_info"], w, table.shape[0])
+            r64, Js32, jtr[i] = plan(table)
+            out.append((b, r64, Js32, vs))
+            continue
+        if v32 is None:
+            v32 = {t: v.to(torch.float32) for t, v in values.items()}
         r64 = batch_residual(ga64, b, values, p, vs, w)
         p32 = {k: v.to(torch.float32) for k, v in p.items()}
         _r32, Js32 = batch_linearize(ga32, b, v32, p32, vs, w.to(torch.float32))
         out.append((b, r64, Js32, vs))
-    return out
+    return out, NormalParts(ws.vals, ws.offsets, jtr)
 
 
 def cost_at(ga: GraphArrays, values, rt=None, accum_dtype=None):
@@ -146,13 +212,16 @@ def _free_of(ga: GraphArrays, rt):
     return ga.free if rt is None else rt["free"]
 
 
-def gradient_from_lins(ga: GraphArrays, lins, rt=None):
-    """g = J^T r as a per-type tangent dict, masked by free."""
+def gradient_from_lins(ga: GraphArrays, lins, rt=None, parts=None):
+    """g = J^T r as a per-type tangent dict, masked by free. ``parts``
+    (``NormalParts``) supplies the contributions of the batches the normal
+    epilogue served."""
     free = _free_of(ga, rt)
     g = ga.tangent_zeros()
-    for batch, r0, Js, vslots in lins:
+    for i, (batch, r0, Js, vslots) in enumerate(lins):
+        pre = None if parts is None else parts.jtr.get(i)
         for k, t in enumerate(batch.vtypes):
-            contrib = einsum("nij,ni->nj", Js[k], r0)
+            contrib = einsum("nij,ni->nj", Js[k], r0) if pre is None else pre[k]
             g[t].index_add_(0, vslots[:, k], contrib.to(g[t].dtype))
     return {t: g[t] * free[t][:, None] for t in g}
 
@@ -222,18 +291,32 @@ def free_vector(ga: GraphArrays, rt=None):
     )
 
 
-def normal_eq_entry_values(ga: GraphArrays, lins, dtype=None):
+def _entry_blocks(batch: FactorBatch, Js, dtype):
+    Jd = tuple(J.to(dtype) for J in Js)
+    return [einsum("nij,nik->njk", Jd[k], Jd[l]).reshape(-1)
+            for k in range(len(batch.vtypes)) for l in range(len(batch.vtypes))]
+
+
+def normal_eq_entry_values(ga: GraphArrays, lins, dtype=None, parts=None):
     """Flat vector of every J^T J entry contribution, in the fixed order the
     sparse symbolic phase indexes (sparse/symbolic.py entry_coords): per
-    batch, per (k, l) slot pair, the (n, dk, dl) block row-major."""
+    batch, per (k, l) slot pair, the (n, dk, dl) block row-major.
+
+    With ``parts`` (``NormalParts``) the blocks of the batches the normal
+    epilogue did not serve are written into ``parts.vals``, which is
+    returned."""
     dtype = dtype or ga.dtype
-    vals = []
-    for batch, _r0, Js, _vslots in lins:
-        Jd = tuple(J.to(dtype) for J in Js)
-        for k in range(len(batch.vtypes)):
-            for l in range(len(batch.vtypes)):
-                vals.append(einsum("nij,nik->njk", Jd[k], Jd[l]).reshape(-1))
-    return torch.cat(vals)
+    if parts is None:
+        return torch.cat([v for batch, _r0, Js, _vs in lins
+                          for v in _entry_blocks(batch, Js, dtype)])
+    if parts.vals.dtype != dtype:
+        raise TypeError(f"the entry vector is {parts.vals.dtype}, asked for {dtype}")
+    for i, (batch, _r0, Js, _vs) in enumerate(lins):
+        if i not in parts.jtr:
+            blocks = _entry_blocks(batch, Js, dtype)
+            o = parts.offsets[i]
+            torch.cat(blocks, out=parts.vals[o: o + sum(v.numel() for v in blocks)])
+    return parts.vals
 
 
 def dense_normal_eqs(ga: GraphArrays, lins, dtype=None, rt=None):
