@@ -46,11 +46,27 @@
    13,085 odometry/loop-closure edges, x0 prior) through the port's public
    entry points on device "cuda" — g2o load, chordal init, Levenberg-
    Marquardt with the nested-dissection Cholesky (``linear="ndchol"``) and
-   the benchmark's ``big`` options — once cold and three times warm. Each
-   run must converge, reach an SE(2)-aligned ATE <= 1.0 m against the f64
-   optimum in data/citygrid_gt.npz, and a cost <= 1.002 * optimum + 1e-3;
-   each run must launch K1's normal epilogue at least once per LM iteration
-   and its lin epilogue never.
+   the benchmark's ``big`` options — once cold and three times warm, on the
+   default schedule (the speculative-accept loop). Each run must converge,
+   reach an SE(2)-aligned ATE <= 1.0 m against the f64 optimum in
+   data/citygrid_gt.npz, and a cost <= 1.002 * optimum + 1e-3; each run
+   must launch K1's normal epilogue once per LM iteration plus once at the
+   start, and its lin epilogue never.
+5b. Parametric solvers on the same graph, each sub-path counting K1 from 0
+   (``parametric_solvers_path``): one ``schedule="host"`` ndchol solve
+   (gates; normal >= 1 per LM iteration); ``linear="auto"`` must pick
+   dense32 at this size, and dense32 with the ``big`` options solves cold
+   and warm under the gates with lin >= 1 per LM iteration and no normal
+   launch (the D x D Cholesky timed per iteration with CUDA events, the peak
+   device memory printed); one mixed and one pcg solve (40 iterations),
+   reported against the optimum, each finite and ending no higher than its
+   start; then marginal covariances at the host solve's solution: Takahashi
+   cold and warm, finite, within 1e-4 of an f64 scipy ``splu`` solve of the
+   same scaled, ridged system on 32 sampled poses (bench.py:178-255) and
+   within 1e-6 of that system's dense f64 inverse (``cholesky_inverse``) on
+   every pose, relative to each block's largest entry; the dense method
+   (1e-8 absolute ridge) within 1e-4 of ``splu`` on its own system, its gap
+   to Takahashi (a different ridge) reported.
 6. Beehive path: the nonparametric solve of the beehive-100 graph (101
    Pose2, 74 Point2, 202 factors; seed 0) through
    ``solve_graph_nonparametric(..., sweeps=3, N=100, engine="batched",
@@ -88,9 +104,10 @@
 11. Every Gibbs label update of every nonparametric path goes through the
    draw epilogues: each path launches both draws and no logw, and its draw
    counts equal the label updates its graphs' structure makes (PATH_DRAWS).
-   Prints the kernel table as one JSON line (K1 by its two epilogues,
-   normal with the citygrid path's launches and lin with the parametric
-   optima's, and K2/K3 by the draw epilogue the paths launch, with the logw
+   Prints the kernel table as one JSON line (K1 by its two epilogues with
+   their launches per path, normal from the citygrid solves, lin from
+   dense32, mixed, pcg, the covariances and the parametric optima, and
+   K2/K3 by the draw epilogue the paths launch, with the logw
    epilogue nested; launches summed over every nonparametric path, each
    path counted from 0; each with its bound from the published HBM, fp32
    and fp64 peaks), the card line,
@@ -103,6 +120,7 @@ package is missing, or when any phase fails.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -508,15 +526,329 @@ def main_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT):
         check(ate <= ATE_GATE_M, f"{label} run ATE {ate} > {ATE_GATE_M}")
         check(st.final_cost <= ref_cost * 1.002 + 1e-3,
               f"{label} run cost {st.final_cost} > 1.002 * {ref_cost}")
-        # one normal-epilogue launch per LM iteration, no lin launch (a CPU
+        # the speculative loop: one normal-epilogue launch at the start and
+        # one per LM iteration at the trial point, no lin launch (a CPU
         # rehearsal takes the plain path and launches nothing)
-        check(device != "cuda" or (launches["normal"] >= st.iterations
+        check(device != "cuda" or (launches["normal"] == st.iterations + 1
                                    and launches["lin"] == 0),
               f"{label} run: K1 launches {launches} for {st.iterations} iterations")
     total_launches = dict(K.LAUNCHES)
     check(device != "cuda" or total_launches["normal"] >= total_iters,
           "K1 normal launches do not cover the LM iterations")
     return runs, total_launches
+
+
+class CholeskyTimer:
+    """CUDA-event spans of the 2-D ``torch.linalg.cholesky_ex`` calls (the
+    dense solvers' D x D factorizations; the sparse fronts are batched 3-D
+    and pass through untimed) while in a ``with`` block."""
+
+    def __init__(self, torch, device):
+        self.torch, self.device, self.spans = torch, device, []
+
+    def __enter__(self):
+        linalg = self.torch.linalg
+        self._real = real = linalg.cholesky_ex
+        torch, spans = self.torch, self.spans
+
+        def timed(A, *args, **kwargs):
+            if A.dim() != 2 or self.device != "cuda":
+                return real(A, *args, **kwargs)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = real(A, *args, **kwargs)
+            e.record()
+            spans.append((s, e))
+            return out
+
+        linalg.cholesky_ex = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.linalg.cholesky_ex = self._real
+
+    def take(self):
+        """Milliseconds of each timed call since the last take (after a sync)."""
+        out = [s.elapsed_time(e) for s, e in self.spans]
+        self.spans.clear()
+        return out
+
+
+def _information_f64(ga):
+    """(scipy CSC H = JᵀJ from an f64 linearize at ``ga.values0``, the free
+    vector, the tangent base offsets, D): the system both covariance
+    methods invert, assembled on the host."""
+    import scipy.sparse as sp
+    import torch
+
+    from rome_tpu_torch.solvers.linearize import (
+        free_vector, linearize_all, runtime_state, tangent_offsets,
+    )
+
+    ga64 = copy.copy(ga)
+    ga64.dtype = torch.float64
+    rt = runtime_state(ga)
+    v64 = {t: v.to(torch.float64) for t, v in ga.values0.items()}
+    lins = linearize_all(ga64, v64, rt)
+    base, nD = tangent_offsets(ga)
+    fvec = free_vector(ga, rt).to(torch.float64).cpu().numpy()
+    rows, cols, vals = [], [], []
+    for b, _r0, Js, vs in lins:
+        vs = vs.cpu().numpy()
+        offs = [base[t] + vs[:, kk, None] * ga.manifolds[t].dof
+                + np.arange(ga.manifolds[t].dof)[None, :] for kk, t in enumerate(b.vtypes)]
+        Jh = [J.to(torch.float64).cpu().numpy() for J in Js]
+        for a in range(len(Jh)):
+            for c in range(len(Jh)):
+                blk = np.einsum("nij,nik->njk", Jh[a], Jh[c])
+                rows.append(np.broadcast_to(offs[a][:, :, None], blk.shape).ravel())
+                cols.append(np.broadcast_to(offs[c][:, None, :], blk.shape).ravel())
+                vals.append(blk.ravel())
+    H = sp.coo_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                      shape=(nD, nD)).tocsc()
+    return H, fvec, base, nD
+
+
+def covariance_crosscheck(ga, covs, system, k=32, seed=11):
+    """bench.py:178-255 on the port: an f64 reference for ``k`` sampled
+    per-pose covariances, solved exactly with scipy's ``splu`` in f64, and
+    the largest deviation of a 3 x 3 block relative to its largest entry.
+
+    ``system``: "takahashi", the Jacobi-scaled, 1e-8-ridged system the
+    Takahashi path factors (bench.py's check), or "dense", H + 1e-8 I, the
+    dense path's."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    H, fvec, base, nD = _information_f64(ga)
+    if system == "takahashi":
+        dv = 1.0 / np.sqrt(np.maximum(H.diagonal() * fvec ** 2, 1e-12))
+        Ddf = sp.diags(dv * fvec)
+        A = Ddf @ H @ Ddf + sp.diags(fvec * 1e-8 + (1.0 - fvec))
+    else:
+        f = sp.diags(fvec)
+        dv = np.ones(nD)
+        A = f @ H @ f + sp.diags(1.0 - fvec) + 1e-8 * sp.identity(nD)
+    lu = spla.splu(A.tocsc())
+    sample = np.random.default_rng(seed).choice(ga.counts["Pose2"],
+                                                size=min(k, ga.counts["Pose2"]), replace=False)
+    got = covs["Pose2"].double().cpu().numpy()
+    worst = 0.0
+    for i in sample:
+        sl = base["Pose2"] + 3 * int(i) + np.arange(3)
+        e = np.zeros((nD, 3))
+        e[sl, np.arange(3)] = 1.0
+        ref = dv[sl][:, None] * lu.solve(e)[sl] * dv[sl][None, :]
+        worst = max(worst, float(np.abs(got[i] - ref).max() / max(np.abs(ref).max(), 1e-12)))
+    return len(sample), worst
+
+
+def takahashi_system_inverse(ga):
+    """Pose blocks of the dense f64 inverse of the system the Takahashi path
+    factors (the Jacobi-scaled, 1e-8-ridged information matrix, un-scaled
+    after), from the library's ``cholesky_inverse``: (n, 3, 3)."""
+    import torch
+
+    from rome_tpu_torch.solvers.linearize import (
+        dense_normal_eqs, free_vector, linearize_all, tangent_offsets,
+    )
+
+    H, _g = dense_normal_eqs(ga, linearize_all(ga, ga.values0), dtype=torch.float64)
+    f = free_vector(ga).to(torch.float64)
+    d = f / torch.sqrt(torch.clamp(torch.diagonal(H) * f * f, min=1e-12))
+    H.mul_(d[:, None]).mul_(d[None, :])
+    H.diagonal().add_(f * 1e-8 + (1.0 - f))
+    L, info = torch.linalg.cholesky_ex(H)
+    check(int(info) == 0, "the Takahashi system is not positive definite")
+    del H
+    X = torch.cholesky_inverse(L)
+    del L
+    base, _nD = tangent_offsets(ga)
+    idx = base["Pose2"] + torch.arange(ga.counts["Pose2"], device=X.device)[:, None] * 3 \
+        + torch.arange(3, device=X.device)[None, :]
+    dvar = d[idx]
+    return X[idx[:, :, None], idx[:, None, :]] * dvar[:, :, None] * dvar[:, None, :]
+
+
+def parametric_summary(card, params, param_launches, seconds):
+    """One line over parametric_solvers_path's results."""
+    d32, cov = params["dense32"], params["covariances"]
+    d32_s = ", ".join(f"{r['solve_time_s']:.3f}" for r in d32)
+    return (f"[{card}] parametric solvers: {seconds:.1f} s; host schedule "
+            f"{params['citygrid_host']['iterations']} LM iterations; dense32 {d32_s} s, "
+            f"{[r['iterations'] for r in d32]} iterations; mixed "
+            f"{params['mixed']['cost_over_optimum']:.6f} and pcg "
+            f"{params['pcg']['cost_over_optimum']:.6f} of the optimum; Takahashi "
+            f"{cov['takahashi_warm_s']:.3f} s warm, splu {cov['splu_max_rel_err']:.2e}, its "
+            f"system's dense inverse {cov['same_system_dense_max_rel_err']:.2e}; dense "
+            f"{cov['dense_s']:.3f} s, splu {cov['dense_splu_max_rel_err']:.2e}; K1 launches "
+            f"{param_launches}")
+
+
+def _k1_counts():
+    from rome_tpu_torch.ops import linearize_cuda as K
+
+    return dict(K.LAUNCHES)
+
+
+def parametric_solvers_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT,
+                            max_iters=40):
+    """The rest of the parametric solver on the city grid, each sub-path
+    with K1's counts set to 0 before it and read after it:
+
+    - citygrid_host: one ``schedule="host"`` ndchol solve (BIG) under
+      bench.py's gates, normal >= 1 per LM iteration, lin 0;
+    - dense32: ``auto`` must pick dense32 at this size; BIG with
+      ``linear="dense32"`` cold and warm under the gates, lin >= 1 per LM
+      iteration, normal 0; seconds, iterations, the D x D Cholesky's
+      CUDA-event time per iteration and the peak device memory;
+    - mixed, pcg: one solve each (``max_iters``), reported and not gated on
+      the optimum: finite, and a final cost no higher than the start's;
+    - covariances at the host solve's solution: Takahashi cold and warm
+      (finite), 32 sampled poses against an f64 ``splu`` solve within 1e-4
+      relative, and the dense inverse against Takahashi within 1e-6 of each
+      block's largest entry on every pose.
+
+    Returns (result dict, K1 launches per sub-path)."""
+    import torch
+
+    from rome_tpu_torch import GNOptions, solve_graph_parametric
+    from rome_tpu_torch.graph.lower import lower
+    from rome_tpu_torch.solvers.gauss_newton import ParametricSolver, marginal_covariances
+
+    gt = np.load(gt_file)
+    ref_cost = float(gt["final_cost"])
+    cuda = device == "cuda"
+    chol = CholeskyTimer(torch, device)
+    out, by_path = {}, {}
+
+    def solve(label, opts, schedule="fused", gate=True):
+        fg = build_graph(g2o)
+        before = _k1_counts()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with chol:
+            res = solve_graph_parametric(fg, init=False, options=GNOptions(**opts),
+                                         chordal_init=True, schedule=schedule, device=device)
+            _sync(device)
+        wall = time.time() - t0
+        st = res["stats"]
+        launches = {k: v - before[k] for k, v in _k1_counts().items()}
+        pts = np.stack([fg.get_point(l) for l in fg.ls(r"^x\d+$")])
+        ate, ate_raw = ate_rmse(fg, gt["poses"])
+        chol_ms = chol.take()
+        row = dict(run=label, linear=res["linear_solver"], schedule=schedule,
+                   iterations=st.iterations, converged=st.converged, reason=st.reason,
+                   start_cost=st.history[0]["cost0"] if st.history else None,
+                   final_cost=st.final_cost, ref_cost=ref_cost,
+                   cost_over_optimum=st.final_cost / ref_cost, ate_rmse_m=ate,
+                   ate_raw_m=ate_raw, solve_time_s=res["solve_time_s"], wall_s=wall,
+                   k1_launches=launches, cg_iters=[h["cg"] for h in st.history],
+                   accepted=[h["accepted"] for h in st.history],
+                   cholesky_ms=chol_ms,
+                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+        print(f"[{card}] parametric {label}: " + json.dumps(row))
+        check(pts.shape == (len(gt["poses"]), 3) and np.isfinite(pts).all(),
+              f"{label}: poses missing or not finite")
+        if gate:
+            check(st.converged, f"{label} run did not converge ({st.reason})")
+            check(ate <= ATE_GATE_M, f"{label} run ATE {ate} > {ATE_GATE_M}")
+            check(st.final_cost <= ref_cost * 1.002 + 1e-3,
+                  f"{label} run cost {st.final_cost} > 1.002 * {ref_cost}")
+        else:
+            # the start cost is an f64 sum, the final one the graph dtype's
+            # (f32 here): allow that accumulation's 1e-5 relative
+            check(math.isfinite(st.final_cost)
+                  and st.final_cost <= row["start_cost"] * (1 + 1e-5),
+                  f"{label} run ended above its start cost")
+        return fg, row
+
+    # 1. the host-scheduled ndchol loop (the speculative one is main_path's)
+    _reset_launches()
+    fg_nd, row = solve("citygrid_host", BIG, schedule="host")
+    by_path["citygrid_host"] = _k1_counts()
+    check(not cuda or (row["k1_launches"]["normal"] >= row["iterations"]
+                       and row["k1_launches"]["lin"] == 0),
+          f"citygrid_host: K1 launches {row['k1_launches']}")
+    out["citygrid_host"] = row
+
+    # 2. dense32, as auto picks it at this size
+    ga = lower(build_graph(g2o), device=device)
+    auto = ParametricSolver(ga, GNOptions()).linear
+    check(auto == "dense32", f"auto picked {auto} at {ga.total_dof} dof")
+    del ga
+    _reset_launches()
+    rows = []
+    for label in ("dense32_cold", "dense32_warm"):
+        _fg, row = solve(label, dict(BIG, linear="dense32"))
+        n = row["iterations"]
+        check(not cuda or (row["k1_launches"]["lin"] >= n and row["k1_launches"]["normal"] == 0),
+              f"{label}: K1 launches {row['k1_launches']} for {n} iterations")
+        check(not cuda or len(row["cholesky_ms"]) == n,
+              f"{label}: {len(row['cholesky_ms'])} dense Cholesky calls for {n} iterations")
+        rows.append(row)
+    by_path["dense32"] = _k1_counts()
+    out["dense32"] = rows
+
+    # 3. mixed and pcg, reported against the optimum
+    for linear in ("mixed", "pcg"):
+        _reset_launches()
+        _fg, row = solve(linear, dict(BIG, linear=linear, max_iters=max_iters), gate=False)
+        check(not cuda or (row["k1_launches"]["lin"] >= row["iterations"]
+                           and row["k1_launches"]["normal"] == 0),
+              f"{linear}: K1 launches {row['k1_launches']}")
+        by_path[linear] = _k1_counts()
+        out[linear] = row
+
+    # 4. covariances at the ndchol solution
+    _reset_launches()
+    ga = lower(fg_nd, device=device)
+    secs = []
+    for _ in range(2):  # cold, warm
+        _sync(device)
+        t0 = time.time()
+        covs = marginal_covariances(ga, ga.values0, method="takahashi")
+        _sync(device)
+        secs.append(time.time() - t0)
+    check(all(bool(torch.isfinite(c).all()) for c in covs.values()),
+          "Takahashi covariances not finite")
+    tk = covs["Pose2"].double()
+    scale = tk.abs().amax(dim=(1, 2)).clamp_min(1e-300)
+
+    def rel(other):  # worst block deviation relative to the block's largest entry
+        return float(((other.double() - tk).abs().amax(dim=(1, 2)) / scale).max())
+
+    n_sampled, splu_tk = covariance_crosscheck(ga, covs, "takahashi")
+    same = rel(takahashi_system_inverse(ga))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    dense = marginal_covariances(ga, ga.values0, method="dense")
+    _sync(device)
+    dense_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    _n, splu_dense = covariance_crosscheck(ga, dense, "dense")
+    n_poses = ga.counts["Pose2"]
+    row = dict(poses=n_poses, takahashi_cold_s=secs[0], takahashi_warm_s=secs[1],
+               takahashi_us_per_pose=1e6 * secs[1] / n_poses, sampled_poses=n_sampled,
+               splu_max_rel_err=splu_tk, splu_rel_tol=1e-4,
+               same_system_dense_max_rel_err=same, same_system_rel_tol=1e-6,
+               dense_s=dense_s, dense_peak_memory_gib=peak,
+               dense_splu_max_rel_err=splu_dense,
+               dense_method_vs_takahashi_max_rel=rel(dense["Pose2"]),
+               max_cov_entry=float(scale.max()), k1_launches=_k1_counts())
+    print(f"[{card}] parametric covariances: " + json.dumps(row))
+    check(splu_tk <= 1e-4, f"Takahashi covariances {splu_tk} from the f64 splu solve (tol 1e-4)")
+    check(same <= 1e-6, f"Takahashi covariances {same} from the dense inverse of their "
+          "system (tol 1e-6)")
+    check(bool(torch.isfinite(dense["Pose2"]).all()) and splu_dense <= 1e-4,
+          f"dense covariances {splu_dense} from the f64 splu solve of H + 1e-8 I (tol 1e-4)")
+    by_path["covariances"] = _k1_counts()
+    out["covariances"] = row
+    return out, by_path
 
 
 def pairwise_inputs(V, N, Nj, d, device, seed=0, circ=None):
@@ -852,8 +1184,6 @@ def _check_truth_launches(device, what):
 
 def _parametric_truth(fg, device):
     """The port's parametric optimum of a copy of ``fg``: {label: coords}."""
-    import copy
-
     from rome_tpu_torch import solve_graph_parametric
 
     fp = copy.deepcopy(fg)
@@ -1087,18 +1417,23 @@ def multihypo_path(card, device="cuda", N=MULTIHYPO_N, solve_N=NP_N):
     return res, launches
 
 
-def kernel_table(k1, k23, k1_launches, np_launches):
+def kernel_table(k1, k23, k1_launches, np_launches, param_launches):
     """The kernels JSON line: K1 by its two epilogues (normal launched by the
-    citygrid path, lin by the parametric optima of the nonparametric paths),
+    speculative citygrid path and the host-scheduled solve, lin by the
+    dense32, mixed, pcg and covariance paths and the parametric optima of the
+    nonparametric paths; each path counted from 0, ``launches_by_path``),
     and K2/K3 by their draw epilogues (what the paths launch) with their logw
     epilogues nested. Times and bounds at n = 13,085, with 1,048,576 nested."""
     kernels = []
-    for epi, name, launches in (("lin", "pose2pose2_linearize", np_launches["k1_lin"]),
-                                ("normal", "pose2pose2_normal", k1_launches["normal"])):
+    for epi, name in (("lin", "pose2pose2_linearize"), ("normal", "pose2pose2_normal")):
+        by_path = {"citygrid_10k": k1_launches[epi],
+                   **{k: v[epi] for k, v in param_launches.items()},
+                   "nonparametric_optima": np_launches[f"k1_{epi}"]}
         t, big = k1[epi][f"n={K1_TIMED[0]}"], k1[epi][f"n={K1_TIMED[1]}"]
         kernels.append(dict(
             name=name, source="pose2pose2_linearize.cu",
-            replaces="rome_tpu/ops/linearize_pallas.py:54", launches=launches,
+            replaces="rome_tpu/ops/linearize_pallas.py:54",
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=k1[epi]["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
             shape=[K1_TIMED[0]],
@@ -1165,6 +1500,9 @@ def main():
     print(f"[{card}] citygrid_10k: cold {runs[0]['solve_time_s']:.3f} s, warm "
           f"{', '.join(f'{w:.3f}' for w in warm)} s, best {10000 / min(warm):.1f} poses/s, "
           f"{[r['iterations'] for r in runs]} LM iterations, K1 launches {launches}")
+    t0 = time.time()
+    params, param_launches = parametric_solvers_path(card)
+    print(parametric_summary(card, params, param_launches, time.time() - t0))
     bee, bee_launches = beehive_path(card)
     secs = ", ".join(f"{r['solve_time_s']:.3f}" for r in bee)
     errs = ", ".join(f"{r['mean_pose_err_m']:.4f}" for r in bee)
@@ -1186,12 +1524,14 @@ def main():
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "build_s": build_s, "stream_bytes_per_s": bytes_per_s,
-                   "k1": k1, "k2_k3": k23, "runs": runs,
+                   "k1": k1, "k2_k3": k23, "runs": runs, "parametric_solvers": params,
+                   "parametric_launches": param_launches,
                    "nonparametric": {k: {"result": r, "launches": l}
                                      for k, (r, l) in np_paths.items()},
                    "seconds": time.time() - t_start}, fh, indent=1)
 
-    print(json.dumps({"kernels": kernel_table(k1, k23, launches, np_launches)}))
+    print(json.dumps({"kernels": kernel_table(k1, k23, launches, np_launches,
+                                              param_launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

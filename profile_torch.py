@@ -28,10 +28,13 @@ benchmark's ``big`` options). The phases:
    linearize, the linear solve (normal-equation entries, ND assembly,
    factorization, CG polish) and the cost evaluations; inside the linear
    solve the JᵀJ entry values and the gradient.
-3. One more solve with the linearize, the entry values and the gradient
-   each counted per call: host seconds (the host clock around the call, no
-   synchronization) and, under a torch.profiler session of its own, the
-   device operations the call launched and their device time; reported per
+3. One more solve with the linearize, the entry values, the gradient and
+   the trial-cost pass (``cost_at``) each counted per call: host seconds
+   (the host clock around the call, no synchronization) and, under a
+   torch.profiler session of its own, the device operations the call
+   launched and their device time; reported per LM iteration. Then three
+   solves with the whole LM loop (``ParametricSolver.solve``) under one
+   profiler session each: device operations, device time and host time per
    LM iteration.
 4. torch.profiler over one more solve: kernel count, device time, and the
    device busy share (union of kernel intervals over the span from the first
@@ -156,10 +159,12 @@ def phases(torch, gt, card, n=3):
     return rows
 
 
-# the per-iteration work the normal epilogue took over: (owner, name, label)
+# the per-iteration work the normal epilogue took over, and the trial-cost
+# pass the speculative loop drops: (owner, name, label)
 LIN_PHASES = (("solver", "_linearize", "lm.linearize"),
               ("module", "normal_eq_entry_values", "lm.entry_values"),
-              ("module", "gradient_from_lins", "lm.gradient"))
+              ("module", "gradient_from_lins", "lm.gradient"),
+              ("module", "cost_at", "lm.cost_at"))
 
 
 def per_call(torch, gt, card):
@@ -206,6 +211,47 @@ def per_call(torch, gt, card):
     print(f"[{card}] per LM iteration ({iters} iterations; host clock, device ops under "
           f"torch.profiler): " + json.dumps(res))
     return dict(solve=solve, per_iteration=res)
+
+
+def loop_per_iteration(torch, gt, card, n=3):
+    """``n`` solves, each with the LM loop (``ParametricSolver.solve``) under
+    a torch.profiler session of its own: device operations and device time
+    per LM iteration, and the loop's host seconds (ending in a sync) per
+    iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rome_tpu_torch.solvers import gauss_newton as GN
+
+    real = GN.ParametricSolver.solve
+    rec = {}
+
+    def solve(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = real(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            rec["host_s"] = time.perf_counter() - t0
+        ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        rec["ops"], rec["device_us"] = len(ev), sum(e.time_range.end - e.time_range.start
+                                                     for e in ev)
+        return out
+
+    rows = []
+    GN.ParametricSolver.solve = solve
+    try:
+        for _ in range(n):
+            row = solve_once(torch, gt)
+            it = row["iterations"]
+            rows.append(dict(iterations=it, solve_time_s=row["solve_time_s"],
+                             device_ops_per_iteration=rec["ops"] / it,
+                             device_us_per_iteration=rec["device_us"] / it,
+                             host_ms_per_iteration=1e3 * rec["host_s"] / it))
+            print(f"[{card}] LM loop per iteration (torch.profiler, host clock): "
+                  + json.dumps(rows[-1]))
+    finally:
+        GN.ParametricSolver.solve = real
+    return rows
 
 
 def busy_share(events):
@@ -475,6 +521,7 @@ def main():
     report["repeatability"] = repeatability(torch, gt, card, args.solves)
     report["phases"] = phases(torch, gt, card)
     report["per_call"] = per_call(torch, gt, card)
+    report["loop"] = loop_per_iteration(torch, gt, card)
     report["profile"] = profiled(
         torch, card, os.path.join(args.out, "profile_ops.txt"), lambda: solve_once(torch, gt)
     )

@@ -7,6 +7,10 @@ Ported so far:
   batches, chordal initialization and Levenberg-Marquardt with the
   nested-dissection sparse Cholesky (``linear="ndchol"``) or the dense
   solver, with the Pose2Pose2 linearize as a hand-written CUDA kernel (K1);
+- slice B1/B2: the rest of the parametric solver — the dense32, pcg and
+  mixed linear solvers, the speculative-accept and lazy-preconditioner
+  loops, the structure cache, and marginal covariances (dense inverse or
+  Takahashi selected inverse);
 - slice C: the nonparametric (multimodal) engine — the particle graph init
   and ``approx_conv`` with multihypo/nullhypo, the batched engine (Gauss-
   Seidel passes, Jacobi sweeps, the per-factor fallback), the loop engine
@@ -39,7 +43,7 @@ from rome_tpu_torch.graph.graph import FactorGraph, SolverParams
 from rome_tpu_torch.factors import *  # noqa: F401,F403 — registers + exports factor ctors
 from rome_tpu_torch.io import import_g2o, load_g2o
 from rome_tpu_torch.solvers.gauss_newton import GNOptions
-from rome_tpu_torch.solvers.parametric import solve_graph_parametric
+from rome_tpu_torch.solvers.parametric import solve_graph_parametric, solveGraphParametric
 from rome_tpu_torch.solvers.multimodal import (
     approx_conv,
     build_tree_from_ordering,

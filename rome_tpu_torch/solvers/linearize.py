@@ -37,6 +37,17 @@ def runtime_state(ga: GraphArrays):
     }
 
 
+def structure_signature(ga: GraphArrays):
+    """Hashable key of what a solver binds to (dtype, device, variable
+    counts, batch types and shapes); ``runtime_state`` carries the rest."""
+    return (
+        str(ga.dtype),
+        str(ga.device),
+        tuple((t, ga.counts[t]) for t in ga.type_names),
+        tuple((b.ftype.name, b.n, b.vtypes, tuple(sorted(b.params))) for b in ga.batches),
+    )
+
+
 def _whitened_residual_fn(ga: GraphArrays, batch: FactorBatch):
     mans = [ga.manifolds[t] for t in batch.vtypes]
     resid = batch.ftype.residual
@@ -324,7 +335,8 @@ def dense_normal_eqs(ga: GraphArrays, lins, dtype=None, rt=None):
 
     Frozen (free=0) dims get an identity row/col so H stays invertible and
     their update is exactly zero. All block contributions go into ONE
-    accumulating scatter per output.
+    accumulating scatter per output; the free mask is applied to H in place
+    (a 0/1 mask, so the products are exact), so H is the only D x D buffer.
     """
     dtype = dtype or ga.dtype
     dev = ga.device
@@ -355,6 +367,7 @@ def dense_normal_eqs(ga: GraphArrays, lins, dtype=None, rt=None):
     g = torch.zeros((D,), dtype=dtype, device=dev)
     g.index_add_(0, torch.cat(g_idx_all), torch.cat(g_val_all))
     f = free_vector(ga, rt).to(dtype)
-    H = H * (f[:, None] * f[None, :]) + torch.diag(1.0 - f)
+    H.mul_(f[:, None]).mul_(f[None, :])
+    H.diagonal().add_(1.0 - f)
     g = g * f
     return H, g

@@ -11,7 +11,12 @@ import torch
 
 from rome_tpu_torch.graph.graph import FactorGraph
 from rome_tpu_torch.graph.lower import lower, write_back
-from rome_tpu_torch.solvers.gauss_newton import GNOptions, ParametricSolver
+from rome_tpu_torch.solvers.gauss_newton import (
+    GNOptions,
+    ParametricSolver,
+    marginal_covariances,
+)
+from rome_tpu_torch.solvers.linearize import runtime_state
 from rome_tpu_torch.utils.device import entry_device
 
 logger = logging.getLogger("rome_tpu_torch")
@@ -33,31 +38,34 @@ def solve_graph_parametric(
     (the card unless the caller passes ``device="cpu"``).
 
     Stacks every factor's (mean, sqrt-info) measurement, minimizes the
-    whitened residual sum over the product manifold, and writes the results
-    to ``solve_key``. A graph with no unary factor gets its first variable
-    frozen as the gauge anchor.
+    whitened residual sum over the product manifold, writes the results to
+    ``solve_key``, and with ``compute_covariances`` recovers per-variable
+    marginal covariances (``result["covariances"]``, keyed by label). A
+    graph with no unary factor gets its first variable frozen as the gauge
+    anchor.
 
-    ``schedule`` ("fused" or "host") and ``GNOptions.fused_chordal`` are
-    accepted for API parity; both run the same eager loop, with the chordal
-    init as its own stage before LM (the JAX package's host schedule).
+    ``schedule="fused"`` runs ``ParametricSolver.solve`` (the speculative-
+    accept loop for ndchol), ``"host"`` runs ``solve_host``. The chordal
+    init always runs as its own stage before LM, ``GNOptions.fused_chordal``
+    or not. The solver comes from the structure cache
+    (``ParametricSolver.cached``). ``fg.params.multiproc`` takes the
+    multi-device solve only where more than one card is visible; that solve
+    is not ported yet.
 
-    Returns a result dict with stats.
+    Returns a result dict with stats, and covariances when requested.
     """
     entry_device(device)
-    if compute_covariances:
-        raise NotImplementedError(
-            "marginal covariances are not ported yet (ROADMAP slice B1)"
-        )
-    if fg.params.multiproc:
-        raise NotImplementedError(
-            "the multi-device solve is not ported yet (ROADMAP slice D)"
-        )
     if schedule not in ("fused", "host"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if dtype is None:
         dtype = torch.float64 if fg.params.dtype == "float64" else torch.float32
     if init:
         fg.init_all(solve_key)
+    if (fg.params.multiproc and torch.device(device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            "the multi-device solve is not ported yet (ROADMAP slice D)"
+        )
 
     ga = lower(fg, solve_key, dtype=dtype, pad=pad, device=device)
 
@@ -83,13 +91,15 @@ def solve_graph_parametric(
         from rome_tpu_torch.solvers.init2d import chordal_init_pose2
 
         values0 = chordal_init_pose2(ga, values0)
-    solver = ParametricSolver(ga, opts)
-    values, stats = solver.solve(values0)
+    # structure-cached solver; the graph's data rides in as its runtime_state
+    solver = ParametricSolver.cached(ga, opts)
+    run = solver.solve if schedule == "fused" else solver.solve_host
+    values, stats = run(values0, rt=runtime_state(ga))
     dt = time.time() - t0
 
     write_back(fg, ga, values, solve_key)
 
-    return {
+    result = {
         "stats": stats,
         "solve_time_s": dt,
         "num_variables": fg.num_variables,
@@ -97,4 +107,16 @@ def solve_graph_parametric(
         "linear_solver": solver.linear,
         "gauge_frozen": frozen_gauge,
     }
+    if compute_covariances:
+        covs = marginal_covariances(ga, values)
+        out = {}
+        for t in ga.type_names:
+            arr = covs[t].to(torch.float64).cpu().numpy()
+            for slot, label in enumerate(ga.var_labels[t]):
+                out[label] = arr[slot]
+        result["covariances"] = out
+    return result
 
+
+# reference-style alias
+solveGraphParametric = solve_graph_parametric

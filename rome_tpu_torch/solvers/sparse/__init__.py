@@ -9,6 +9,7 @@ from rome_tpu_torch.solvers.sparse.ndchol import (
     ndchol_factorize,
     ndchol_logdet,
     ndchol_solve,
+    ndchol_takahashi,
 )
 
 __all__ = [
@@ -19,4 +20,5 @@ __all__ = [
     "ndchol_factorize",
     "ndchol_logdet",
     "ndchol_solve",
+    "ndchol_takahashi",
 ]

@@ -78,19 +78,57 @@ def _chol_or_nan(A):
     return torch.where((info != 0)[:, None, None], math.nan, L)
 
 
+def _tri_inv(L):
+    """Batched inverse of lower-triangular (n, m, m) ``L``."""
+    m = L.shape[-1]
+    eye = torch.eye(m, dtype=L.dtype, device=L.device).expand(L.shape)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def _tri_inv_blocked(L):
+    """Batched lower-triangular inverse by recursive 2x2-block Schur,
+
+        [[A, 0], [B, C]]^-1 = [[A^-1, 0], [-C^-1 B A^-1, C^-1]],
+
+    down to blocks of at most 32, which are inverted by substitution."""
+    m = L.shape[-1]
+    if m <= 32:
+        return _tri_inv(L)
+    h = m // 2
+    Ai = _tri_inv_blocked(L[..., :h, :h])
+    Ci = _tri_inv_blocked(L[..., h:, h:])
+    X = -(Ci @ (L[..., h:, :h] @ Ai))
+    top = torch.cat([Ai, L.new_zeros(L.shape[:-2] + (h, m - h))], dim=-1)
+    return torch.cat([top, torch.cat([X, Ci], dim=-1)], dim=-2)
+
+
+def _chol_blocked(A):
+    """Batched Cholesky by recursive 2x2 blocking: small native factorizations
+    of blocks of at most 32, everything else batched matmuls. A front that
+    is not positive definite still comes back with NaNs."""
+    m = A.shape[-1]
+    if m <= 32:
+        return _chol_or_nan(A)
+    h = m // 2
+    L11 = _chol_blocked(A[..., :h, :h])
+    L21 = A[..., h:, :h] @ _tri_inv_blocked(L11).transpose(-1, -2)
+    L22 = _chol_blocked(A[..., h:, h:] - L21 @ L21.transpose(-1, -2))
+    top = torch.cat([L11, A.new_zeros(A.shape[:-2] + (h, m - h))], dim=-1)
+    return torch.cat([top, torch.cat([L21, L22], dim=-1)], dim=-2)
+
+
 def ndchol_factorize(sym, arrs, Ws, blocked=False):
     """Leaf-to-root batched partial Cholesky with fan-in Schur scatters.
 
     Per level: ONE batched Cholesky, ONE batched triangular inversion
     (L11^{-1} against identity), then L21, the Schur update and both solve
     sweeps are batched matmuls. The Schur updates are added into the
-    ancestor fronts of ``Ws`` in place.
+    ancestor fronts of ``Ws`` in place. ``blocked=True`` factors and inverts
+    each level by recursive 2x2 blocking (matmuls around small native
+    factorizations) instead of one native call each; its extra float32
+    rounding makes a weaker preconditioner, so it is off by default.
 
     Returns (Linvs, L21s, L11s) lists per level."""
-    if blocked:
-        raise NotImplementedError(
-            "ndchol_factorize(blocked=True) is not ported (ROADMAP slice B1)"
-        )
     flat = [W.reshape(-1) for W in Ws]
     Linvs, L21s, L11s = [], [], []
     for l, (n_l, sm, bm) in enumerate(sym.plan):
@@ -100,9 +138,12 @@ def ndchol_factorize(sym, arrs, Ws, blocked=False):
             L11s.append(None)
             continue
         W = flat[l].reshape(n_l, sm + bm, sm + bm)
-        L11 = _chol_or_nan(W[:, :sm, :sm])
-        eye = torch.eye(sm, dtype=W.dtype, device=W.device).expand(n_l, sm, sm)
-        Linv = torch.linalg.solve_triangular(L11, eye, upper=False)
+        if blocked:
+            L11 = _chol_blocked(W[:, :sm, :sm])
+            Linv = _tri_inv_blocked(L11)
+        else:
+            L11 = _chol_or_nan(W[:, :sm, :sm])
+            Linv = _tri_inv(L11)
         L11s.append(L11)
         Linvs.append(Linv)
         if bm == 0:
@@ -174,3 +215,38 @@ def ndchol_logdet(sym, L11s):
         d = torch.diagonal(L11, dim1=-2, dim2=-1)
         out = out + 2.0 * torch.sum(torch.log(torch.clamp(d, min=1e-30)))
     return out
+
+
+def ndchol_takahashi(sym, arrs, Linvs, L21s):
+    """Selected inverse on the filled pattern (Takahashi), root-to-leaf.
+
+    Returns per-level X_front tensors (n_l, fmax_l, fmax_l) holding
+    [[X_SS, X_SB], [X_BS, X_BB]] of the SCALED system inverse (None for an
+    empty level); callers un-scale marginal blocks with the Jacobi d vector.
+    Level-batched: X_BB is gathered (``tak_bb_{l}``) from the ancestor
+    fronts already computed, which live in one flat buffer."""
+    sizes = [n * (sm + bm) * (sm + bm) for (n, sm, bm) in sym.plan]
+    offs = [0]
+    for s in sizes:
+        offs.append(offs[-1] + s)
+    ref = next(L for L in Linvs if L is not None)
+    xall = torch.zeros((offs[-1] + 1,), dtype=ref.dtype, device=ref.device)  # +1 dump slot
+    Xs = [None] * sym.nlev
+    for l in range(sym.nlev - 1, -1, -1):
+        n_l, sm, bm = sym.plan[l]
+        if n_l == 0:
+            continue
+        Linv = Linvs[l]
+        A11inv = Linv.transpose(-1, -2) @ Linv  # inv(A11) = L11^-T L11^-1
+        if bm:
+            XBB = xall[arrs[f"tak_bb_{l}"]].reshape(n_l, bm, bm)
+            W = L21s[l] @ Linv  # A21 A11^-1 (b, s)
+            XBW = XBB @ W
+            XSS = A11inv + W.transpose(-1, -2) @ XBW
+            X = torch.cat([torch.cat([XSS, -XBW.transpose(-1, -2)], dim=2),
+                           torch.cat([-XBW, XBB], dim=2)], dim=1)
+        else:
+            X = A11inv
+        Xs[l] = X
+        xall[offs[l]: offs[l + 1]] = X.reshape(-1)
+    return Xs

@@ -6,6 +6,8 @@ Every builder takes the package module (``rome_tpu`` or ``rome_tpu_torch``)
 so both sides build the same graph from the same numpy seed.
 """
 
+import copy
+
 import numpy as np
 import pytest
 
@@ -46,6 +48,21 @@ def grid_graph(mod, rows=6, cols=6, seed=0, frozen=()):
     fg.init_all()
     for lbl in frozen:
         fg.variables[lbl].solvable = 0
+    return fg
+
+
+def reordered_graph(mod, src, order):
+    """The graph ``src`` with its variables created in ``order`` (indices
+    into src's variable order) and the same factors: other slots, so another
+    connectivity of the same structure."""
+    fg = mod.FactorGraph()
+    labels = src._var_order
+    for i in order:
+        fg.add_variable(labels[i], src.variables[labels[i]].vtype)
+    for fl in src._fct_order:
+        f = src.factors[fl]
+        fg.add_factor(list(f.variables), copy.copy(f), label=fl, graphinit=False)
+    fg.init_all()
     return fg
 
 

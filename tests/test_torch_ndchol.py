@@ -161,15 +161,6 @@ def test_non_spd_front_gives_nan_not_exception():
     assert not bool(torch.isfinite(x).all())
 
 
-def test_blocked_factorization_is_not_ported():
-    _ga, _sj, sym, inp, _xd = _inputs(4, 4, 1e-3, frozen=("x1", "x5"))
-    arrs = sym.device_arrs("cpu")
-    t = {k: torch.tensor(v) for k, v in inp.items()}
-    Ws = ndchol_assemble(sym, arrs, t["vals"], t["df"], t["diag_add"])
-    with pytest.raises(NotImplementedError, match="B1"):
-        ndchol_factorize(sym, arrs, Ws, blocked=True)
-
-
 def test_symbolic_plans_are_cached_per_connectivity_and_device():
     from rome_tpu_torch.solvers.sparse import ndchol as ND
 
