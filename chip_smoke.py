@@ -101,9 +101,32 @@
    mass on both modes; then a batched ``init=True`` solve of the hexagonal
    graph plus one multihypo bearing-range factor, whose messages take the
    per-factor fallback, must leave every belief finite.
-11. Every Gibbs label update of every nonparametric path goes through the
-   draw epilogues: each path launches both draws and no logw, and its draw
-   counts equal the label updates its graphs' structure makes (PATH_DRAWS).
+12. Sphere (``sphere_path``): a seeded g2o file with the layout of g2o's
+   create_sphere example at sphere2500's size (50 laps of 50 Pose3 on a
+   100 m sphere, 2,499 odometry and 2,450 closure EDGE_SE3:QUAT lines,
+   sigma 0.05 m / 0.005 rad, VERTEX_SE3:QUAT values chained from the noisy
+   odometry), loaded with ``load_g2o`` plus a PriorPose3 on x0, solved by
+   ``solve_graph_parametric(..., device="cuda")``: LM with the dense
+   Cholesky in float64 once (the reference optimum, whose SE(3)-aligned ATE
+   to the generator's truth must be within 10 % of the median odometry
+   edge), then ndchol with the ``big`` options once cold and twice warm,
+   each converged, with a cost <= 1.002 * the optimum + 1e-3 and an
+   SE(3)-aligned ATE to the optimum within the same bound. Prints LM
+   iterations, seconds, poses/s and the peak device memory; K1 is not on
+   this path (no Pose2Pose2 batch).
+13. SE(3) and Polar nonparametric (``se3_nonparametric_path``): approx_conv
+   of the Pose3 nullhypo fixture (tools/bench_multimodal.py:297-345, N =
+   400; mass at the measurement in (0.25, 0.75), spread mass > 0.15); the
+   batched ``init=True`` solve (N = 100) of a 6-pose Pose3 hexagon, its
+   Gibbs products on the generic score (no K2/K3 launch), mean translation
+   error of the belief means against the port's parametric optimum < 1 m;
+   and of a Polar chain, its products on K3's draw, mean range and angle
+   errors < 0.5. The K3 phase also checks the Polar masks [0, 1] and
+   [1, 0] at dof 2.
+14. Every Gibbs label update of every nonparametric path goes through the
+   draw epilogues where a kernel covers the manifold: each 2-D path
+   launches both draws and no logw, and every path's draw counts equal the
+   label updates its graphs' structure makes (PATH_DRAWS).
    Prints the kernel table as one JSON line (K1 by its two epilogues with
    their launches per path, normal from the citygrid solves, lin from
    dense32, mixed, pcg, the covariances and the parametric optima, and
@@ -188,7 +211,28 @@ MULTIHYPO_N = 400
 # path makes at these sizes; they depend on the graphs' structure alone
 PATH_DRAWS = {"beehive_points": (81, 81), "honeycomb_grow_default": (1269, 279),
               "bayes_tree_grow": (216, 144), "hexagonal_7pose": (297, 54),
-              "multihypo_range_bearing": (27, 27)}
+              "multihypo_range_bearing": (27, 27),
+              # the Pose3 hexagon's products take the generic score; the
+              # Polar chain's take K3: three Gauss-Seidel passes of 3 x 3
+              # Gibbs label updates on each of p0..p2 (K = 2; p3 has one
+              # message) and three Jacobi sweeps of 3 x K_max = 6
+              "se3_hexagon": (0, 0), "polar_chain": (0, 3 * 3 * 2 * 3 + 3 * 6)}
+# phase 12: the sphere graph (g2o's create_sphere layout, sphere2500's size)
+SPHERE_LAPS, SPHERE_PER_LAP, SPHERE_RADIUS_M = 50, 50, 100.0
+SPHERE_SIGMA_T, SPHERE_SIGMA_R = 0.05, 0.005
+SPHERE_WARM = 2
+# the x0 anchor: bench.py's 0.1 m / 0.05 rad leaves the rotation about x0 a
+# soft mode (a 10 m swing of the far side of the sphere costs 0.5), along
+# which ndchol's float32 factorization and 5e-2 polish crawl for all 40
+# iterations, in the JAX package as in the port; 0.01 m / 0.001 rad does not
+SPHERE_PRIOR_SIGMAS = [0.01] * 3 + [0.001] * 3
+SPHERE_ATE_FRACTION = 0.1     # of the median odometry edge (bench.py:298-300)
+# the reference optimum: LM with the dense Cholesky in float64
+SPHERE_DENSE = dict(max_iters=60, linear="dense", lam0=1e-6, lam_down=0.1, lam_min=1e-12,
+                    ftol=1e-10, gtol=1e-10)
+NULLHYPO_N = 400
+# the Polar K3 masks checked against the plain draw (Polar, BearingRange2)
+POLAR_MASKS = ((0.0, 1.0), (1.0, 0.0))
 
 
 class SmokeFailure(RuntimeError):
@@ -1013,12 +1057,13 @@ def pairwise_phase(card, bytes_per_s):
         logw = se2_pairwise_logw_plain(*arrs)
         compare(f"K2 V={V} N={N} Nj={Nj}", P.se2_pairwise_logw(*arrs), logw)
         compare_draw(f"K2 V={V} N={N} Nj={Nj}", P.se2_gibbs_draw(*arrs, u), logw, u)
-        for d in K3_DOFS:
-            arrs, circ = pairwise_inputs(V, N, Nj, d, "cuda", seed=V + N + d)
+        k3_cases = [(d, None) for d in K3_DOFS] + [(2, m) for m in POLAR_MASKS]
+        for d, mask in k3_cases:
+            arrs, circ = pairwise_inputs(V, N, Nj, d, "cuda", seed=V + N + d, circ=mask)
+            tag = f"K3 dof={d}{'' if mask is None else f' mask={list(mask)}'} V={V} N={N} Nj={Nj}"
             logw = euclid_pairwise_logw_plain(*arrs, circ)
-            compare(f"K3 dof={d} V={V} N={N} Nj={Nj}", P.euclid_pairwise_logw(*arrs, circ), logw)
-            compare_draw(f"K3 dof={d} V={V} N={N} Nj={Nj}",
-                         P.euclid_gibbs_draw(*arrs, circ, u), logw, u)
+            compare(tag, P.euclid_pairwise_logw(*arrs, circ), logw)
+            compare_draw(tag, P.euclid_gibbs_draw(*arrs, circ, u), logw, u)
     for k, (n_rows, differ, gap) in rows.items():
         agree = 1.0 - differ / n_rows
         print(f"[{card}] {k} draw: labels equal on {agree:.6f} of {n_rows} rows "
@@ -1182,14 +1227,17 @@ def _check_truth_launches(device, what):
           f"{what}: K1 launches {K.LAUNCHES}, expected lin > 0 and no normal")
 
 
-def _parametric_truth(fg, device):
-    """The port's parametric optimum of a copy of ``fg``: {label: coords}."""
+def _parametric_truth(fg, device, pose2=True):
+    """The port's parametric optimum of a copy of ``fg``: {label: coords}.
+    ``pose2``: the graph has Pose2Pose2 factors, whose dense solve launches
+    K1's lin epilogue (checked)."""
     from rome_tpu_torch import solve_graph_parametric
 
     fp = copy.deepcopy(fg)
     fp.init_all()
     solve_graph_parametric(fp, init=False, device=device)
-    _check_truth_launches(device, "a parametric optimum")
+    if pose2:
+        _check_truth_launches(device, "a parametric optimum")
     return {l: fp.get_coords(l, "parametric") for l in fp._var_order}
 
 
@@ -1417,13 +1465,313 @@ def multihypo_path(card, device="cuda", N=MULTIHYPO_N, solve_N=NP_N):
     return res, launches
 
 
-def kernel_table(k1, k23, k1_launches, np_launches, param_launches):
+# ---------------------------------------------------------------------------
+# 3-D: the sphere pose graph (phase 12) and the SE(3) / polar nonparametric
+# paths (phase 13)
+# ---------------------------------------------------------------------------
+
+def sphere_truth(laps=SPHERE_LAPS, per_lap=SPHERE_PER_LAP, radius=SPHERE_RADIUS_M):
+    """(laps * per_lap, 7) true poses (t, w, x, y, z) with the layout of
+    g2o's create_sphere example (the sphere2500 dataset): ``laps`` laps of
+    ``per_lap`` poses on a sphere of ``radius`` metres, climbing from pole to
+    pole (azimuth -pi + 2 pi n / per_lap, elevation -pi/2 + (i + 1) pi / N
+    of pose i = lap * per_lap + n); each pose's x-axis along the direction
+    of travel and its z-axis pointing out of the sphere."""
+    import torch
+
+    from rome_tpu_torch.manifolds import quat as Q
+
+    n_poses = laps * per_lap
+    pos = np.empty((n_poses, 3))
+    for i in range(n_poses):
+        az = -np.pi + 2 * np.pi * (i % per_lap) / per_lap
+        el = -0.5 * np.pi + (i + 1) * np.pi / n_poses
+        pos[i] = radius * np.array([np.cos(az) * np.cos(el), np.sin(az) * np.cos(el),
+                                    -np.sin(el)])
+    travel = np.empty_like(pos)
+    travel[:-1] = pos[1:] - pos[:-1]
+    travel[-1] = travel[-2]
+    up = pos / np.linalg.norm(pos, axis=1, keepdims=True)
+    x = travel - np.sum(travel * up, axis=1, keepdims=True) * up
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    y = np.cross(up, x)
+    R = np.stack([x, y, up], axis=-1)  # columns: x (travel), y, z (out)
+    q = Q.qfrom_matrix(torch.as_tensor(R, dtype=torch.float64)).numpy()
+    return np.concatenate([pos, q], axis=1)
+
+
+def sphere_edges(laps=SPHERE_LAPS, per_lap=SPHERE_PER_LAP):
+    """Odometry (i - 1, i) for i >= 1, then closures (i - per_lap, i) for
+    i >= per_lap: 2,499 + 2,450 = 4,949 edges at 50 x 50."""
+    n = laps * per_lap
+    return [(i - 1, i) for i in range(1, n)] + [(i - per_lap, i) for i in range(per_lap, n)]
+
+
+def write_sphere_g2o(path, laps=SPHERE_LAPS, per_lap=SPHERE_PER_LAP, radius=SPHERE_RADIUS_M,
+                     sigma_t=SPHERE_SIGMA_T, sigma_r=SPHERE_SIGMA_R, seed=0):
+    """Write the sphere graph as g2o text (VERTEX_SE3:QUAT initial values
+    chained from the noisy odometry, from the true first pose; then every
+    EDGE_SE3:QUAT: the true relative pose with its translation perturbed by
+    N(0, sigma_t^2) per axis and its rotation by exp of N(0, sigma_r^2) per
+    axis, information diag(1/sigma_t^2 x 3, 1/sigma_r^2 x 3)). Returns the
+    true poses."""
+    import torch
+
+    from rome_tpu_torch.manifolds import quat as Q
+    from rome_tpu_torch.manifolds.base import SE3_
+
+    rng = np.random.default_rng(seed)
+    truth = sphere_truth(laps, per_lap, radius)
+    edges = sphere_edges(laps, per_lap)
+    a = torch.as_tensor(truth[[e[0] for e in edges]])
+    b = torch.as_tensor(truth[[e[1] for e in edges]])
+    rel = SE3_.compose(SE3_.inverse(a), b)
+    t = rel[:, :3] + torch.as_tensor(rng.normal(0, sigma_t, (len(edges), 3)))
+    q = Q.qmul(rel[:, 3:], Q.qexp(torch.as_tensor(rng.normal(0, sigma_r, (len(edges), 3)))))
+    q = torch.where(q[:, :1] < 0, -q, q)
+    meas = torch.cat([t, Q.qnormalize(q)], dim=1).numpy()
+    init = [torch.as_tensor(truth[0])]
+    for m in torch.as_tensor(meas[: laps * per_lap - 1]):
+        init.append(SE3_.compose(init[-1], m))
+    info = np.diag([sigma_t ** -2] * 3 + [sigma_r ** -2] * 3)
+    info_s = " ".join(repr(float(info[i, j])) for i in range(6) for j in range(i, 6))
+
+    def qline(v):  # t, then the file's quaternion order (qx, qy, qz, qw)
+        return " ".join(repr(float(x)) for x in (*v[:3], v[4], v[5], v[6], v[3]))
+
+    with open(path, "w") as fh:
+        for i, v in enumerate(init):
+            fh.write(f"VERTEX_SE3:QUAT {i} {qline(v.numpy())}\n")
+        for (i, j), m in zip(edges, meas):
+            fh.write(f"EDGE_SE3:QUAT {i} {j} {qline(m)} {info_s}\n")
+    return truth
+
+
+def build_sphere_graph(path):
+    """load_g2o of the sphere file, with a PriorPose3 on x0 at its start
+    value (bench.py:83-92 anchors x0 the same way), of SPHERE_PRIOR_SIGMAS."""
+    import torch
+
+    from rome_tpu_torch import MvNormal, PriorPose3, load_g2o
+    from rome_tpu_torch.manifolds.base import SE3_
+
+    fg = load_g2o(None, path)
+    x0 = SE3_.log(torch.as_tensor(fg.get_point("x0"))).numpy()
+    fg.add_factor(["x0"], PriorPose3(MvNormal(x0, SPHERE_PRIOR_SIGMAS)), graphinit=False)
+    return fg
+
+
+def ate_se3(fg, ref):
+    """ATE RMSE of the 3-D positions after SE(3) alignment (Kabsch) to
+    ``ref`` (n, >= 3) rows by pose index."""
+    E = np.stack([fg.get_point(f"x{i}")[:3] for i in range(len(ref))])
+    G = np.asarray(ref)[:, :3]
+    Ec, Gc = E - E.mean(0), G - G.mean(0)
+    U, _s, Vt = np.linalg.svd(Gc.T @ Ec)
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    Ea = Ec @ (U @ D @ Vt).T + G.mean(0)
+    return float(np.sqrt(np.mean(np.sum((Ea - G) ** 2, axis=1))))
+
+
+def sphere_path(card, device="cuda", laps=SPHERE_LAPS, per_lap=SPHERE_PER_LAP,
+                warm=SPHERE_WARM, seed=0):
+    """Phase 12: the sphere graph through load_g2o and solve_graph_parametric
+    on ``device``: ndchol with the ``big`` options once cold and ``warm``
+    times warm, and the dense f64 solve as the reference optimum, under the
+    gates. Returns (result, K1 launches)."""
+    import tempfile
+
+    import torch
+
+    from rome_tpu_torch import GNOptions, solve_graph_parametric
+
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sphere.g2o")
+        t0 = time.time()
+        truth = write_sphere_g2o(path, laps, per_lap, seed=seed)
+        gen_s = time.time() - t0
+        t0 = time.time()
+        fg_ref = build_sphere_graph(path)
+        load_s = time.time() - t0
+        n = laps * per_lap
+        edge_len = float(np.median([np.linalg.norm(fg_ref.factors[fl].params["z"][:3])
+                                    for fl in fg_ref._fct_order[: n - 1]]))
+        gate = SPHERE_ATE_FRACTION * edge_len
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _sync(device)
+        t0 = time.time()
+        res = solve_graph_parametric(fg_ref, init=False, options=GNOptions(**SPHERE_DENSE),
+                                     dtype=torch.float64, device=device)
+        _sync(device)
+        st = res["stats"]
+        ref_pts = np.stack([fg_ref.get_point(f"x{i}") for i in range(n)])
+        ref_truth_ate = ate_se3(fg_ref, truth)
+        dense = dict(iterations=st.iterations, converged=st.converged, reason=st.reason,
+                     final_cost=st.final_cost, wall_s=time.time() - t0,
+                     solve_time_s=res["solve_time_s"], truth_ate_m=ref_truth_ate,
+                     peak_device_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                      if device == "cuda" else None))
+        print(f"[{card}] sphere_se3_2500 dense f64 reference: " + json.dumps(dense))
+        check(st.converged and np.isfinite(ref_pts).all(), "the dense reference did not converge")
+        check(ref_truth_ate <= gate,
+              f"the dense optimum is {ref_truth_ate} m from the truth, gate {gate} m")
+        runs = []
+        for label in ["cold"] + ["warm"] * warm:
+            fg = build_sphere_graph(path)
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            _sync(device)
+            t0 = time.time()
+            res = solve_graph_parametric(fg, init=False, options=GNOptions(**BIG),
+                                         device=device)
+            _sync(device)
+            wall = time.time() - t0
+            st = res["stats"]
+            pts = np.stack([fg.get_point(f"x{i}") for i in range(n)])
+            row = dict(run=label, iterations=st.iterations, converged=st.converged,
+                       reason=st.reason, final_cost=st.final_cost, ref_cost=dense["final_cost"],
+                       ate_to_optimum_m=ate_se3(fg, ref_pts), truth_ate_m=ate_se3(fg, truth),
+                       solve_time_s=res["solve_time_s"], wall_s=wall,
+                       poses_per_s=n / res["solve_time_s"],
+                       peak_device_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                        if device == "cuda" else None))
+            runs.append(row)
+            print(f"[{card}] sphere_se3_2500 ndchol {label}: " + json.dumps(row))
+            check(pts.shape == (n, 7) and np.isfinite(pts).all(), "poses missing or not finite")
+            check(st.converged, f"{label} run did not converge ({st.reason})")
+            check(st.final_cost <= dense["final_cost"] * 1.002 + 1e-3,
+                  f"{label} run cost {st.final_cost} > 1.002 * {dense['final_cost']}")
+            check(row["ate_to_optimum_m"] <= gate,
+                  f"{label} run ATE to the optimum {row['ate_to_optimum_m']} > {gate} m")
+    launches = _launches()
+    # no Pose2Pose2 batch: K1 is not on this path
+    check(device != "cuda" or (launches["k1_lin"] == 0 and launches["k1_normal"] == 0),
+          f"the sphere path launched K1: {launches}")
+    return dict(poses=n, edges=len(fg_ref.factors) - 1, median_edge_m=edge_len, ate_gate_m=gate,
+                generate_s=gen_s, load_s=load_s, dense=dense, runs=runs), launches
+
+
+def nullhypo_pose3_graph():
+    """testPose3Pose3NH.jl:118's fixture (tools/bench_multimodal.py:297-345):
+    x0 anchored, a 10 m Pose3Pose3 to x1 with nullhypo = 0.5, and a wide
+    belief on x1."""
+    from rome_tpu_torch import FactorGraph, MvNormal, Pose3, Pose3Pose3, PriorPose3
+
+    fg = FactorGraph()
+    fg.add_variable("x0", Pose3)
+    fg.add_factor(["x0"], PriorPose3(MvNormal(np.zeros(6), np.full(6, 1e-4))))
+    fg.add_variable("x1", Pose3)
+    f = fg.add_factor(["x0", "x1"], Pose3Pose3(MvNormal([10.0, 0, 0, 0, 0, 0], np.full(6, 1e-3))),
+                      nullhypo=0.5, graphinit=False)
+    rng = np.random.default_rng(5)
+    wide = np.concatenate([rng.normal(0, 8.0, size=(400, 3)), np.tile([1.0, 0, 0, 0], (400, 1))],
+                          axis=1)
+    fg.variables["x1"].beliefs["default"] = wide.astype(np.float32)
+    fg.variables["x1"].initialized["default"] = True
+    return fg, f.label
+
+
+def nullhypo_masses(pts):
+    d = np.linalg.norm(np.asarray(pts)[:, :3] - np.array([10.0, 0, 0]), axis=1)
+    return float(np.mean(d < 1.0)), float(np.mean(d > 3.0))
+
+
+def se3_hexagon_graph():
+    """Six Pose3 on a 10 m hexagon: PriorPose3 on x0, five odometry edges
+    of 10 m and a 60 degree yaw step, and the closure x5 -> x0; sigmas
+    0.1 m and 0.01 rad."""
+    from rome_tpu_torch import FactorGraph, MvNormal, Pose3, Pose3Pose3, PriorPose3
+
+    fg = FactorGraph()
+    fg.params.graphinit = False
+    for i in range(6):
+        fg.add_variable(f"x{i}", Pose3)
+    fg.add_factor(["x0"], PriorPose3(MvNormal(np.zeros(6), [0.1] * 3 + [0.01] * 3)))
+    z = MvNormal([10.0, 0, 0, 0, 0, np.pi / 3], [0.1] * 3 + [0.01] * 3)
+    for i in range(6):
+        fg.add_factor([f"x{i}", f"x{(i + 1) % 6}"], Pose3Pose3(z))
+    return fg
+
+
+def polar_chain_graph():
+    """A Polar prior and three PolarPolar offsets (range m, angle rad)."""
+    from rome_tpu_torch import FactorGraph, Normal, Polar, PolarPolar, PriorPolar
+
+    fg = FactorGraph()
+    fg.params.graphinit = False
+    for i in range(4):
+        fg.add_variable(f"p{i}", Polar)
+    fg.add_factor(["p0"], PriorPolar(Normal(5.0, 0.1), Normal(0.3, 0.05)))
+    for i in range(3):
+        fg.add_factor([f"p{i}", f"p{i + 1}"], PolarPolar(Normal(1.0, 0.1), Normal(0.4, 0.05)))
+    return fg
+
+
+def se3_nonparametric_path(card, device="cuda", N=NP_N, nullhypo_N=NULLHYPO_N):
+    """Phase 13: (a) approx_conv of the Pose3 nullhypo fixture (mass gates);
+    (b) the batched default-engine solve of the Pose3 hexagon, whose Gibbs
+    products take the generic score (no K2/K3 launch); (c) the same solve of
+    the Polar chain, whose products take K3's draw. Returns (result,
+    launches of (b) + (c))."""
+    from rome_tpu_torch import approx_conv, init_all_beliefs, solve_graph_nonparametric
+
+    out = {}
+    fg, flabel = nullhypo_pose3_graph()
+    init_all_beliefs(fg, N=nullhypo_N, device=device)
+    times, masses = [], []
+    for seed in (0, 4):
+        _sync(device)
+        t0 = time.time()
+        pts = approx_conv(fg, flabel, "x1", N=nullhypo_N, device=device, seed=seed).cpu().numpy()
+        _sync(device)
+        times.append(time.time() - t0)
+        check(pts.shape == (nullhypo_N, 7) and np.isfinite(pts).all(), "nullhypo conv not finite")
+        masses.append(nullhypo_masses(pts))
+    out["nullhypo"] = dict(first_s=times[0], steady_s=times[1],
+                           mass_at_measurement=[m[0] for m in masses],
+                           mass_spread=[m[1] for m in masses])
+    print(f"[{card}] se3_nonparametric nullhypo: " + json.dumps(out["nullhypo"]))
+    for at_meas, far in masses:
+        check(0.25 < at_meas < 0.75 and far > 0.15,
+              f"nullhypo masses {at_meas} at the measurement, {far} spread")
+
+    launches = {}
+    for name, build, cols, gate in (("se3_hexagon", se3_hexagon_graph, (slice(0, 3),), 1.0),
+                                    ("polar_chain", polar_chain_graph,
+                                     (slice(0, 1), slice(1, 2)), 0.5)):
+        fg = build()
+        truth = _parametric_truth(fg, device, pose2=False)
+        _reset_launches()
+        _sync(device)
+        t0 = time.time()
+        solve_graph_nonparametric(fg, sweeps=3, N=N, engine="batched", init=True, device=device)
+        _sync(device)
+        wall = time.time() - t0
+        launches[name] = _launches()
+        _check_beliefs(fg, N)
+        errs = []
+        for c in cols:
+            e = [float(np.linalg.norm(np.asarray(fg.variables[l].points["default"])[c]
+                                      - truth[l][c])) for l in fg._var_order]
+            errs.append(float(np.mean(e)))
+        out[name] = dict(solve_time_s=wall, mean_err=errs, launches=launches[name])
+        print(f"[{card}] se3_nonparametric {name}: " + json.dumps(out[name]))
+        check(max(errs) < gate, f"{name}: mean errors {errs} not below {gate}")
+        check(device != "cuda" or (launches[name]["se2_pairwise_logw"] == 0
+                                   and launches[name]["euclid_pairwise_logw"] == 0),
+              f"{name}: a logw epilogue launched: {launches[name]}")
+    return out, launches
+
+
+def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path):
     """The kernels JSON line: K1 by its two epilogues (normal launched by the
     speculative citygrid path and the host-scheduled solve, lin by the
     dense32, mixed, pcg and covariance paths and the parametric optima of the
     nonparametric paths; each path counted from 0, ``launches_by_path``),
-    and K2/K3 by their draw epilogues (what the paths launch) with their logw
-    epilogues nested. Times and bounds at n = 13,085, with 1,048,576 nested."""
+    and K2/K3 by their draw epilogues (what the paths launch, per path in
+    ``launches_by_path``) with their logw epilogues nested. Times and bounds at n = 13,085, with 1,048,576 nested."""
     kernels = []
     for epi, name in (("lin", "pose2pose2_linearize"), ("normal", "pose2pose2_normal")):
         by_path = {"citygrid_10k": k1_launches[epi],
@@ -1446,7 +1794,9 @@ def kernel_table(k1, k23, k1_launches, np_launches, param_launches):
         # score gap of a label that differs from the plain draw's
         kernels.append(dict(
             name=f"{name}_gibbs_draw", source="pairwise_logw.cu", replaces=tpu,
-            launches=np_launches[f"{name}_gibbs_draw"], max_abs_err=k23[k]["draw_max_gap"],
+            launches=np_launches[f"{name}_gibbs_draw"],
+            launches_by_path={p: l[f"{name}_gibbs_draw"] for p, l in np_by_path.items()},
+            max_abs_err=k23[k]["draw_max_gap"],
             ms=t["draw"], plain_ms=t["plain_draw"], bound_ms=t["draw_bound_ms"],
             bound_by=t["draw_bound_by"], library_ms=None, shape=[V, BEEHIVE_N, BEEHIVE_N],
             label_agreement=1.0 - k23[k]["draw_rows_differ"] / k23[k]["draw_rows"],
@@ -1516,6 +1866,19 @@ def main():
         t0 = time.time()
         np_paths[name] = path(card)
         print(f"[{card}] {name}: {time.time() - t0:.1f} s, launches {np_paths[name][1]}")
+    t0 = time.time()
+    sphere, sphere_launches = sphere_path(card)
+    warm = [r["solve_time_s"] for r in sphere["runs"][1:]]
+    print(f"[{card}] sphere_se3_2500: {time.time() - t0:.1f} s; ndchol cold "
+          f"{sphere['runs'][0]['solve_time_s']:.3f} s, warm {', '.join(f'{w:.3f}' for w in warm)} s, "
+          f"best {sphere['poses'] / min(warm):.1f} poses/s, "
+          f"{[r['iterations'] for r in sphere['runs']]} LM iterations (dense f64 reference "
+          f"{sphere['dense']['iterations']}); K1 launches {sphere_launches}")
+    t0 = time.time()
+    se3_np, se3_np_launches = se3_nonparametric_path(card)
+    print(f"[{card}] se3_nonparametric: {time.time() - t0:.1f} s, launches {se3_np_launches}")
+    for name, l in se3_np_launches.items():
+        np_paths[name] = (se3_np[name], l)
     for name, (_r, l) in np_paths.items():
         draws = (l["se2_gibbs_draw"], l["euclid_gibbs_draw"])
         check(draws == PATH_DRAWS[name],
@@ -1528,10 +1891,11 @@ def main():
                    "parametric_launches": param_launches,
                    "nonparametric": {k: {"result": r, "launches": l}
                                      for k, (r, l) in np_paths.items()},
+                   "sphere_se3_2500": sphere, "se3_nonparametric": se3_np,
                    "seconds": time.time() - t_start}, fh, indent=1)
 
-    print(json.dumps({"kernels": kernel_table(k1, k23, launches, np_launches,
-                                              param_launches)}))
+    print(json.dumps({"kernels": kernel_table(k1, k23, launches, np_launches, param_launches,
+                                              {k: l for k, (_r, l) in np_paths.items()})}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

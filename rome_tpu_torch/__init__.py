@@ -16,7 +16,12 @@ Ported so far:
   Seidel passes, Jacobi sweeps, the per-factor fallback), the loop engine
   and the Bayes-tree solve with clique recycling — with the Gibbs pairwise
   scores as hand-written CUDA kernels (K2 for SE(2), K3 for per-dim
-  manifolds).
+  manifolds and their products);
+- slice B3, first part: SO(3) / SE(3) (unit quaternions) and product
+  manifolds, every variable type, the 3-D and partial factor library
+  (Pose3, Point3, Polar, the partial Pose2/Pose3 factors), g2o SE3 and
+  LANDMARK lines and ``export_g2o``, and the generic Gibbs score for the
+  manifolds no kernel covers (SO(3), SE(3), ...).
 
 Every entry point runs on the card (``device="cuda"``, its default) unless
 the caller asks for the CPU with ``device="cpu"``, as the tests do; nothing
@@ -25,8 +30,18 @@ called without ``device=`` raises.
 """
 
 from rome_tpu_torch.variables import (
+    BearingRange2,
+    DynPoint2,
+    DynPose2,
+    IMUBias,
     Point2,
+    Point3,
+    Polar,
     Pose2,
+    Pose3,
+    Rotation3,
+    RotVelPos,
+    VelPos3,
     get_variable_type,
     list_variable_types,
     register_variable_type,
@@ -41,7 +56,7 @@ from rome_tpu_torch.distributions import (
 )
 from rome_tpu_torch.graph.graph import FactorGraph, SolverParams
 from rome_tpu_torch.factors import *  # noqa: F401,F403 — registers + exports factor ctors
-from rome_tpu_torch.io import import_g2o, load_g2o
+from rome_tpu_torch.io import export_g2o, import_g2o, load_g2o
 from rome_tpu_torch.solvers.gauss_newton import GNOptions
 from rome_tpu_torch.solvers.parametric import solve_graph_parametric, solveGraphParametric
 from rome_tpu_torch.solvers.multimodal import (

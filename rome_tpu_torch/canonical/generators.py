@@ -19,7 +19,9 @@ from rome_tpu_torch.distributions import MvNormal, Normal
 from rome_tpu_torch.factors.base import Factor
 from rome_tpu_torch.factors.bearing_range import Pose2Point2BearingRange
 from rome_tpu_torch.factors.point2 import PriorPoint2
+from rome_tpu_torch.factors.point3 import PriorPoint3
 from rome_tpu_torch.factors.pose2 import Pose2Pose2, PriorPose2
+from rome_tpu_torch.factors.pose3 import PriorPose3
 from rome_tpu_torch.graph.graph import FactorGraph, SolverParams
 from rome_tpu_torch.variables import Point2, Pose2, get_variable_type
 
@@ -102,10 +104,12 @@ def generate_graph_zero_pose(
             prior_factor = PriorPose2(MvNormal(mu0, cov0))
         elif vt.name == "Point2":
             prior_factor = PriorPoint2(MvNormal(mu0, cov0))
+        elif vt.name == "Pose3":
+            prior_factor = PriorPose3(MvNormal(mu0, cov0))
+        elif vt.name == "Point3":
+            prior_factor = PriorPoint3(MvNormal(mu0, cov0))
         else:
-            raise NotImplementedError(
-                f"the default prior of {vt.name} is not ported yet (ROADMAP slice B3)"
-            )
+            raise TypeError(f"no default prior for {vt.name}")
     _add_pose_canonical(
         fg, None, 0, prior_factor, gen_label=label, pose_type=vt,
         graphinit=fg.params.graphinit, solvable=solvable, do_ref=do_ref,

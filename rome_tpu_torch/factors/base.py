@@ -35,6 +35,9 @@ class FactorType:
     # graph init
     initializers: dict = field(default_factory=dict, compare=False)
     coord_types: tuple = ()
+    # which tangent dims of the LAST variable the factor constrains (the
+    # reference's ``partial=``, 0-based); None = all dims
+    partial: Optional[tuple] = None
     doc: str = ""
 
     @property

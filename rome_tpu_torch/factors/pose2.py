@@ -1,5 +1,6 @@
 """SE(2) pose factors (counterpart of ``rome_tpu/factors/pose2.py``):
-PriorPose2, Pose2Pose2 and MutablePose2Pose2Gaussian.
+PriorPose2, Pose2Pose2, PartialPriorYawPose2, MutablePose2Pose2Gaussian and
+Pose2Point2.
 
 Points are (x, y, theta); tangents are hybrid (vx, vy, w) — see
 rome_tpu_torch.manifolds.base.SE2.
@@ -12,11 +13,13 @@ import numpy as np
 from rome_tpu_torch.distributions import Distribution, MvNormal
 from rome_tpu_torch.factors.base import (
     FactorType,
+    gaussian_params,
     make_gaussian_factor,
     register_factor_type,
 )
 from rome_tpu_torch.manifolds.base import SE2_
-from rome_tpu_torch.variables import Pose2
+from rome_tpu_torch.utils.math import matvec, rot2, sym_rem
+from rome_tpu_torch.variables import Point2, Pose2
 
 
 # --- PriorPose2 (PriorPose2.jl:37-47): vee(log(M, p, m)) -------------------
@@ -76,6 +79,29 @@ def Pose2Pose2(Z: Distribution = None):
     return make_gaussian_factor(POSE2POSE2, (), Z)
 
 
+# --- PartialPriorYawPose2 (PartialPriorPose2.jl:7-27) ----------------------
+
+def _partial_yaw_res(params, p):
+    return sym_rem(params["z"] - p[..., 2:3])
+
+
+PARTIAL_PRIOR_YAW_POSE2 = register_factor_type(
+    FactorType(
+        name="PartialPriorYawPose2",
+        variable_types=(Pose2,),
+        zdim=1,
+        residual=_partial_yaw_res,
+        coord_types=("c",),
+        partial=(2,),  # constrains theta only (reference partial=(3,), 1-based)
+        doc="Partial prior on Pose2 yaw (PartialPriorPose2.jl:7-27).",
+    )
+)
+
+
+def PartialPriorYawPose2(Z: Distribution):
+    return make_gaussian_factor(PARTIAL_PRIOR_YAW_POSE2, (), Z)
+
+
 # --- MutablePose2Pose2Gaussian (MutablePose2Pose2.jl:11-36) ----------------
 # Same residual as Pose2Pose2; its params may be reset in place.
 
@@ -96,3 +122,40 @@ def MutablePose2Pose2Gaussian(Z: Distribution = None):
     if Z is None:
         Z = MvNormal(np.zeros(3), np.diag([1e-6, 1e-6, 1e-6]))
     return make_gaussian_factor(MUTABLE_POSE2POSE2, (), Z)
+
+
+def update_mutable_odo(factor, mean, cov):
+    """Reset the measurement of a MutablePose2Pose2Gaussian in place
+    (cf. resetFactor!, OdometryUtils.jl:93)."""
+    factor.params.update(gaussian_params(mean, cov))
+    factor.dists = (MvNormal(mean, np.asarray(cov)),)
+    return factor
+
+
+# --- Pose2Point2 (Pose2Point2.jl:22-40): l - (wTp ∘ pTq)[1:2] --------------
+
+def _sighted(p, z):
+    return p[..., :2] + matvec(rot2(p[..., 2]), z[..., :2])
+
+
+def _pose2point2_res(params, p, l):
+    return l[..., :2] - _sighted(p, params["z"])
+
+
+POSE2POINT2 = register_factor_type(
+    FactorType(
+        name="Pose2Point2",
+        variable_types=(Pose2, Point2),
+        zdim=2,
+        residual=_pose2point2_res,
+        initializers={1: lambda params, pts: _sighted(pts[0], params["z"])},
+        coord_types=("e", "e"),
+        partial=(0, 1),
+        doc="Body-frame offset sighting of a Point2 from a Pose2 "
+        "(Pose2Point2.jl:22-40).",
+    )
+)
+
+
+def Pose2Point2(Z: Distribution):
+    return make_gaussian_factor(POSE2POINT2, (), Z)

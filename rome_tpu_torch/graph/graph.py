@@ -73,6 +73,10 @@ def _f64(a) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=torch.float64, device="cpu")
 
 
+def _identity(rec: VariableRecord) -> np.ndarray:
+    return rec.manifold.identity(torch.float64).numpy()
+
+
 class FactorGraph:
     """In-memory factor graph."""
 
@@ -357,7 +361,7 @@ class FactorGraph:
                 for label in self._var_order:
                     rec = self.variables[label]
                     if not rec.initialized.get(solve_key):
-                        rec.points[solve_key] = np.zeros(rec.vtype.point_dim)
+                        rec.points[solve_key] = _identity(rec)
                         rec.initialized[solve_key] = True
                         seeded = True
                         break
@@ -365,7 +369,7 @@ class FactorGraph:
                     break
         for label, rec in self.variables.items():
             if not rec.initialized.get(solve_key):
-                rec.points[solve_key] = np.zeros(rec.vtype.point_dim)
+                rec.points[solve_key] = _identity(rec)
                 rec.initialized[solve_key] = True
 
     def __repr__(self):

@@ -130,7 +130,7 @@ def lower(
         counts[t] = len(labels)
         values0[t] = np.stack([
             np.asarray(r.points[solve_key], dtype=np.float64)
-            if solve_key in r.points else np.zeros(man.point_dim)
+            if solve_key in r.points else man.identity(torch.float64).numpy()
             for r in recs
         ])
         free[t] = np.array(

@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from rome_tpu_torch.manifolds.base import SE2, SO2, TranslationGroup
+from rome_tpu_torch.manifolds.base import SE2, SO2, ProductGroup, TranslationGroup
 
 TWO_PI = 2.0 * math.pi
 # largest dof of the per-dim kernel K3 (the Pallas kernel's _DPAD)
@@ -89,13 +89,19 @@ def euclid_gibbs_draw_plain(ref, mu, pts, inv_var, circ, u):
 
 
 def _per_dim(man) -> bool:
-    return isinstance(man, (TranslationGroup, SO2))
+    """True when ``local`` is a per-dim difference, wrapped on circular dims:
+    T(n), SO(2) and products of them (Polar, BearingRange2, ...)."""
+    if isinstance(man, (TranslationGroup, SO2)):
+        return True
+    if isinstance(man, ProductGroup):
+        return all(_per_dim(p) for p in man.parts)
+    return False
 
 
 def _for(man, se2_fn, euclid_fn):
     """``se2_fn`` for SE(2); for a per-dim linear/circular manifold (T(n),
-    SO(2)) with point_dim == dof <= 8, ``euclid_fn`` with the manifold's
-    circular-dim mask bound; else None."""
+    SO(2) and their products) with point_dim == dof <= 8, ``euclid_fn`` with
+    the manifold's circular-dim mask bound; else None."""
     if isinstance(man, SE2):
         return se2_fn
     if _per_dim(man) and man.dof <= MAX_DOF and man.point_dim == man.dof:
@@ -117,8 +123,8 @@ def _for(man, se2_fn, euclid_fn):
 def pairwise_logw_for(man):
     """The fused scoring function matching ``man``'s local map, or None when
     no fused variant applies. SE(2) takes K2; a per-dim linear/circular
-    manifold (T(n), SO(2)) with point_dim == dof <= 8 takes K3 with its
-    circular-dim mask. Returned functions take (ref, mu, pts, inv_var)."""
+    manifold (T(n), SO(2) and their products) with point_dim == dof <= 8
+    takes K3 with its circular-dim mask. Returned functions take (ref, mu, pts, inv_var)."""
     from rome_tpu_torch.ops import pairwise_cuda
 
     return _for(man, pairwise_cuda.se2_pairwise_logw, pairwise_cuda.euclid_pairwise_logw)

@@ -14,8 +14,10 @@ batches the parametric path uses (graph/lower.py):
 2. **Products**: messages scatter into a padded (V, K_max, N, point_dim)
    tensor per variable type; a masked parallel-Gibbs KDE product runs over
    all V variables of the type at once, its pairwise scores and Gumbel-max
-   label draws in the CUDA kernels K2 (SE(2)) and K3 (per-dim manifolds),
-   one launch of the draw epilogue per Gibbs label update.
+   label draws in the CUDA kernels K2 (SE(2)) and K3 (per-dim manifolds and
+   their products), one launch of the draw epilogue per Gibbs label update;
+   the manifolds no kernel covers (SO(3), SE(3), ...) take the generic score
+   in torch ops and the same draw.
 
 The default schedule (``init=True``) first runs the particle graph init and
 three sequential Gauss-Seidel passes over the chronological variable order

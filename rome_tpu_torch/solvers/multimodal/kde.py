@@ -6,7 +6,9 @@
   variable type is one call;
 - the multi-density product is a parallel Gibbs label sampler over kernel
   selections (the prodAppxMSGibbsS analogue), whose pairwise scores and
-  Gumbel-max label draws run in the kernels K2/K3 (``ops/pairwise.py``).
+  Gumbel-max label draws run in the kernels K2/K3 (``ops/pairwise.py``) on
+  the manifolds they cover, and as torch ops (``generic_pairwise_logw``)
+  on the others.
 
 Random draws come from the ``torch.Generator`` the caller passes; nothing
 here touches the global RNG. Categorical draws are Gumbel-max, as
@@ -15,6 +17,7 @@ here touches the global RNG. Categorical draws are Gumbel-max, as
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -54,27 +57,44 @@ def categorical(logits, generator):
     return gumbel_argmax(logits, u)
 
 
-def _fused(fn, man: Manifold):
-    if fn is None:
-        raise NotImplementedError(
-            f"no Gibbs pairwise score for {man.name}: its manifold is not ported "
-            "yet (ROADMAP slice B3)"
-        )
-    return fn
+def generic_pairwise_logw(man: Manifold, ref, mu, pts, inv_var):
+    """The Gibbs pairwise score for any manifold, in torch ops: the JAX
+    package's vmapped form for the manifolds no kernel covers (SO(3), SE(3),
+    SE(2) x T(2), ...). ``local(ref[v, n], pts[v, j])`` for every pair, then
+
+        logw[v, n, j] = -0.5 * sum_d (C[v, n, j, d] - mu[v, n, d])**2 * inv_var[v, d]
+
+    ref (V, N, point_dim), mu (V, N, dof), pts (V, Nj, point_dim), inv_var
+    (V, dof) -> (V, N, Nj); the unbatched (N, ·) / (Nj, ·) / (dof,) form is
+    accepted as V = 1."""
+    if ref.dim() == 2:
+        return generic_pairwise_logw(man, ref[None], mu[None], pts[None], inv_var[None])[0]
+    C = man.local(ref[:, :, None, :], pts[:, None, :, :])            # (V, N, Nj, dof)
+    d2 = (C - mu[:, :, None, :]) ** 2 * inv_var[:, None, None, :]
+    return -0.5 * torch.sum(d2, dim=-1)
+
+
+def generic_gibbs_draw(man: Manifold, ref, mu, pts, inv_var, u):
+    """The generic score, then the label draw of :func:`categorical` from
+    the uniforms u: (V, N) labels."""
+    return gumbel_argmax(generic_pairwise_logw(man, ref, mu, pts, inv_var), u)
 
 
 def pairwise_logw(man: Manifold):
     """The Gibbs scoring function (ref, mu, pts, inv_var) -> logw for
-    ``man``: K2 or K3. Every manifold of the port has one; the manifolds
-    that take the JAX package's generic vmapped form are not ported yet."""
-    return _fused(pairwise_logw_for(man), man)
+    ``man``: K2 for SE(2), K3 for T(n), SO(2) and their products (dof <= 8),
+    else the generic score (:func:`generic_pairwise_logw`)."""
+    fn = pairwise_logw_for(man)
+    return fn if fn is not None else functools.partial(generic_pairwise_logw, man)
 
 
 def pairwise_draw(man: Manifold):
     """The Gibbs label update (ref, mu, pts, inv_var, u) -> labels for
-    ``man``: K2's or K3's draw epilogue, the score and the Gumbel-max draw
-    of :func:`categorical` from the uniforms u in one launch."""
-    return _fused(pairwise_draw_for(man), man)
+    ``man``: K2's or K3's draw epilogue (the score and the Gumbel-max draw of
+    :func:`categorical` from the uniforms u in one launch) where one covers
+    the manifold, else the generic score and the same draw."""
+    fn = pairwise_draw_for(man)
+    return fn if fn is not None else functools.partial(generic_gibbs_draw, man)
 
 
 @dataclass

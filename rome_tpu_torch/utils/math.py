@@ -1,7 +1,7 @@
 """Small numerical utilities shared across the port.
 
-Counterpart of ``rome_tpu/utils/math.py`` (the parts the batch SE(2) solve
-needs). Every function is shape-polymorphic over leading dims and keeps the
+Counterpart of ``rome_tpu/utils/math.py`` (the parts the ported slices
+need). Every function is shape-polymorphic over leading dims and keeps the
 dtype and device of its input.
 """
 
@@ -28,6 +28,20 @@ def sym_rem(theta: torch.Tensor) -> torch.Tensor:
         pi = torch.full((), math.pi, dtype=theta.dtype, device=theta.device)
         return torch.remainder(theta + pi, 2.0 * pi) - pi
     return torch.remainder(theta + math.pi, TWO_PI) - math.pi
+
+
+def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
+    """Alias of :func:`sym_rem`."""
+    return sym_rem(theta)
+
+
+def skew3(v: torch.Tensor) -> torch.Tensor:
+    """so(3) hat map: (...,3) -> (...,3,3). Components are taken as width-1
+    slices (see the note in sym_rem)."""
+    x, y, z = v[..., 0:1], v[..., 1:2], v[..., 2:3]
+    o = torch.zeros_like(x)
+    m = torch.cat([o, -z, y, z, o, -x, -y, x, o], dim=-1)
+    return m.reshape(*m.shape[:-1], 3, 3)
 
 
 def rot2(theta: torch.Tensor) -> torch.Tensor:

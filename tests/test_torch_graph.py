@@ -140,10 +140,30 @@ def test_vertex_initialization(tmp_path):
     ],
 )
 def test_unported_g2o_lines_raise(tmp_path, line):
+    """The lines that raised before the SE(3) / landmark factors were ported
+    now parse as the JAX package parses them (an EDGE_SE3:QUAT line of 21
+    ones is a singular information matrix, which raises in both)."""
     p = tmp_path / "x.g2o"
     p.write_text(line + "\n")
-    with pytest.raises(NotImplementedError, match="B3"):
-        load_g2o(None, str(p))
+    try:
+        with jax.enable_x64():
+            fg_j = jax_load_g2o(None, str(p))
+    except np.linalg.LinAlgError:
+        with pytest.raises(np.linalg.LinAlgError):
+            load_g2o(None, str(p))
+        line = "EDGE_SE3:QUAT 0 1 1 2 3 0 0 0 1 4 0 0 0 0 0 4 0 0 0 0 4 0 0 0 9 0 0 9 0 9"
+        p.write_text(line + "\n")
+        with jax.enable_x64():
+            fg_j = jax_load_g2o(None, str(p))
+    fg_t = load_g2o(None, str(p))
+    assert fg_t._var_order == fg_j._var_order and fg_t._fct_order == fg_j._fct_order
+    for lbl in fg_j._var_order:
+        assert fg_t.variables[lbl].vtype.name == fg_j.variables[lbl].vtype.name
+        for key, pt in fg_j.variables[lbl].points.items():
+            np.testing.assert_array_equal(fg_t.variables[lbl].points[key], pt)
+    for fl in fg_j._fct_order:
+        for k, v in fg_j.factors[fl].params.items():
+            np.testing.assert_array_equal(fg_t.factors[fl].params[k], v)
 
 
 def test_write_back_skips_frozen():

@@ -46,6 +46,7 @@ def test_port_modules_mirror_the_slice():
         "solvers.multimodal.kde", "solvers.multimodal.convolve",
         "solvers.multimodal.batched", "solvers.multimodal.solve",
         "solvers.multimodal.metrics", "solvers.multimodal.tree", "factors.point2",
+        "manifolds.quat", "factors.point3", "factors.pose3", "factors.polar",
     ]:
         assert "rome_tpu_torch." + m in mods, m
     for src in ("pose2pose2_linearize.cu", "pairwise_logw.cu"):

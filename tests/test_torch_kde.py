@@ -118,9 +118,13 @@ def test_gibbs_product_matches_jax_by_kl():
 
 
 def test_pairwise_score_dispatch_refuses_an_unported_manifold():
-    class Quat(TM.Manifold):  # point_dim != dof: no per-dim kernel applies
-        name, point_dim, dof, coord_types = "Quat", 4, 3, ("c",) * 3
+    """A manifold no kernel covers (point_dim != dof) takes the generic
+    score, not K2/K3; SE(2) keeps K2."""
+    import functools
 
-    assert TK.pairwise_logw(TM.SE2()) is not None
-    with pytest.raises(NotImplementedError, match="slice B3"):
-        TK.pairwise_logw(Quat())
+    from rome_tpu_torch.ops import pairwise_cuda as P
+
+    assert TK.pairwise_logw(TM.SE2()) is P.se2_pairwise_logw
+    fn = TK.pairwise_logw(TM.SO3_)
+    assert isinstance(fn, functools.partial) and fn.func is TK.generic_pairwise_logw
+    assert TK.pairwise_draw(TM.SO3_).func is TK.generic_gibbs_draw

@@ -12,8 +12,7 @@ The engines draw from different generators (``jax.random`` keys, a
   engine's own init and from identical starting particles;
 - frozen variables keep their beliefs bit-identical;
 - a seeded CPU solve keeps its recorded belief means;
-- unknown options raise ValueError/TypeError, and what is not ported yet
-  raises NotImplementedError naming its slice.
+- unknown options raise ValueError/TypeError.
 """
 
 import numpy as np
@@ -192,20 +191,18 @@ def test_option_errors():
 
 
 def test_unported_options_raise():
-    """What the port does not have yet raises NotImplementedError naming the
-    ROADMAP slice that brings it: manifolds without a Gibbs pairwise score
-    and the default priors of the unported variable types (slice B3)."""
+    """A type with no default prior raises TypeError, as in the JAX package;
+    a manifold wider than K3's 8 dofs takes the generic Gibbs score."""
     from rome_tpu_torch.canonical import generate_graph_zero_pose
     from rome_tpu_torch.manifolds.base import TranslationGroup
-    from rome_tpu_torch.solvers.multimodal.kde import pairwise_logw
+    from rome_tpu_torch.solvers.multimodal.kde import generic_pairwise_logw, pairwise_logw
     from rome_tpu_torch.variables import VariableType
 
     class Wide(TranslationGroup):
         pass
 
-    with pytest.raises(NotImplementedError, match="slice B3"):
-        pairwise_logw(Wide(9))
-    with pytest.raises(NotImplementedError, match="slice B"):
+    assert pairwise_logw(Wide(9)).func is generic_pairwise_logw
+    with pytest.raises(TypeError, match="no default prior"):
         generate_graph_zero_pose(var_type=VariableType("Point9", Wide(9)))
     fg = generate_graph_zero_pose(var_type=T.Point2, mu0=[1.0, 2.0])
     assert fg.factors[fg._fct_order[0]].ftype.name == "PriorPoint2"
