@@ -12,8 +12,8 @@
    draws); prints the build seconds and the ptxas reports. Measures the
    card's stream copy rate (1 GiB, CUDA events).
 3. K1 phase: both epilogues of K1 against their plain PyTorch versions on
-   the card, on seeded random inputs at n in {1, 1000, 8192, 10000, 13085}
-   and 1,048,576. The lin epilogue (the Pallas contract) in float32 (atol
+   the card, on seeded random inputs at n in {1, 499, 1000, 8192, 10000,
+   13085} and 1,048,576 (499: the mixture chain of phase 15). The lin epilogue (the Pallas contract) in float32 (atol
    2e-5, the JAX package's Pallas-kernel tolerance) and float64 (atol
    1e-10), also from inputs one element off a 16-byte boundary. The normal
    epilogue (the ndchol LM path's launch: float64 pose table of n / 2 poses,
@@ -31,8 +31,10 @@
    (101, 100, 100) and (74, 100, 100), the default engine's shapes
    (1, 100, 100) (one variable's product in a Gauss-Seidel pass or the loop
    engine), (22, 100, 100) and (14, 100, 100) (the honeycomb-21 Pose2 and
-   Point2 sweeps), and (101, 512, 512); K3 at dof 1, 2, 3 and 8 with mixed
-   circular masks and angles at and near +-pi. The logw epilogue within
+   Point2 sweeps), (10, 100, 100) and (6, 100, 100) (the Jacobi sweeps of
+   phase 15's DynPoint2 and mixture chains), and (101, 512, 512); K3 at dof
+   1, 2, 3, 4 and 8 with mixed circular masks and angles at and near +-pi,
+   and at dof 4 with DynPoint2's all-linear mask. The logw epilogue within
    rtol = atol = 2e-5 (tests/test_ops_pairwise.py:43); the draw epilogue,
    fed the same uniforms as the plain draw, gives equal labels on >= 99.9 %
    of each kernel's rows, and every row that differs is a near-tie (the
@@ -123,7 +125,44 @@
    and of a Polar chain, its products on K3's draw, mean range and angle
    errors < 0.5. The K3 phase also checks the Polar masks [0, 1] and
    [1, 0] at dof 2.
-14. Every Gibbs label update of every nonparametric path goes through the
+14. imu_euroc_mh01 (``imu_path``): an inertial keyframe graph at EuRoC MAV
+   MH_01_easy's length and rates (182 s, 200 Hz ADIS16448 noise densities,
+   synthesized from seed 0 by ``inertial_sim``: body rate (0, 0, 0.1) rad/s,
+   zero world acceleration, accelerometer bias (0.02, -0.01, 0.03), v0 =
+   0.45 m/s): 1,821 RotVelPos keyframes at 10 Hz, 1,820 RotVelPosBias
+   IMUDeltaFactors of 20 samples, 19 IMUBias windows of 10 s (PriorIMUBias),
+   a tight PriorRotVelPos on x0 and 182 position fixes at 1 Hz (0.05 m,
+   seed 1), 16,503 dof, dead-reckoned by graphinit. Solved through
+   ``solve_graph_parametric(..., device="cuda")``: the dense LM in float64
+   once (the reference optimum, position RMSE to the truth <= 0.1 m), then
+   ndchol with the ``big`` options less the dtol stop (IMU_BIG) once cold
+   and twice warm, each converged, cost <= 1.002 * the optimum + 1e-3 and
+   position RMSE to the optimum <= 0.01 m. Prints per solve the LM
+   iterations, seconds, keyframes/s, peak device memory, the accelerometer
+   bias estimates and the linearize's seconds per LM iteration (CUDA
+   events), and the graph-build (preintegration) seconds; no K1/K2/K3
+   launch.
+15. factor_library_rest (``factor_library_rest_path``), each sub-path
+   counting the kernels from 0: the first 30 s of the same stream without
+   bias variables (the accelerometer bias taken as calibrated), solved by
+   the dense LM in float64 through IMUDeltaFactor (RotVelPos), through
+   InertialDynamic (RK4, weighted by the same preintegrated covariance)
+   and through IMUDeltaFactor on Pose3 + VelPos3, each converged with a
+   position RMSE to the truth <= 0.1 m, the ODE within 0.02 m per second
+   of the preintegrated solution and the Pose3VelPos3 split within 0.01 m
+   of it; InertialPose3 free fall chained to 100 states (within 1e-2 of
+   the closed form); a DynPose2 chain of 200 (VelPose2VelPose2,
+   within 0.75 of x_k = (10 k, 0, 0, 10, 0)); a DIDSON sonar graph (one
+   Pose3, 50 Point3 through LinearRangeBearingElevation, within 1e-2 m);
+   MultipleFeatures2D (tests/test_sensors.py's fixture, within 0.05); a
+   500-pose MixtureFluxPose2Pose2 chain by ndchol with the ``big`` options
+   (within 1e-3 of x_k = (k, 0, 0); K1's normal epilogue launched
+   iterations + 1 times, lin never); then nonparametric (N = 100,
+   ``init=True``) a DynPoint2 chain of 10 (products on K3's draw, mean
+   position error against the parametric optimum < 0.5 m) and a 6-pose
+   mixture chain (K2's draw; its mixture messages take the per-factor
+   fallback; < 1.0 m).
+16. Every Gibbs label update of every nonparametric path goes through the
    draw epilogues where a kernel covers the manifold: each 2-D path
    launches both draws and no logw, and every path's draw counts equal the
    label updates its graphs' structure makes (PATH_DRAWS).
@@ -166,7 +205,8 @@ BIG = dict(
     chol_jitter=1e-7, dtol=0.0025, dtol_auto=True, ftol=1e-9,
     gtol=1e-8, fused_chordal=True,
 )
-K1_SIZES = (1, 1000, 8192, 10000, 13085, 1 << 20)
+# 499: the MixtureFluxPose2Pose2 chain's factors (phase 15)
+K1_SIZES = (1, 499, 1000, 8192, 10000, 13085, 1 << 20)
 K1_TIMED = (13085, 1 << 20)
 K1_TIMED_N = K1_TIMED[0]
 # the normal epilogue's entry block: at the start of the entry vector (the
@@ -193,10 +233,12 @@ K1_VALUES, K1_FLOPS = 40, 80
 K1N_BYTES, K1N_FP64, K1N_FP32, POSE_BYTES = 356, 130, 300, 24
 # (V, N, Nj): one pair, off every tile, the beehive-100 shapes, one variable's
 # product (the Gauss-Seidel passes, the loop engine), the honeycomb-21 Pose2
-# and Point2 sweeps, a large batch
+# and Point2 sweeps, the Jacobi sweeps of phase 15's DynPoint2 chain (10) and
+# mixture chain (6), a large batch
 PAIRWISE_SHAPES = ((1, 1, 1), (1, 37, 101), (101, 100, 100), (74, 100, 100), (1, 100, 100),
-                   (22, 100, 100), (14, 100, 100), (101, 512, 512))
-K3_DOFS = (1, 2, 3, 8)
+                   (22, 100, 100), (14, 100, 100), (10, 100, 100), (6, 100, 100),
+                   (101, 512, 512))
+K3_DOFS = (1, 2, 3, 4, 8)  # 4: DynPoint2 (phase 15)
 BEEHIVE_POSES, BEEHIVE_N, BEEHIVE_SWEEPS = 100, 100, 3
 BEEHIVE_GATE_M = 0.5
 GIBBS_SWEEPS = 3
@@ -216,7 +258,15 @@ PATH_DRAWS = {"beehive_points": (81, 81), "honeycomb_grow_default": (1269, 279),
               # Polar chain's take K3: three Gauss-Seidel passes of 3 x 3
               # Gibbs label updates on each of p0..p2 (K = 2; p3 has one
               # message) and three Jacobi sweeps of 3 x K_max = 6
-              "se3_hexagon": (0, 0), "polar_chain": (0, 3 * 3 * 2 * 3 + 3 * 6)}
+              "se3_hexagon": (0, 0), "polar_chain": (0, 3 * 3 * 2 * 3 + 3 * 6),
+              # phase 15: the DynPoint2 chain (T(4), K3): three Gauss-Seidel
+              # passes of 3 Gibbs sweeps over its ten variables' messages
+              # (K = 3 on x3 and x6, K = 2 elsewhere: 22) and three Jacobi
+              # sweeps of 3 x K_max = 9; the mixture chain (K2): its factors
+              # take the per-factor fallback, which leaves no Gauss-Seidel
+              # routing, so three Jacobi sweeps of 3 x K_max = 6
+              "dynpoint2_chain": (0, 3 * 3 * 22 + 3 * 9),
+              "fluxmix_pose2_chain": (3 * 6, 0)}
 # phase 12: the sphere graph (g2o's create_sphere layout, sphere2500's size)
 SPHERE_LAPS, SPHERE_PER_LAP, SPHERE_RADIUS_M = 50, 50, 100.0
 SPHERE_SIGMA_T, SPHERE_SIGMA_R = 0.05, 0.005
@@ -233,6 +283,49 @@ SPHERE_DENSE = dict(max_iters=60, linear="dense", lam0=1e-6, lam_down=0.1, lam_m
 NULLHYPO_N = 400
 # the Polar K3 masks checked against the plain draw (Polar, BearingRange2)
 POLAR_MASKS = ((0.0, 1.0), (1.0, 0.0))
+# DynPoint2 (T(4)): every dim linear, as phase 15's chain gives K3
+DYNPOINT2_MASK = (0.0,) * 4
+# phase 14, imu_euroc_mh01: EuRoC MAV MH_01_easy's length and rates (Burri et
+# al., IJRR 2016: 182 s, 80.6 m; ADIS16448 at 200 Hz; imu0/sensor.yaml noise
+# densities), synthesized: body rate (0, 0, 0.1) rad/s, zero world
+# acceleration (accel0 = gravity), accelerometer bias b_a, v0 = 0.45 m/s
+IMU_DT, IMU_SAMPLES = 0.005, 20            # 200 Hz; keyframes at 10 Hz
+IMU_KEYFRAMES = 1821                       # 182 s: 36,400 samples
+IMU_SIGMA_A, IMU_SIGMA_W = 2.0e-3, 1.6968e-4
+IMU_RATE, IMU_GRAVITY = (0.0, 0.0, 0.1), (0.0, 0.0, 9.81)
+IMU_BIAS_A, IMU_V0 = (0.02, -0.01, 0.03), (0.45, 0.0, 0.0)
+IMU_SEED, IMU_FIX_SEED = 0, 1
+IMU_WINDOW = 100                           # keyframe gaps per IMUBias (10 s)
+IMU_FIX_EVERY = 10                         # position fixes at 1 Hz
+IMU_X0_SIGMAS = [1e-3] * 9                 # rad, m/s, m
+IMU_FIX_SIGMAS = [1.0] * 3 + [1.0] * 3 + [0.05] * 3
+# the bias priors: the accelerometer half at 0.1 m/s^2; the gyroscope half
+# at imu0/sensor.yaml's gyroscope_random_walk over one 10 s window
+# (1.9393e-5 * sqrt(10) rad/s; the synthesized gyroscope has no bias). With
+# 0.1 rad/s there too, ndchol with IMU_BIG makes no headway from the dead
+# reckoning at this length in the JAX package or the port (a fault of the
+# reference, ROADMAP.md section 3; imu_prior_parity.py), so this path's
+# gates do not cover that prior
+IMU_BIAS_SIGMAS = [0.1] * 3 + [1.9393e-5 * 10 ** 0.5] * 3
+# ndchol with the big options, the dtol stop off: dtol_auto reads its metric
+# scale from arity-2 odometry batches, this graph has none (the IMU batch has
+# arity 3), so the scale falls to 1.0 and the stop fires while LM is still
+# lowering its damping, at 3,000 times the optimum's cost (both packages;
+# ROADMAP.md section 3)
+IMU_BIG = dict(BIG, dtol_auto=False, dtol=0.0)
+IMU_TRUTH_GATE_M = 0.1                     # twice the fix sigma
+IMU_OPT_GATE_M = 0.01
+IMU_WARM = 2
+# phase 15, factor_library_rest
+REST_SECONDS = 30                          # the first 30 s of the same stream
+ODE_ORDER = [6, 7, 8, 3, 4, 5, 0, 1, 2]    # IMU [rho, nu, theta] -> ODE [theta, v, p]
+# the small graphs solve with the dense Cholesky in float64
+REST_OPTS = dict(max_iters=100, linear="dense")
+FREEFALL_STATES, FREEFALL_TOL = 100, 1e-2
+DYNPOSE2_STATES = 200
+DYN_NP_STATES = 10
+SONAR_LANDMARKS = 50
+FLUXMIX_POSES, FLUXMIX_NP_POSES = 500, 6
 
 
 class SmokeFailure(RuntimeError):
@@ -1057,7 +1150,8 @@ def pairwise_phase(card, bytes_per_s):
         logw = se2_pairwise_logw_plain(*arrs)
         compare(f"K2 V={V} N={N} Nj={Nj}", P.se2_pairwise_logw(*arrs), logw)
         compare_draw(f"K2 V={V} N={N} Nj={Nj}", P.se2_gibbs_draw(*arrs, u), logw, u)
-        k3_cases = [(d, None) for d in K3_DOFS] + [(2, m) for m in POLAR_MASKS]
+        k3_cases = ([(d, None) for d in K3_DOFS] + [(2, m) for m in POLAR_MASKS]
+                    + [(4, DYNPOINT2_MASK)])
         for d, mask in k3_cases:
             arrs, circ = pairwise_inputs(V, N, Nj, d, "cuda", seed=V + N + d, circ=mask)
             tag = f"K3 dof={d}{'' if mask is None else f' mask={list(mask)}'} V={V} N={N} Nj={Nj}"
@@ -1765,9 +1859,545 @@ def se3_nonparametric_path(card, device="cuda", N=NP_N, nullhypo_N=NULLHYPO_N):
     return out, launches
 
 
+# --- phase 14: imu_euroc_mh01 ---------------------------------------------------
+
+def imu_stream_args(keyframes=IMU_KEYFRAMES, seed=IMU_SEED):
+    """Keyword arguments of ``generate_field_inertial_measurement`` for the
+    synthetic ADIS16448 stream of ``keyframes - 1`` keyframe gaps (20
+    samples each at 200 Hz)."""
+    return dict(dt=IMU_DT, N=(keyframes - 1) * IMU_SAMPLES, rate=IMU_RATE, accel0=IMU_GRAVITY,
+                b_a=IMU_BIAS_A, sigma_a=IMU_SIGMA_A, sigma_w=IMU_SIGMA_W, seed=seed)
+
+
+def imu_stream(keyframes=IMU_KEYFRAMES, seed=IMU_SEED):
+    """The synthetic stream from the port's ``inertial_sim``."""
+    from rome_tpu_torch.canonical import inertial_sim
+
+    return inertial_sim.generate_field_inertial_measurement(**imu_stream_args(keyframes, seed))
+
+
+def imu_truth(keyframes=IMU_KEYFRAMES):
+    """(keyframes, 10) closed-form RotVelPos truth [q, v, p] at t_k = k / 10 s:
+    R = Exp(rate t), v = v0, p = v0 t (the world acceleration is zero)."""
+    t = np.arange(keyframes) * IMU_SAMPLES * IMU_DT
+    phi = np.outer(t, IMU_RATE)
+    th = np.linalg.norm(phi, axis=1, keepdims=True)
+    axis = np.divide(phi, th, out=np.zeros_like(phi), where=th > 0)
+    q = np.concatenate([np.cos(th / 2), np.sin(th / 2) * axis], axis=1)
+    v = np.tile(IMU_V0, (keyframes, 1))
+    return np.concatenate([q, v, np.outer(t, IMU_V0)], axis=1)
+
+
+def _rvp_coords(row):
+    """RotVelPos tangent coords [theta, v, p] of a truth row."""
+    q = row[:4]
+    s = np.linalg.norm(q[1:])
+    theta = 2 * np.arctan2(s, q[0]) * (q[1:] / s if s > 0 else np.zeros(3))
+    return np.concatenate([theta, row[4:7], row[7:10]])
+
+
+def imu_graph(mod, keyframes=IMU_KEYFRAMES, window=IMU_WINDOW, fix_every=IMU_FIX_EVERY,
+              kind="bias", stream=None):
+    """The inertial keyframe graph of package ``mod`` (rome_tpu_torch, or the
+    JAX package in the parity tests, which pass its own simulator's stream)
+    over ``stream`` (default ``imu_stream``, the port's): ``keyframes``
+    RotVelPos states at 10 Hz, a tight PriorRotVelPos on x0 at the truth, a
+    PriorRotVelPos position fix on every ``fix_every``-th state (sigma 1
+    rad, 1 m/s, 0.05 m; truth position plus seeded noise), and between
+    consecutive keyframes, by ``kind``:
+
+    - "bias": IMUDeltaFactor(signature="RotVelPosBias") with one IMUBias per
+      ``window`` keyframe gaps (PriorIMUBias, zero mean, IMU_BIAS_SIGMAS);
+    - "rvp": IMUDeltaFactor(signature="RotVelPos"), no bias variable: the
+      accelerometer bias is taken as calibrated (the factor's ``a_b``);
+    - "ode": InertialDynamic over the same samples less the accelerometer
+      bias, weighted by the preintegrated covariance of those samples;
+    - "p3vp": IMUDeltaFactor(signature="Pose3VelPos3") on Pose3 + VelPos3
+      states (PriorPose3 + PriorVelPos3 in place of each PriorRotVelPos),
+      started from the "rvp" graph's dead reckoning.
+
+    Factors are added in time order, so graphinit dead-reckons every state
+    from x0 (the "bias" and "rvp" initializer; the ODE's forward flow).
+    Returns (graph, seconds spent building it)."""
+    t0 = time.time()
+    if stream is None:
+        stream = imu_stream(keyframes)
+    truth = imu_truth(keyframes)
+    rng = np.random.default_rng(IMU_FIX_SEED)
+    fixes = list(range(fix_every, keyframes, fix_every))
+    fix_noise = rng.normal(0, IMU_FIX_SIGMAS[-1], (len(fixes), 3))
+    fg = mod.FactorGraph()
+    p3vp = kind == "p3vp"
+    for k in range(keyframes):
+        ts = k * IMU_SAMPLES * int(IMU_DT * 1e9)
+        if p3vp:
+            fg.add_variable(f"p{k}", mod.Pose3, timestamp_ns=ts)
+            fg.add_variable(f"u{k}", mod.VelPos3, timestamp_ns=ts)
+        else:
+            fg.add_variable(f"x{k}", mod.RotVelPos, timestamp_ns=ts)
+
+    def prior(k, z, sigmas):
+        if not p3vp:
+            fg.add_factor([f"x{k}"], mod.PriorRotVelPos(mod.MvNormal(z, sigmas)))
+            return
+        fg.add_factor([f"p{k}"], mod.PriorPose3(mod.MvNormal(
+            np.concatenate([z[6:9], z[0:3]]), list(sigmas[6:9]) + list(sigmas[0:3]))))
+        fg.add_factor([f"u{k}"], mod.PriorVelPos3(mod.MvNormal(z[3:9], sigmas[3:9])))
+
+    prior(0, _rvp_coords(truth[0]), IMU_X0_SIGMAS)
+    n_bias = -(-(keyframes - 1) // window)
+    if kind == "bias":
+        for w in range(n_bias):
+            fg.add_variable(f"b{w}", mod.IMUBias)
+            fg.add_factor([f"b{w}"], mod.PriorIMUBias(mod.MvNormal(np.zeros(6), IMU_BIAS_SIGMAS)))
+    dts = np.full(IMU_SAMPLES, IMU_DT)
+    for k in range(keyframes - 1):
+        s = slice(k * IMU_SAMPLES, (k + 1) * IMU_SAMPLES)
+        acc, gyr = stream.accels[s], stream.gyros[s]
+        # without a bias variable the accelerometer bias is taken as
+        # calibrated: the preintegration's bias point, the ODE's samples
+        a_b = (0.0, 0.0, 0.0) if kind == "bias" else IMU_BIAS_A
+        if kind == "ode":
+            # weighted as the preintegrated factor over the same samples
+            # (its [rho, nu, theta] covariance in the ODE residual's
+            # [theta, v, p] order)
+            S = mod.IMUDeltaFactor(acc, gyr, dts, stream.Sigma_y, a_b=a_b).dists[0].cov()
+            S = S[np.ix_(ODE_ORDER, ODE_ORDER)]
+            t_k = k * IMU_SAMPLES * IMU_DT
+            fac = mod.InertialDynamic((t_k, t_k + IMU_SAMPLES * IMU_DT), IMU_DT, gyr,
+                                      acc - np.asarray(a_b), mod.MvNormal(np.zeros(9), S))
+            fg.add_factor([f"x{k}", f"x{k + 1}"], fac)
+            continue
+        sig = {"bias": "RotVelPosBias", "rvp": "RotVelPos", "p3vp": "Pose3VelPos3"}[kind]
+        fac = mod.IMUDeltaFactor(acc, gyr, dts, stream.Sigma_y, a_b=a_b, signature=sig)
+        if kind == "bias":
+            fg.add_factor([f"x{k}", f"x{k + 1}", f"b{k // window}"], fac)
+        elif kind == "rvp":
+            fg.add_factor([f"x{k}", f"x{k + 1}"], fac)
+        else:
+            fg.add_factor([f"p{k}", f"u{k}", f"p{k + 1}", f"u{k + 1}"], fac)
+    for k, noise in zip(fixes, fix_noise):
+        z = _rvp_coords(truth[k])
+        z[6:9] += noise
+        prior(k, z, IMU_FIX_SIGMAS)
+    if p3vp:
+        dr, _ = imu_graph(mod, keyframes, window, fix_every, "rvp", stream)
+        for k in range(keyframes):
+            x = dr.get_point(f"x{k}")
+            fg.set_point(f"p{k}", np.concatenate([x[7:10], x[:4]]))
+            fg.set_point(f"u{k}", x[4:10])
+    return fg, time.time() - t0
+
+
+def imu_positions(fg, keyframes):
+    """(keyframes, 3) solved positions of either variable split."""
+    if "x0" in fg.variables:
+        return np.stack([fg.get_point(f"x{k}")[7:10] for k in range(keyframes)])
+    return np.stack([fg.get_point(f"p{k}")[:3] for k in range(keyframes)])
+
+
+def _rmse(a, b):
+    return float(np.sqrt(np.mean(np.sum((np.asarray(a) - np.asarray(b)) ** 2, axis=1))))
+
+
+def _bias_estimates(fg):
+    return np.stack([fg.get_point(l) for l in fg._var_order if l.startswith("b")])
+
+
+class LinearizeTimer(PhaseTimer):
+    """CUDA-event spans of the solver's linearize passes (the generic
+    ``vmap(jacfwd)`` linearize of every batch, K1's normal epilogue where a
+    Pose2Pose2 batch is served): ``linearize_all_mixed_j`` (ndchol) and
+    ``linearize_all`` (the dense solver)."""
+
+    def __init__(self, torch, device):
+        super().__init__(torch)
+        from rome_tpu_torch.solvers import gauss_newton as GN
+
+        if device == "cuda":
+            self.wrap(GN, "linearize_all_mixed_j", "linearize")
+            self.wrap(GN, "linearize_all", "linearize")
+
+    def per_iteration(self, device, iterations):
+        if device != "cuda":
+            return None
+        _sync(device)
+        secs, calls = self.take()
+        return dict(linearize_s=secs.get("linearize", 0.0), calls=calls.get("linearize", 0),
+                    per_iteration_ms=1e3 * secs.get("linearize", 0.0) / max(iterations, 1))
+
+
+def _solve_timed(fg, opts, device, dtype=None):
+    """solve_graph_parametric on ``device``; (result, wall seconds, peak GiB)."""
+    import torch
+
+    from rome_tpu_torch import solve_graph_parametric
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(device)
+    t0 = time.time()
+    res = solve_graph_parametric(fg, init=False, options=opts, dtype=dtype, device=device)
+    _sync(device)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    return res, wall, peak
+
+
+def imu_path(card, device="cuda", keyframes=IMU_KEYFRAMES, window=IMU_WINDOW, warm=IMU_WARM):
+    """Phase 14, ``imu_euroc_mh01``: the inertial keyframe graph at EuRoC
+    MH_01_easy's length and rates through solve_graph_parametric on
+    ``device``: LM with the dense Cholesky in float64 once (the reference
+    optimum, whose position RMSE to the truth must be <= IMU_TRUTH_GATE_M),
+    then ndchol with the ``big`` options (the dtol stop off, IMU_BIG) once
+    cold and ``warm`` times warm,
+    each converged, with a cost <= 1.002 * the optimum + 1e-3 and a position
+    RMSE to the optimum <= IMU_OPT_GATE_M. K1 is not on this path (no
+    Pose2Pose2 batch). Returns (result, launches)."""
+    import torch
+
+    import rome_tpu_torch
+
+    _reset_launches()
+    fg0, build_s = imu_graph(rome_tpu_torch, keyframes, window)
+    truth = imu_truth(keyframes)
+    dof = sum(fg0.variables[l].vtype.dof for l in fg0._var_order)
+    print(f"[{card}] imu_euroc_mh01: {keyframes} keyframes, {len(fg0.factors)} factors, "
+          f"{dof} dof; graph build (preintegration, dead reckoning) {build_s:.2f} s; dead "
+          f"reckoning's position RMSE {_rmse(imu_positions(fg0, keyframes), truth[:, 7:10]):.3f} m")
+    timer = LinearizeTimer(torch, device)
+    try:
+        fg = copy.deepcopy(fg0)
+        res, wall, peak = _solve_timed(fg, rome_tpu_torch.GNOptions(**SPHERE_DENSE), device,
+                                       torch.float64)
+        st = res["stats"]
+        opt = imu_positions(fg, keyframes)
+        dense = dict(iterations=st.iterations, converged=st.converged, reason=st.reason,
+                     final_cost=st.final_cost, wall_s=wall, solve_time_s=res["solve_time_s"],
+                     truth_rmse_m=_rmse(opt, truth[:, 7:10]), peak_device_gib=peak,
+                     bias_a=_bias_estimates(fg)[:, :3].mean(0).tolist(),
+                     linearize=timer.per_iteration(device, st.iterations))
+        print(f"[{card}] imu_euroc_mh01 dense f64 reference: " + json.dumps(dense))
+        check(st.converged and np.isfinite(opt).all(), "the dense reference did not converge")
+        check(dense["truth_rmse_m"] <= IMU_TRUTH_GATE_M,
+              f"the dense optimum is {dense['truth_rmse_m']} m from the truth, "
+              f"gate {IMU_TRUTH_GATE_M} m")
+        runs = []
+        for label in ["cold"] + ["warm"] * warm:
+            fg = copy.deepcopy(fg0)
+            res, wall, peak = _solve_timed(fg, rome_tpu_torch.GNOptions(**IMU_BIG), device)
+            st = res["stats"]
+            pos = imu_positions(fg, keyframes)
+            bias = _bias_estimates(fg)
+            row = dict(run=label, iterations=st.iterations, converged=st.converged,
+                       reason=st.reason, final_cost=st.final_cost, ref_cost=dense["final_cost"],
+                       rmse_to_optimum_m=_rmse(pos, opt), truth_rmse_m=_rmse(pos, truth[:, 7:10]),
+                       solve_time_s=res["solve_time_s"], wall_s=wall,
+                       keyframes_per_s=keyframes / res["solve_time_s"], peak_device_gib=peak,
+                       bias_a_mean=bias[:, :3].mean(0).tolist(),
+                       bias_a_max_err=float(np.abs(bias[:, :3] - IMU_BIAS_A).max()),
+                       linearize=timer.per_iteration(device, st.iterations))
+            runs.append(row)
+            print(f"[{card}] imu_euroc_mh01 ndchol {label}: " + json.dumps(row))
+            check(np.isfinite(pos).all(), "positions not finite")
+            check(st.converged, f"{label} run did not converge ({st.reason})")
+            check(st.final_cost <= dense["final_cost"] * 1.002 + 1e-3,
+                  f"{label} run cost {st.final_cost} > 1.002 * {dense['final_cost']}")
+            check(row["rmse_to_optimum_m"] <= IMU_OPT_GATE_M,
+                  f"{label} run RMSE to the optimum {row['rmse_to_optimum_m']} > "
+                  f"{IMU_OPT_GATE_M} m")
+    finally:
+        timer.unwrap()
+    launches = _launches()
+    check(device != "cuda" or (launches["k1_lin"] == 0 and launches["k1_normal"] == 0),
+          f"the imu path launched K1: {launches}")
+    return dict(keyframes=keyframes, factors=len(fg0.factors), dof=dof, build_s=build_s,
+                bias_a_truth=list(IMU_BIAS_A), dense=dense, runs=runs), launches
+
+
+# --- phase 15: factor_library_rest -------------------------------------------------
+
+def dynpoint2_chain_graph(mod, n=DYN_NP_STATES, fix_every=3):
+    """A DynPoint2 chain of ``n`` states 1 s apart moving at 1 m/s along x:
+    a DynPoint2VelocityPrior at the truth on x0 and on every ``fix_every``-th
+    state (sigma 0.3) and constant-velocity DynPoint2DynPoint2 odometry
+    (sigma 0.1); ``mod`` is either package."""
+    fg = mod.FactorGraph()
+    for k in range(n):
+        fg.add_variable(f"x{k}", mod.DynPoint2, timestamp_ns=k * 1_000_000_000)
+    for k in range(0, n, fix_every):
+        fg.add_factor([f"x{k}"], mod.DynPoint2VelocityPrior(mod.MvNormal([k, 0, 1, 0], [0.3] * 4)))
+    for k in range(n - 1):
+        fg.add_factor([f"x{k}", f"x{k + 1}"],
+                      mod.DynPoint2DynPoint2(mod.MvNormal([0, 0, 0, 0], [0.1] * 4)))
+    return fg
+
+
+def dynpose2_chain_graph(mod, n=DYNPOSE2_STATES):
+    """tests/test_dyn2d.py:92-121's fixture chained to ``n`` DynPose2 states
+    1 s apart: DynPose2VelocityPrior (velocity (10, 0)) on x0 and
+    VelPose2VelPose2 odometry (10, 0, 0), so x_k = (10 k, 0, 0, 10, 0)."""
+    fg = mod.FactorGraph()
+    for k in range(n):
+        fg.add_variable(f"x{k}", mod.DynPose2, timestamp_ns=k * 1_000_000_000)
+    fg.add_factor(["x0"], mod.DynPose2VelocityPrior(
+        mod.MvNormal(np.zeros(3), np.diag([0.01, 0.01, 0.001]) ** 2),
+        mod.MvNormal([10.0, 0], np.diag([0.1, 0.1]) ** 2)))
+    for k in range(n - 1):
+        fg.add_factor([f"x{k}", f"x{k + 1}"], mod.VelPose2VelPose2(
+            mod.MvNormal([10.0, 0, 0], np.diag([0.01, 0.01, 0.001]) ** 2),
+            mod.MvNormal([0.0, 0], np.diag([0.1, 0.1]) ** 2)))
+    return fg
+
+
+def freefall_chain_graph(mod, n=FREEFALL_STATES, Dt=0.5):
+    """tests/test_ext_factors.py:143-188's InertialPose3 free-fall fixture
+    chained to ``n`` states: a PriorInertialPose3 on x0 and zero
+    preintegrals over Dt, so x_k falls freely from rest."""
+    fg = mod.FactorGraph()
+    fg.params.graphinit = False
+    for k in range(n):
+        fg.add_variable(f"x{k}", mod.InertialPose3V)
+    fg.add_factor(["x0"], mod.PriorInertialPose3(mod.MvNormal(np.zeros(15), np.eye(15) * 1e-4)))
+    for k in range(n - 1):
+        fg.add_factor([f"x{k}", f"x{k + 1}"], mod.InertialPose3(
+            mod.MvNormal(np.zeros(15), np.eye(15) * 0.01),
+            dict(rRp=np.eye(3), rPosp=np.zeros(3), rVelp=np.zeros(3), pBw=np.zeros(3),
+                 pBa=np.zeros(3), dt=Dt)))
+    return fg
+
+
+def sonar_graph(mod, landmarks=SONAR_LANDMARKS, seed=3):
+    """A DIDSON sonar graph: one Pose3 anchored at the origin and
+    ``landmarks`` Point3 each sighted by a LinearRangeBearingElevation
+    (range 2-10 m, sigma 0.05 m; bearing within +-0.4 rad, sigma 0.01;
+    elevation the reference's uniform prior around 0), each landmark started
+    0.5 m off. Returns (graph, the (range, bearing) truth)."""
+    rng = np.random.default_rng(seed)
+    fg = mod.FactorGraph()
+    fg.params.graphinit = False
+    fg.add_variable("x0", mod.Pose3)
+    fg.add_factor(["x0"], mod.PriorPose3(mod.MvNormal(np.zeros(6), np.eye(6) * 1e-6)))
+    rb = np.stack([rng.uniform(2, 10, landmarks), rng.uniform(-0.4, 0.4, landmarks)], axis=1)
+    for i, (r, b) in enumerate(rb):
+        fg.add_variable(f"l{i}", mod.Point3)
+        fg.add_factor(["x0", f"l{i}"], mod.LinearRangeBearingElevation((r, 0.05), (b, 0.01)))
+    fg.init_all()
+    for i, (r, b) in enumerate(rb):
+        fg.set_point(f"l{i}", [r * np.cos(b), r * np.sin(b), 0.0] + rng.normal(0, 0.5 / 3 ** 0.5, 3))
+    return fg, rb
+
+
+def multiple_features_graph(mod):
+    """tests/test_sensors.py:49-84: two poses sight three known landmarks;
+    returns (graph, the second pose's truth)."""
+    lms = {"l1": [5.0, 5.0], "l2": [10.0, 0.0], "l3": [5.0, -5.0]}
+    xj_true = np.array([2.0, 1.0, 0.3])
+
+    def ang(pose, lm):
+        d = np.asarray(lm) - pose[:2]
+        return np.arctan2(d[1], d[0]) - pose[2]
+
+    meas = [ang(np.zeros(3), lms[k]) for k in ("l1", "l2", "l3")] + [
+        ang(xj_true, lms[k]) for k in ("l1", "l2", "l3")]
+    fg = mod.FactorGraph()
+    fg.params.graphinit = False
+    fg.add_variable("xi", mod.Pose2)
+    fg.add_variable("xj", mod.Pose2)
+    for k, v in lms.items():
+        fg.add_variable(k, mod.Point2)
+        fg.add_factor([k], mod.PriorPoint2(mod.MvNormal(v, np.eye(2) * 1e-6)))
+    fg.add_factor(["xi"], mod.PriorPose2(mod.MvNormal(np.zeros(3), np.eye(3) * 1e-6)))
+    fg.add_factor(["xi", "xj", "l1", "l2", "l3"],
+                  mod.MultipleFeatures2D(*[(m, 0.01) for m in meas]))
+    fg.init_all()
+    fg.set_point("xj", [1.0, 0.0, 0.0])
+    return fg, xj_true
+
+
+def fluxmix_chain_graph(mod, n):
+    """A Pose2 chain of ``n`` poses with MixtureFluxPose2Pose2 odometry
+    (tests/test_ext_factors.py:124-140's factor: the NN predicts (1, 0, 0),
+    mixed 50/50 with MvNormal((1, 0, 0), 0.01 I)) and a PriorPose2 on x0."""
+    nn = mod.build_pose2_odo_nn_01(b3=np.array([1.0, 0.0]))
+    fg = mod.FactorGraph()
+    for k in range(n):
+        fg.add_variable(f"x{k}", mod.Pose2)
+    fg.add_factor(["x0"], mod.PriorPose2(mod.MvNormal([0, 0, 0], np.eye(3) * 1e-4)))
+    for k in range(n - 1):
+        fg.add_factor([f"x{k}", f"x{k + 1}"], mod.MixtureFluxPose2Pose2(
+            nn, np.zeros((25, 4)), [mod.MvNormal([1.0, 0, 0], np.eye(3) * 0.01)], (0.5, 0.5),
+            DT=1.0))
+    return fg
+
+
+def _np_solve(fg, N, device):
+    from rome_tpu_torch import solve_graph_nonparametric
+
+    _sync(device)
+    t0 = time.time()
+    solve_graph_nonparametric(fg, sweeps=3, N=N, engine="batched", init=True, device=device)
+    _sync(device)
+    return time.time() - t0
+
+
+def factor_library_rest_path(card, device="cuda", seconds=REST_SECONDS, N=NP_N,
+                             freefall=FREEFALL_STATES, dynpose2=DYNPOSE2_STATES,
+                             fluxmix=FLUXMIX_POSES):
+    """Phase 15: the rest of the factor library on small graphs, each
+    sub-path counting the kernels from 0 (``launches``); see the module
+    docstring for the sub-paths and their gates. Returns (result,
+    launches by sub-path)."""
+    import torch
+
+    import rome_tpu_torch as T
+    from rome_tpu_torch.solvers.multimodal import batched as B
+
+    out, launches = {}, {}
+    keyframes = int(round(seconds / (IMU_SAMPLES * IMU_DT))) + 1
+    truth = imu_truth(keyframes)[:, 7:10]
+    stream = imu_stream(keyframes)
+    timer = LinearizeTimer(torch, device)
+    try:
+        pos = {}
+        for kind in ("rvp", "ode", "p3vp"):
+            _reset_launches()
+            fg, build_s = imu_graph(T, keyframes, fix_every=IMU_FIX_EVERY, kind=kind,
+                                    stream=stream)
+            res, wall, _peak = _solve_timed(fg, T.GNOptions(**REST_OPTS), device, torch.float64)
+            st = res["stats"]
+            pos[kind] = imu_positions(fg, keyframes)
+            row = dict(keyframes=keyframes, build_s=build_s, iterations=st.iterations,
+                       converged=st.converged, solve_time_s=res["solve_time_s"], wall_s=wall,
+                       truth_rmse_m=_rmse(pos[kind], truth),
+                       linearize=timer.per_iteration(device, st.iterations))
+            if kind != "rvp":
+                row["max_diff_to_imudelta_m"] = float(np.abs(pos[kind] - pos["rvp"]).max())
+            name = {"rvp": "imudelta_30s", "ode": "inertial_dynamic_30s",
+                    "p3vp": "pose3velpos3_30s"}[kind]
+            out[name] = row
+            launches[name] = _launches()
+            print(f"[{card}] factor_library_rest {name}: " + json.dumps(row))
+            check(st.converged and np.isfinite(pos[kind]).all(), f"{name} did not converge")
+            check(row["truth_rmse_m"] <= IMU_TRUTH_GATE_M,
+                  f"{name}: position RMSE to the truth {row['truth_rmse_m']} > {IMU_TRUTH_GATE_M}")
+        # the ODE and preintegration agree (tests/test_ext_factors.py:68-73's
+        # 0.02 m over 1 s, scaled to the length); Pose3VelPos3 is the same
+        # residual on another variable split
+        check(out["inertial_dynamic_30s"]["max_diff_to_imudelta_m"] <= 0.02 * seconds,
+              f"ODE and IMUDelta positions differ by {out['inertial_dynamic_30s']}")
+        check(out["pose3velpos3_30s"]["max_diff_to_imudelta_m"] <= IMU_OPT_GATE_M,
+              f"Pose3VelPos3 and RotVelPos positions differ: {out['pose3velpos3_30s']}")
+
+        def parametric(name, fg, opts, check_fn):
+            _reset_launches()
+            res, wall, _peak = _solve_timed(fg, opts, device)
+            st = res["stats"]
+            row = dict(iterations=st.iterations, converged=st.converged,
+                       solve_time_s=res["solve_time_s"], wall_s=wall, **check_fn(fg),
+                       linearize=timer.per_iteration(device, st.iterations))
+            out[name], launches[name] = row, _launches()
+            print(f"[{card}] factor_library_rest {name}: " + json.dumps(row))
+            check(st.converged, f"{name} did not converge ({st.reason})")
+            return st
+
+        def freefall_err(fg):
+            t = 0.5 * np.arange(freefall)
+            x = np.stack([fg.get_coords(f"x{k}") for k in range(freefall)])
+            return dict(max_pos_err_m=float(np.abs(x[:, 2] + 0.5 * 9.81 * t ** 2).max()),
+                        max_vel_err_mps=float(np.abs(x[:, 8] + 9.81 * t).max()))
+
+        parametric("inertialpose3_freefall", freefall_chain_graph(T, freefall),
+                   T.GNOptions(max_iters=200),
+                   freefall_err)
+        r = out["inertialpose3_freefall"]
+        check(r["max_pos_err_m"] <= FREEFALL_TOL and r["max_vel_err_mps"] <= FREEFALL_TOL,
+              f"free fall off by {r}")
+
+        def dynpose2_err(fg):
+            x = np.stack([fg.get_coords(f"x{k}") for k in range(dynpose2)])
+            want = np.stack([[10.0 * k, 0, 0, 10, 0] for k in range(dynpose2)])
+            return dict(max_err=float(np.abs(x - want).max()))
+
+        fg = dynpose2_chain_graph(T, dynpose2)
+        fg.init_all()
+        parametric("dynpose2_chain", fg, T.GNOptions(max_iters=300), dynpose2_err)
+        check(out["dynpose2_chain"]["max_err"] <= 0.75, f"DynPose2 chain {out['dynpose2_chain']}")
+
+        fg, rb = sonar_graph(T)
+
+        def sonar_err(fg):
+            got = np.stack([fg.get_point(f"l{i}") for i in range(len(rb))])
+            want = np.stack([rb[:, 0] * np.cos(rb[:, 1]), rb[:, 0] * np.sin(rb[:, 1]),
+                             np.zeros(len(rb))], axis=1)
+            return dict(max_err_m=float(np.abs(got - want).max()))
+
+        parametric("sonar_lrbe_50", fg, T.GNOptions(max_iters=200), sonar_err)
+        check(out["sonar_lrbe_50"]["max_err_m"] <= 1e-2, f"sonar {out['sonar_lrbe_50']}")
+
+        fg, xj = multiple_features_graph(T)
+        parametric("multiple_features_2d", fg, T.GNOptions(max_iters=300),
+                   lambda fg: dict(max_err=float(np.abs(fg.get_coords("xj") - xj).max())))
+        check(out["multiple_features_2d"]["max_err"] <= 0.05,
+              f"MultipleFeatures2D {out['multiple_features_2d']}")
+
+        def chain_err(fg):
+            x = np.stack([fg.get_coords(f"x{k}") for k in range(fluxmix)])
+            return dict(max_err=float(np.abs(x - np.outer(np.arange(fluxmix), [1.0, 0, 0])).max()))
+
+        st = parametric("fluxmix_chain", fluxmix_chain_graph(T, fluxmix),
+                        T.GNOptions(**BIG), chain_err)
+        check(out["fluxmix_chain"]["max_err"] <= 1e-3, f"fluxmix chain {out['fluxmix_chain']}")
+        l = launches["fluxmix_chain"]
+        check(device != "cuda" or (l["k1_normal"] == st.iterations + 1 and l["k1_lin"] == 0),
+              f"fluxmix chain: K1 launches {l}, expected normal = {st.iterations} + 1, no lin")
+    finally:
+        timer.unwrap()
+
+    # nonparametric: the DynPoint2 chain (K3's draw at dof 4) and the
+    # mixture chain (K2's draw; its mixture messages take the per-factor
+    # fallback, counted through the batched engine's approx_conv)
+    fallback = {"calls": 0}
+    real_conv = B.approx_conv
+
+    def counted_conv(*a, **kw):
+        fallback["calls"] += 1
+        return real_conv(*a, **kw)
+
+    for name, build, pose2, cols, gate in (
+            ("dynpoint2_chain", lambda: dynpoint2_chain_graph(T), False, slice(0, 2), 0.5),
+            ("fluxmix_pose2_chain", lambda: fluxmix_chain_graph(T, FLUXMIX_NP_POSES), True,
+             slice(0, 2), 1.0)):
+        fg = build()
+        truth_np = _parametric_truth(fg, device, pose2=pose2)
+        _reset_launches()
+        fallback["calls"] = 0
+        B.approx_conv = counted_conv
+        try:
+            wall = _np_solve(fg, N, device)
+        finally:
+            B.approx_conv = real_conv
+        launches[name] = _launches()
+        _check_beliefs(fg, N)
+        err = float(np.mean([np.linalg.norm(np.asarray(fg.variables[l].points["default"])[cols]
+                                            - truth_np[l][cols]) for l in fg._var_order]))
+        out[name] = dict(solve_time_s=wall, mean_err=err, fallback_convolutions=fallback["calls"],
+                         launches=launches[name])
+        print(f"[{card}] factor_library_rest {name}: " + json.dumps(out[name]))
+        check(err < gate, f"{name}: mean error {err} not below {gate}")
+        check(device != "cuda" or (launches[name]["se2_pairwise_logw"] == 0
+                                   and launches[name]["euclid_pairwise_logw"] == 0),
+              f"{name}: a logw epilogue launched: {launches[name]}")
+    check(out["fluxmix_pose2_chain"]["fallback_convolutions"] > 0
+          and out["dynpoint2_chain"]["fallback_convolutions"] == 0,
+          "the mixture messages must take the per-factor fallback, the Gaussian ones not")
+    return out, launches
+
+
 def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path):
     """The kernels JSON line: K1 by its two epilogues (normal launched by the
-    speculative citygrid path and the host-scheduled solve, lin by the
+    speculative citygrid path, the host-scheduled solve and the NN-mixture
+    chain of phase 15, lin by the
     dense32, mixed, pcg and covariance paths and the parametric optima of the
     nonparametric paths; each path counted from 0, ``launches_by_path``),
     and K2/K3 by their draw epilogues (what the paths launch, per path in
@@ -1879,6 +2509,21 @@ def main():
     print(f"[{card}] se3_nonparametric: {time.time() - t0:.1f} s, launches {se3_np_launches}")
     for name, l in se3_np_launches.items():
         np_paths[name] = (se3_np[name], l)
+    t0 = time.time()
+    imu, imu_launches = imu_path(card)
+    warm = [r["solve_time_s"] for r in imu["runs"][1:]]
+    print(f"[{card}] imu_euroc_mh01: {time.time() - t0:.1f} s; graph build {imu['build_s']:.2f} s; "
+          f"ndchol cold {imu['runs'][0]['solve_time_s']:.3f} s, warm "
+          f"{', '.join(f'{w:.3f}' for w in warm)} s, best {imu['keyframes'] / min(warm):.1f} "
+          f"keyframes/s, {[r['iterations'] for r in imu['runs']]} LM iterations (dense f64 "
+          f"reference {imu['dense']['iterations']}); K1 launches {imu_launches}")
+    t0 = time.time()
+    rest, rest_launches = factor_library_rest_path(card)
+    print(f"[{card}] factor_library_rest: {time.time() - t0:.1f} s, launches {rest_launches}")
+    for name in ("dynpoint2_chain", "fluxmix_pose2_chain"):
+        np_paths[name] = (rest[name], rest_launches[name])
+    param_launches["fluxmix_chain_500"] = {
+        epi: rest_launches["fluxmix_chain"][f"k1_{epi}"] for epi in ("lin", "normal")}
     for name, (_r, l) in np_paths.items():
         draws = (l["se2_gibbs_draw"], l["euclid_gibbs_draw"])
         check(draws == PATH_DRAWS[name],
@@ -1892,6 +2537,7 @@ def main():
                    "nonparametric": {k: {"result": r, "launches": l}
                                      for k, (r, l) in np_paths.items()},
                    "sphere_se3_2500": sphere, "se3_nonparametric": se3_np,
+                   "imu_euroc_mh01": imu, "factor_library_rest": rest,
                    "seconds": time.time() - t_start}, fh, indent=1)
 
     print(json.dumps({"kernels": kernel_table(k1, k23, launches, np_launches, param_launches,

@@ -21,7 +21,12 @@ Ported so far:
   manifolds, every variable type, the 3-D and partial factor library
   (Pose3, Point3, Polar, the partial Pose2/Pose3 factors), g2o SE3 and
   LANDMARK lines and ``export_g2o``, and the generic Gibbs score for the
-  manifolds no kernel covers (SO(3), SE(3), ...).
+  manifolds no kernel covers (SO(3), SE(3), ...);
+- slice B3, the rest: SGal(3) and IMU preintegration (``IMUDeltaFactor``
+  and its support factors), the legacy InertialPose3 factor, the RK4 ODE
+  factor ``InertialDynamic``, the velocity-augmented 2D factors (DynPoint2,
+  DynPose2), the sonar and multi-feature sensor factors, and the NN mixture
+  odometry ``MixtureFluxPose2Pose2``.
 
 Every entry point runs on the card (``device="cuda"``, its default) unless
 the caller asks for the CPU with ``device="cpu"``, as the tests do; nothing

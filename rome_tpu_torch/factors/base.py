@@ -38,6 +38,9 @@ class FactorType:
     # which tangent dims of the LAST variable the factor constrains (the
     # reference's ``partial=``, 0-based); None = all dims
     partial: Optional[tuple] = None
+    # True: ``add_factor`` sets params["dt"] = (t_last - t_first) seconds
+    # from the bound variables' timestamps, unless the ctor already set it
+    needs_dt: bool = False
     doc: str = ""
 
     @property

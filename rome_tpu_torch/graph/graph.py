@@ -167,6 +167,9 @@ class FactorGraph:
                         f"{factor.ftype.name} slot expects {et.name}, variable {v} is {at.name}"
                     )
         factor.variables = var_labels
+        if factor.ftype.needs_dt and "dt" not in factor.params:
+            ts = [self.variables[v].timestamp_ns for v in var_labels]
+            factor.params["dt"] = np.float64(ts[-1] - ts[0]) * 1e-9
         factor.label = label or (factor.ftype.name.lower() + "f_" + "_".join(var_labels))
         if factor.label in self.factors:
             k = 1

@@ -47,10 +47,28 @@ def test_port_modules_mirror_the_slice():
         "solvers.multimodal.batched", "solvers.multimodal.solve",
         "solvers.multimodal.metrics", "solvers.multimodal.tree", "factors.point2",
         "manifolds.quat", "factors.point3", "factors.pose3", "factors.polar",
+        "factors.dyn2d", "factors.sensors", "manifolds.sgal3", "canonical.inertial_sim",
+        "factors.inertial", "factors.legacy_inertial", "factors.ode", "factors.fluxmix",
     ]:
         assert "rome_tpu_torch." + m in mods, m
     for src in ("pose2pose2_linearize.cu", "pairwise_logw.cu"):
         assert os.path.exists(os.path.join(PKG, "csrc", src)), src
+
+
+def test_port_exports_every_jax_factor_name():
+    """Every name the JAX package's factor library exports, the port's
+    exports too (the JAX side read from its source, not imported)."""
+    import ast
+
+    import rome_tpu_torch
+    import rome_tpu_torch.factors as TF
+
+    src = open(os.path.join(REPO, "rome_tpu", "factors", "__init__.py")).read()
+    names = next(ast.literal_eval(n.value) for n in ast.parse(src).body
+                 if isinstance(n, ast.Assign) and n.targets[0].id == "__all__")
+    assert len(names) == 63
+    missing = [n for n in names if n not in TF.__all__ or not hasattr(rome_tpu_torch, n)]
+    assert not missing, missing
 
 
 def test_every_submodule_imports_without_jax():
@@ -72,19 +90,21 @@ def test_every_submodule_imports_without_jax():
 
 
 def test_port_sources_name_no_jax_import():
-    offenders = []
+    """No import line of the package or chip_smoke.py names jax or the JAX
+    package, and none imports by a name built at run time (importlib,
+    __import__), which such a search cannot see."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PKG):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(root, f)
-            for ln in open(path):
-                s = ln.strip()
-                if s.startswith(("import jax", "from jax", "import rome_tpu.",
-                                 "from rome_tpu.", "from rome_tpu import")):
-                    offenders.append((path, s))
-                if s == "import rome_tpu":
-                    offenders.append((path, s))
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    offenders = []
+    for path in paths:
+        for ln in open(path):
+            s = ln.strip()
+            if s.startswith(("import jax", "from jax", "import rome_tpu.",
+                             "from rome_tpu.", "from rome_tpu import")):
+                offenders.append((path, s))
+            if s == "import rome_tpu" or "importlib" in s or "__import__" in s:
+                offenders.append((path, s))
     assert not offenders
 
 
