@@ -15,7 +15,9 @@
    the card, on seeded random inputs at n in {1, 499, 1000, 8192, 10000,
    13085} and 1,048,576 (499: the mixture chain of phase 15). The lin epilogue (the Pallas contract) in float32 (atol
    2e-5, the JAX package's Pallas-kernel tolerance) and float64 (atol
-   1e-10), also from inputs one element off a 16-byte boundary. The normal
+   1e-10), also from inputs one element off a 16-byte boundary, and on the
+   batch sizes of phases 16-17 (K1_PADDED) padded to their shape buckets
+   with weight-0 rows, which must come out exactly 0. The normal
    epilogue (the ndchol LM path's launch: float64 pose table of n / 2 poses,
    int64 slots, float32 z, S, w) with its entry block at offsets of 0 and 9
    floats (36 B, the grid graphs' layout) in the entry vector: the float64
@@ -32,7 +34,8 @@
    (1, 100, 100) (one variable's product in a Gauss-Seidel pass or the loop
    engine), (22, 100, 100) and (14, 100, 100) (the honeycomb-21 Pose2 and
    Point2 sweeps), (10, 100, 100) and (6, 100, 100) (the Jacobi sweeps of
-   phase 15's DynPoint2 and mixture chains), and (101, 512, 512); K3 at dof
+   phase 15's DynPoint2 and mixture chains), (1, 50, 50) (a tracker update,
+   phase 18) and (101, 512, 512); K3 at dof
    1, 2, 3, 4 and 8 with mixed circular masks and angles at and near +-pi,
    and at dof 4 with DynPoint2's all-linear mask. The logw epilogue within
    rtol = atol = 2e-5 (tests/test_ops_pairwise.py:43); the draw epilogue,
@@ -162,10 +165,49 @@
    position error against the parametric optimum < 0.5 m) and a 6-pose
    mixture chain (K2's draw; its mixture messages take the per-factor
    fallback; < 1.0 m).
-16. Every Gibbs label update of every nonparametric path goes through the
+16. fixedlag_citygrid_3500 (``fixedlag_path``): citygrid's poses 0-3,499
+   as a stream (each pose at its predecessor's estimate composed with the
+   odometry mean, then every EDGE_SE2 whose larger endpoint it is, through
+   ``parse_g2o_instruction``); every 10 poses and after the last,
+   ``fifo_freeze`` with window 25 and tools/incremental_bench.py's solve
+   (``max_iters=30``, no chordal init, ``pad=True``, default dtype, "cuda"):
+   350 solves, ``auto`` picking dense, then dense32. Gates: every frozen
+   pose keeps its float64 value bit for bit through every later solve; on
+   every 25th solve and the last, a save_dfg -> load_dfg copy solved in
+   float64 (dense, 100 iterations, ftol 1e-12) on the card: the step's cost
+   <= 1.002 x that cost + 1e-3 and every free pose within 0.1 m of it. K1
+   padded lin launched. Per step: poses, frozen, free, LM iterations and
+   reason, seconds (and lowering's), the linear solver, whether
+   ``ParametricSolver.cached`` handed back a solver it held (the cache's
+   keys before and after), K1 launches; then the steady-step median and
+   p90, the max_iters count (reported) and the end state's distance to the
+   batch optimum of the same prefix (ndchol, BIG; reported). The
+   incremental tier: the stream through x1,000, every pose free (100
+   solves), the last under citygrid's gates against the dense f64 optimum.
+17. live_slam_checkpoint (``live_slam_path``): examples/live_slam.py's loop
+   on the stream's poses 1-300: each odometry edge accumulated in ten ticks
+   on a MutablePose2Pose2Gaussian tether, duplicated into a solvable-0
+   factor, its ticks stored as a blob (FolderStore), its loop closures
+   added, the labels queued, the stride trigger (10) fired, the producer
+   blocked while the solver is behind; ``manage_solve_tree`` (disengage 25)
+   solving on "cuda" in its thread, each exception recorded. Gates: no
+   exception, one timing row per solve, frozen drift 0.0 across cycles, K1
+   launched; after the stop one synchronous solve under phase 16's window
+   gate; save_dfg to .tar.gz and load_dfg equal bit for bit (points, flags,
+   params, blob entries and bytes); one more solve of each within 1e-6 m.
+18. wheeled_tracker (``wheeled_tracker_path``): ``adv_odo_by_rules`` with
+   its trackers on "cuda" over a seeded 60 s drive of Victoria Park's ute
+   (40 Hz wheel speed and steering, 60 trees, laser at 5 Hz within 30 m
+   ahead, sigma 0.1 m / 0.01 rad). Gates: dOdo equal to the plain numpy
+   integration at 1e-12; after every scan, every tracker with >= 5 updates
+   within 1.5 m of a tree in that sample's true body frame; K3's draw
+   launched 6 times per
+   update (TRACKER_DRAWS_PER_UPDATE), K2 and every logw never.
+19. Every Gibbs label update of every nonparametric path goes through the
    draw epilogues where a kernel covers the manifold: each 2-D path
    launches both draws and no logw, and every path's draw counts equal the
-   label updates its graphs' structure makes (PATH_DRAWS).
+   label updates its graphs' structure makes (PATH_DRAWS; the tracker's,
+   which follow its data, are checked per update in phase 18).
    Prints the kernel table as one JSON line (K1 by its two epilogues with
    their launches per path, normal from the citygrid solves, lin from
    dense32, mixed, pcg, the covariances and the parametric optima, and
@@ -213,6 +255,10 @@ K1_TIMED_N = K1_TIMED[0]
 # loaded g2o graphs) and after one PriorPose2 row's 9 entries (36 B)
 K1_ENTRY_OFFSETS = (0, 9)
 K1_SENTINEL = -7.0  # the entry vector outside the block must keep it
+# the Pose2Pose2 batch sizes of phases 16-17 (the fixed-lag window's few dozen
+# active factors; the incremental tier's last batch of 1,165 edges), each padded
+# to its shape bucket with weight-0 copies of its last row, as lowering pads
+K1_PADDED = (1, 5, 25, 29, 37, 61, 113, 1165)
 PAIRWISE_TOL = dict(rtol=2e-5, atol=2e-5)
 # the draw epilogue: labels equal to the plain draw's on >= LABEL_AGREE of the
 # rows of each kernel, and every other row a near-tie within NEAR_TIE * (1 + |max|)
@@ -234,10 +280,11 @@ K1N_BYTES, K1N_FP64, K1N_FP32, POSE_BYTES = 356, 130, 300, 24
 # (V, N, Nj): one pair, off every tile, the beehive-100 shapes, one variable's
 # product (the Gauss-Seidel passes, the loop engine), the honeycomb-21 Pose2
 # and Point2 sweeps, the Jacobi sweeps of phase 15's DynPoint2 chain (10) and
-# mixture chain (6), a large batch
+# mixture chain (6), a feature tracker's update (phase 18: two 50-particle
+# T(2) beliefs), a large batch
 PAIRWISE_SHAPES = ((1, 1, 1), (1, 37, 101), (101, 100, 100), (74, 100, 100), (1, 100, 100),
                    (22, 100, 100), (14, 100, 100), (10, 100, 100), (6, 100, 100),
-                   (101, 512, 512))
+                   (1, 50, 50), (101, 512, 512))
 K3_DOFS = (1, 2, 3, 4, 8)  # 4: DynPoint2 (phase 15)
 BEEHIVE_POSES, BEEHIVE_N, BEEHIVE_SWEEPS = 100, 100, 3
 BEEHIVE_GATE_M = 0.5
@@ -326,6 +373,27 @@ DYNPOSE2_STATES = 200
 DYN_NP_STATES = 10
 SONAR_LANDMARKS = 50
 FLUXMIX_POSES, FLUXMIX_NP_POSES = 500, 6
+# phase 16, fixedlag_citygrid_3500: the reference's long-horizon fixed-lag
+# mode (tools/incremental_bench.py:66-99, INCREMENTAL_r05.json "fixedlag_full")
+# on citygrid's first 3,500 poses: solve every 10 poses, window 25
+FIXEDLAG_POSES, FIXEDLAG_STRIDE, FIXEDLAG_WINDOW = 3500, 10, 25
+FIXEDLAG_MAX_ITERS = 30
+FIXEDLAG_CHECK_EVERY = 25                  # solves between same-problem f64 checks
+FIXEDLAG_REF = dict(max_iters=100, linear="dense", ftol=1e-12)
+FIXEDLAG_WINDOW_GATE_M = 0.1               # 1 % of citygrid's 10 m edge
+INCREMENTAL_POSES = 1001                   # x0..x1000, every pose free: 100 solves
+# phase 17, live_slam_checkpoint: examples/live_slam.py's loop on the stream
+LIVE_POSES, LIVE_TICKS, LIVE_DISENGAGE = 301, 10, 25
+LIVE_RESOLVE_GATE_M = 1e-6
+# phase 18, wheeled_tracker: a seeded drive of Victoria Park's ute (the
+# defaults of rome_tpu_torch/frontend/navigation.py: L = 2.80381, H = 0.828329)
+WHEEL_SECONDS, WHEEL_HZ, LASER_EVERY = 60.0, 40, 8      # laser at 5 Hz
+WHEEL_TREES, WHEEL_RANGE_M, WHEEL_SEED = 60, 30.0, 5
+WHEEL_SIGMA_R, WHEEL_SIGMA_B = 0.1, 0.01
+TRACKER_GATE_M, TRACKER_MIN_UPDATES = 1.5, 5
+# a tracker's update is one Gibbs product of two densities: one K3 draw per
+# density per Gibbs sweep (kde.gibbs_product's default of 3 sweeps)
+TRACKER_DRAWS_PER_UPDATE = 3 * 2
 
 
 class SmokeFailure(RuntimeError):
@@ -487,6 +555,40 @@ def check_lin(card):
     return worst
 
 
+def check_lin_padded(card):
+    """K1's lin epilogue on bucket-padded batches (graph/lower.py's
+    ``pad=True``): equal to its plain version, and every padded row's
+    residual and Jacobians exactly 0. Worst error per dtype."""
+    import torch
+
+    from rome_tpu_torch.graph.lower import bucket_size
+    from rome_tpu_torch.ops import linearize_cuda as K
+    from rome_tpu_torch.ops.fused_linearize import pose2pose2_linearize_plain
+
+    atol = {torch.float32: 2e-5, torch.float64: 1e-10}
+    worst = {}
+    for dt in atol:
+        for n in K1_PADDED:
+            m = bucket_size(n)
+            args = []
+            for a in k1_inputs(n, dt, "cpu", seed=n):
+                pad = a[-1:].expand(m - n, *a.shape[1:])
+                args.append(torch.cat([a, pad]).to("cuda"))
+            args[4][n:] = 0.0
+            r, (J1, J2) = K.pose2pose2_linearize(*args)
+            torch.cuda.synchronize()
+            rp, (J1p, J2p) = pose2pose2_linearize_plain(*args)
+            err = max(float((a - b).abs().max()) for a, b in ((r, rp), (J1, J1p), (J2, J2p)))
+            zero = all(bool((t[n:] == 0).all()) for t in (r, J1, J2))
+            finite = all(bool(torch.isfinite(t).all()) for t in (r, J1, J2))
+            print(f"[{card}] K1 lin {str(dt)[6:]} n={n} padded to {m}: max_abs_err {err:.3e} "
+                  f"(atol {atol[dt]:g}), padded rows zero={zero}, finite={finite}")
+            check(finite and zero and err <= atol[dt],
+                  f"K1 lin on a padded batch disagrees at n={n} -> {m} {dt}: {err}")
+            worst[dt] = max(worst.get(dt, 0.0), err)
+    return worst
+
+
 def check_normal(card):
     """K1's normal epilogue against its plain version at every size and
     entry offset: worst errors per output."""
@@ -581,6 +683,8 @@ def time_k1(card, bytes_per_s):
 def kernel_phase(card, bytes_per_s):
     """K1: both epilogues checked against their plain versions, then timed."""
     lin_err = check_lin(card)
+    for dt, err in check_lin_padded(card).items():
+        lin_err[dt] = max(lin_err[dt], err)
     normal_err = check_normal(card)
     timed = time_k1(card, bytes_per_s)
     out = {epi: {f"n={n}": timed[(epi, n)] for n in K1_TIMED} for epi in ("lin", "normal")}
@@ -1310,6 +1414,17 @@ def _launches():
     from rome_tpu_torch.ops import pairwise_cuda as P
 
     return dict(P.LAUNCHES, **{f"k1_{k}": v for k, v in K.LAUNCHES.items()})
+
+
+def _restore_launches(saved):
+    """Set every count back to ``saved`` (what ``_launches`` returned)."""
+    from rome_tpu_torch.ops import linearize_cuda as K
+    from rome_tpu_torch.ops import pairwise_cuda as P
+
+    for k in P.LAUNCHES:
+        P.LAUNCHES[k] = saved[k]
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = saved[f"k1_{k}"]
 
 
 def _check_truth_launches(device, what):
@@ -2394,6 +2509,744 @@ def factor_library_rest_path(card, device="cuda", seconds=REST_SECONDS, N=NP_N,
     return out, launches
 
 
+# ------------------------- phases 16-18: the front end -------------------------
+
+def se2_compose(a, b):
+    """a ∘ b of two (x, y, theta) poses in float64, theta wrapped to [-pi, pi)."""
+    c, s = math.cos(a[2]), math.sin(a[2])
+    th = (a[2] + b[2] + math.pi) % (2 * math.pi) - math.pi
+    return np.array([a[0] + c * b[0] - s * b[1], a[1] + s * b[0] + c * b[1], th])
+
+
+def se2_root(z, n):
+    """The pose whose n-fold composition is z (the group exponential of
+    log(z) / n)."""
+    th = z[2] / n
+    full = z[2]
+
+    def V(t):  # SE(2)'s left Jacobian of the rotation angle t
+        if abs(t) < 1e-9:
+            return np.eye(2)
+        return np.array([[math.sin(t), -(1 - math.cos(t))], [1 - math.cos(t), math.sin(t)]]) / t
+
+    rho = np.linalg.solve(V(full), np.asarray(z[:2], dtype=np.float64))
+    t = V(th) @ (rho / n)
+    return np.array([t[0], t[1], th])
+
+
+def edge_cov(tokens):
+    """The covariance of an EDGE_SE2 line's information matrix."""
+    i11, i12, i13, i22, i23, i33 = (float(v) for v in tokens[6:12])
+    info = np.array([[i11, i12, i13], [i12, i22, i23], [i13, i23, i33]])
+    return np.linalg.inv(info)
+
+
+def citygrid_stream(poses, path=CITYGRID):
+    """Citygrid's first ``poses`` poses as a stream: for k = 1 .. poses - 1,
+    (k, the EDGE_SE2 tokens of edge (k - 1, k), the EDGE_SE2 token lists whose
+    larger endpoint is k, in file order)."""
+    edges, odo = defaultdict(list), {}
+    with open(path) as fh:
+        for line in fh:
+            t = line.split()
+            if not t or t[0] != "EDGE_SE2":
+                continue
+            a, b = int(t[1]), int(t[2])
+            k = max(a, b)
+            if k >= poses:
+                continue
+            edges[k].append(t)
+            if (a, b) == (k - 1, k):
+                odo.setdefault(k, t)
+    check(all(k in odo for k in range(1, poses)), "citygrid stream: a pose without its odometry")
+    return [(k, odo[k], edges[k]) for k in range(1, poses)]
+
+
+def port_api():
+    """The names the stream functions need, from the port."""
+    from types import SimpleNamespace
+
+    import rome_tpu_torch as T
+    from rome_tpu_torch.frontend.robot_utils import fifo_freeze
+    from rome_tpu_torch.io import parse_g2o_instruction
+
+    return SimpleNamespace(FactorGraph=T.FactorGraph, Pose2=T.Pose2, PriorPose2=T.PriorPose2,
+                           MvNormal=T.MvNormal, parse_g2o_instruction=parse_g2o_instruction,
+                           fifo_freeze=fifo_freeze)
+
+
+def stream_graph(api):
+    """x0 with tools/incremental_bench.py:55-62's PriorPose2, graphinit off."""
+    fg = api.FactorGraph()
+    fg.params.graphinit = False
+    fg.add_variable("x0", api.Pose2)
+    fg.add_factor(["x0"], api.PriorPose2(api.MvNormal([0, 0, 0], [0.1, 0.1, 0.05])))
+    fg.init_variable("x0", [0.0, 0.0, 0.0])
+    return fg
+
+
+def stream_add_pose(api, fg, k, odo, edges):
+    """Add x{k} at x{k-1}'s current estimate composed with the odometry mean
+    (dead reckoning from the filtered estimate), then its edges."""
+    fg.add_variable(f"x{k}", api.Pose2)
+    mean = np.array([float(v) for v in odo[3:6]])
+    fg.init_variable(f"x{k}", se2_compose(fg.get_coords(f"x{k - 1}"), mean))
+    for toks in edges:
+        api.parse_g2o_instruction(fg, toks)
+
+
+def run_stream(api, stream, solve, stride=FIXEDLAG_STRIDE, window=None, on_step=None):
+    """The stream through a graph: a solve every ``stride`` poses and after
+    the last; with ``window``, ``fifo_freeze`` with qfl = window before each
+    solve. ``solve(fg)`` returns the solve's result, ``on_step(k, fg, res)``
+    sees it. Returns the graph."""
+    fg = stream_graph(api)
+    if window is not None:
+        fg.params.qfl = window
+    last = stream[-1][0]
+    for k, odo, edges in stream:
+        stream_add_pose(api, fg, k, odo, edges)
+        if k % stride == 0 or k == last:
+            if window is not None:
+                api.fifo_freeze(fg)
+            res = solve(fg)
+            if on_step is not None:
+                on_step(k, fg, res)
+    return fg
+
+
+def fixedlag_solve(fg, device, dtype=None):
+    """The fixed-lag step's solve (tools/incremental_bench.py:75-86)."""
+    from rome_tpu_torch import GNOptions, solve_graph_parametric
+
+    return solve_graph_parametric(
+        fg, init=False, options=GNOptions(max_iters=FIXEDLAG_MAX_ITERS), chordal_init=False,
+        pad=True, dtype=dtype, device=device)
+
+
+class HostTimer:
+    """Host seconds of wrapped functions (perf_counter), summed per name."""
+
+    def __init__(self, owner, names):
+        self.owner, self.secs, self._orig = owner, defaultdict(float), {}
+        for name in names:
+            fn = self._orig[name] = getattr(owner, name)
+            setattr(owner, name, self._timed(name, fn))
+
+    def _timed(self, name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.secs[name] += time.perf_counter() - t0
+        return timed
+
+    def take(self):
+        out = dict(self.secs)
+        self.secs.clear()
+        return out
+
+    def unwrap(self):
+        for name, fn in self._orig.items():
+            setattr(self.owner, name, fn)
+
+
+class StepSolver:
+    """The fixed-lag step's solve with what the smoke run reads around it:
+    wall seconds (host clock, ending in a sync), the host seconds of lowering
+    and write-back, whether ``ParametricSolver.cached`` handed back a solver
+    it held (the cache's keys before and after), K1's launches, and the
+    frozen poses' points, bit for bit, before and after."""
+
+    def __init__(self, device, window=None, dtype=None):
+        from rome_tpu_torch.solvers import parametric as SP
+
+        self.device, self.window, self.dtype = device, window, dtype
+        self.host = HostTimer(SP, ("lower", "write_back"))
+        self.rows = []
+        self.frozen_labels, self.frozen_pts, self._known = [], [], set()
+        self.drift = 0.0
+
+    def frozen_drift(self, fg):
+        """Largest |change| of a frozen pose's point since it froze; 0.0
+        exactly when every one kept its float64 value bit for bit."""
+        if not self.frozen_labels:
+            return 0.0
+        cur = np.stack([fg.variables[l].points["parametric"] for l in self.frozen_labels])
+        ref = np.stack(self.frozen_pts)
+        if np.array_equal(cur.view(np.uint64), ref.view(np.uint64)):
+            return 0.0
+        return max(float(np.abs(cur - ref).max()), np.finfo(float).tiny)
+
+    def __call__(self, fg):
+        from rome_tpu_torch.ops import linearize_cuda as K
+        from rome_tpu_torch.solvers import gauss_newton as GN
+
+        if self.window:  # the poses the freeze has taken: all but the newest `window`
+            xs = sorted(fg.ls(r"^x\d+$"), key=lambda l: int(l[1:]))
+            for l in xs[:-self.window]:
+                if l not in self._known:
+                    rec = fg.variables[l]
+                    check(rec.solvable == 0, f"{l} is outside the window but not frozen")
+                    self._known.add(l)
+                    self.frozen_labels.append(l)
+                    self.frozen_pts.append(rec.points["parametric"].copy())
+        before_keys, k1 = set(GN._SOLVER_CACHE), dict(K.LAUNCHES)
+        self.host.take()
+        _sync(self.device)
+        t0 = time.time()
+        res = fixedlag_solve(fg, self.device, self.dtype)
+        _sync(self.device)
+        wall = time.time() - t0
+        host = self.host.take()
+        drift = self.frozen_drift(fg)
+        self.drift = max(self.drift, drift)
+        st = res["stats"]
+        frozen = len(self.frozen_labels)
+        row = dict(poses=fg.num_variables, frozen=frozen, free=fg.num_variables - frozen,
+                   iterations=int(st.iterations), reason=st.reason, converged=bool(st.converged),
+                   final_cost=float(st.final_cost), wall_s=wall,
+                   solve_time_s=float(res["solve_time_s"]), lower_s=host.get("lower", 0.0),
+                   write_back_s=host.get("write_back", 0.0), linear=res["linear_solver"],
+                   cached=bool(before_keys) and set(GN._SOLVER_CACHE) <= before_keys,
+                   k1_lin=K.LAUNCHES["lin"] - k1["lin"],
+                   k1_normal=K.LAUNCHES["normal"] - k1["normal"], frozen_drift=drift)
+        self.rows.append(row)
+        return res
+
+    def close(self):
+        self.host.unwrap()
+
+
+def step_line(card, tag, row):
+    return (f"[{card}] {tag}: poses {row['poses']} frozen {row['frozen']} free "
+            f"{row['free']}; LM {row['iterations']} {row['reason']} {row['wall_s']:.4f} s "
+            f"(lower {row['lower_s']:.4f}); {row['linear']}"
+            f"{' cached' if row['cached'] else ' built'}; K1 lin {row['k1_lin']}"
+            f"{'' if row['frozen_drift'] == 0.0 else ' DRIFT ' + repr(row['frozen_drift'])}")
+
+
+def window_check(fg, res, device, workdir, name):
+    """The active-window gate: a copy of ``fg`` through save_dfg -> load_dfg
+    (the same frozen set), solved in float64 with the dense solver
+    (FIXEDLAG_REF) on ``device``. The step's cost must be <= 1.002 x that
+    cost + 1e-3 and every free pose within FIXEDLAG_WINDOW_GATE_M of it.
+    The reference solve's launches are set apart: the path's counts are the
+    same after the check as before it, and the check's own are returned
+    under ``launches``."""
+    import torch
+
+    from rome_tpu_torch import GNOptions, load_dfg, save_dfg, solve_graph_parametric
+
+    path = save_dfg(fg, os.path.join(workdir, f"{name}.json"))
+    ref_fg = load_dfg(path)
+    saved = _launches()
+    _reset_launches()
+    try:
+        ref = solve_graph_parametric(ref_fg, init=False, options=GNOptions(**FIXEDLAG_REF),
+                                     chordal_init=False, dtype=torch.float64, device=device)
+    finally:
+        own = _launches()
+        _restore_launches(saved)
+    cost, ref_cost = float(res["stats"].final_cost), float(ref["stats"].final_cost)
+    free = [l for l in fg.ls(r"^x\d+$") if fg.variables[l].solvable != 0]
+    err = max(float(np.linalg.norm(fg.get_coords(l)[:2] - ref_fg.get_coords(l)[:2]))
+              for l in free)
+    out = dict(cost=cost, ref_cost=ref_cost, ref_iterations=int(ref["stats"].iterations),
+               ref_reason=ref["stats"].reason, free=len(free), window_err_m=err,
+               launches=own)
+    check(cost <= 1.002 * ref_cost + 1e-3 and err <= FIXEDLAG_WINDOW_GATE_M,
+          f"{name}: cost {cost} against the f64 {ref_cost}, free poses {err} m off")
+    return out
+
+
+def _coords(fg, n):
+    return np.stack([fg.get_coords(f"x{i}") for i in range(n)])
+
+
+def _summary(rows, seconds):
+    steady = [r["wall_s"] for r in rows if r["cached"]]
+    return dict(solves=len(rows),
+                steady_median_s=float(np.median(steady)) if steady else None,
+                steady_p90_s=float(np.percentile(steady, 90)) if steady else None,
+                cached=len(steady), max_iters_steps=sum(r["reason"] == "max_iters" for r in rows),
+                linear={k: sum(r["linear"] == k for r in rows) for k in ("dense", "dense32")},
+                lower_s=sum(r["lower_s"] for r in rows), wall_s=sum(r["wall_s"] for r in rows),
+                k1_lin=sum(r["k1_lin"] for r in rows), seconds=seconds)
+
+
+def fixedlag_path(card, device="cuda", poses=FIXEDLAG_POSES, incremental=INCREMENTAL_POSES,
+                  workdir=None):
+    """Phase 16, ``fixedlag_citygrid_3500``: citygrid's first ``poses`` poses
+    as a stream (``citygrid_stream``), a fixed-lag solve every 10 poses and
+    after the last (``fifo_freeze``, window 25, then tools/incremental_bench.py's
+    solve on ``device`` in the default dtype), with the frozen-drift gate on
+    every step and the active-window gate (``window_check``) on every 25th
+    solve and the last; then the end state against the batch optimum of the
+    same prefix (ndchol, BIG), reported; then the incremental tier: the
+    stream through x{incremental - 1}, every pose free, under citygrid's
+    gates against the dense float64 optimum. K1 counted from 0 per tier."""
+    import torch
+
+    from rome_tpu_torch import GNOptions, solve_graph_parametric
+
+    workdir = workdir or os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    incremental = min(incremental, poses)
+    api = port_api()
+    out, launches = {}, {}
+    t_phase = time.time()
+
+    _reset_launches()
+    stream = citygrid_stream(poses)
+    step = StepSolver(device, window=FIXEDLAG_WINDOW)
+    checks = []
+
+    def on_step(k, fg, res):
+        row = step.rows[-1]
+        row["k"] = k
+        print(step_line(card, f"fixedlag x{k}", row))
+        check(row["frozen_drift"] == 0.0, f"fixedlag x{k}: a frozen pose moved ({row['frozen_drift']})")
+        if len(step.rows) % FIXEDLAG_CHECK_EVERY == 0 or k == stream[-1][0]:
+            c = window_check(fg, res, device, workdir, f"fixedlag_{k}")
+            c["k"] = k
+            checks.append(c)
+            print(f"[{card}] fixedlag x{k} window check: cost {c['cost']:.6f}, f64 "
+                  f"{c['ref_cost']:.6f} ({c['ref_iterations']} it), {c['free']} free poses "
+                  f"within {c['window_err_m']:.3e} m")
+
+    t0 = time.time()
+    try:
+        fg = run_stream(api, stream, step, window=FIXEDLAG_WINDOW, on_step=on_step)
+    finally:
+        step.close()
+    seconds = time.time() - t0
+    launches["fixedlag"] = _launches()
+    launches["fixedlag_checks"] = {k: sum(c["launches"][k] for c in checks)
+                                   for k in launches["fixedlag"]}
+    check(device != "cuda" or launches["fixedlag"]["k1_lin"] > 0,
+          f"fixedlag: K1 launches {launches['fixedlag']}, expected lin > 0")
+    check(launches["fixedlag"]["k1_lin"] == sum(r["k1_lin"] for r in step.rows),
+          f"fixedlag: K1 lin {launches['fixedlag']['k1_lin']} launches, the steps' "
+          f"{sum(r['k1_lin'] for r in step.rows)}")
+
+    # the end state against the batch optimum of the same prefix
+    _reset_launches()
+    batch = stream_graph(api)
+    for k, odo, edges in stream:
+        stream_add_pose(api, batch, k, odo, edges)
+    t0 = time.time()
+    bres = solve_graph_parametric(batch, init=False, options=GNOptions(**BIG), chordal_init=True,
+                                  device=device)
+    _sync(device)
+    batch_s = time.time() - t0
+    launches["fixedlag_batch"] = _launches()
+    check(device != "cuda" or launches["fixedlag_batch"]["k1_normal"] > 0,
+          f"fixedlag batch optimum: K1 launches {launches['fixedlag_batch']}, expected normal")
+    ref = _coords(batch, poses)
+    end_ate, end_raw = ate_rmse(fg, ref)
+    out["fixedlag"] = dict(rows=step.rows, checks=checks, summary=_summary(step.rows, seconds),
+                           end_state_ate_vs_batch_m=end_ate, end_state_rmse_vs_batch_m=end_raw,
+                           batch=dict(iterations=int(bres["stats"].iterations),
+                                      reason=bres["stats"].reason, seconds=batch_s,
+                                      final_cost=float(bres["stats"].final_cost)))
+    s = out["fixedlag"]["summary"]
+    print(f"[{card}] fixedlag_citygrid_{poses}: {s['solves']} solves in {seconds:.1f} s "
+          f"(solve calls {s['wall_s']:.1f} s, lowering {s['lower_s']:.1f} s); steady step "
+          f"median {s['steady_median_s']} s, p90 {s['steady_p90_s']} s over {s['cached']} "
+          f"cached solvers; {s['max_iters_steps']} steps at max_iters; linear {s['linear']}; "
+          f"{len(checks)} window checks, worst {max(c['window_err_m'] for c in checks):.3e} m; "
+          f"end state {end_ate:.4f} m aligned / {end_raw:.4f} m raw from the batch optimum "
+          f"(ndchol {bres['stats'].iterations} it, {batch_s:.2f} s); K1 {launches['fixedlag']}")
+
+    # the incremental tier: every pose free
+    _reset_launches()
+    inc = StepSolver(device)
+
+    def on_inc(k, fg, res):
+        row = inc.rows[-1]
+        row["k"] = k
+        print(step_line(card, f"incremental x{k}", row))
+
+    t0 = time.time()
+    try:
+        fg_inc = run_stream(api, stream[: incremental - 1], inc, on_step=on_inc)
+    finally:
+        inc.close()
+    seconds = time.time() - t0
+    launches["incremental"] = _launches()
+    opt_fg = copy.deepcopy(fg_inc)
+    opt = solve_graph_parametric(opt_fg, init=False, options=GNOptions(**FIXEDLAG_REF),
+                                 chordal_init=False, dtype=torch.float64, device=device)
+    cost, opt_cost = inc.rows[-1]["final_cost"], float(opt["stats"].final_cost)
+    ate, _raw = ate_rmse(fg_inc, _coords(opt_fg, incremental))
+    out["incremental"] = dict(rows=inc.rows, summary=_summary(inc.rows, seconds), cost=cost,
+                              opt_cost=opt_cost, ate_m=ate)
+    s = out["incremental"]["summary"]
+    print(f"[{card}] incremental_{incremental - 1}: {s['solves']} solves in {seconds:.1f} s; "
+          f"steady median {s['steady_median_s']} s, p90 {s['steady_p90_s']} s; "
+          f"{s['max_iters_steps']} at max_iters; last cost {cost:.6f} against the f64 optimum "
+          f"{opt_cost:.6f}, ATE {ate:.4f} m; K1 {launches['incremental']}")
+    check(cost <= 1.002 * opt_cost + 1e-3 and ate <= ATE_GATE_M,
+          f"incremental: cost {cost} against {opt_cost}, ATE {ate} m")
+    check(device != "cuda" or launches["incremental"]["k1_lin"] > 0,
+          f"incremental: K1 launches {launches['incremental']}, expected lin > 0")
+    out["seconds"] = time.time() - t_phase
+    return out, launches
+
+
+def _same_bits(a, b):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint64), b.view(np.uint64))
+
+
+def graphs_equal(a, b):
+    """Every variable's points, solvable and marginalized flags and blob
+    entries, and every factor's type, variables, solvable flag and params,
+    bit for bit; the first difference, or None."""
+    if a._var_order != b._var_order or a._fct_order != b._fct_order:
+        return "variable or factor order"
+    for l in a._var_order:
+        ra, rb = a.variables[l], b.variables[l]
+        if (ra.solvable, ra.marginalized, ra.vtype.name) != (rb.solvable, rb.marginalized,
+                                                             rb.vtype.name):
+            return f"{l}: flags"
+        if set(ra.points) != set(rb.points) or any(
+                not _same_bits(ra.points[k], rb.points[k]) for k in ra.points):
+            return f"{l}: points"
+        ea, eb = getattr(ra, "data_entries", {}), getattr(rb, "data_entries", {})
+        if {k: e.to_doc() for k, e in ea.items()} != {k: e.to_doc() for k, e in eb.items()}:
+            return f"{l}: blob entries"
+    for l in a._fct_order:
+        fa, fb = a.factors[l], b.factors[l]
+        if (fa.ftype.name, fa.variables, fa.solvable) != (fb.ftype.name, fb.variables,
+                                                          fb.solvable):
+            return f"{l}: type, variables or flag"
+        if set(fa.params) != set(fb.params) or any(
+                not _same_bits(fa.params[k], fb.params[k]) for k in fa.params):
+            return f"{l}: params"
+    return None
+
+
+def live_slam_path(card, device="cuda", poses=LIVE_POSES, workdir=None):
+    """Phase 17, ``live_slam_checkpoint``: examples/live_slam.py's loop on
+    the citygrid stream's poses 1 .. poses - 1 through the port. A producer
+    accumulates each odometry edge in LIVE_TICKS ticks on a
+    MutablePose2Pose2Gaussian tether, duplicates it into a standard factor
+    (solvable 0, the edge's covariance), stores the raw ticks as a blob
+    (FolderStore), adds the pose's loop closures, queues the labels, fires
+    the stride trigger (10) and blocks while the solver is behind; the
+    manager (``manage_solve_tree``, disengage 25) solves on ``device`` with
+    the fixed-lag step's solve, whose exceptions are recorded. Gates: no
+    exception, one timing row per solve, frozen drift 0.0 across cycles; after
+    the stop, one synchronous solve under ``window_check``; the graph through
+    save_dfg (.tar.gz) -> load_dfg equal bit for bit, blobs included; one
+    more solve of each within LIVE_RESOLVE_GATE_M of the other."""
+    from rome_tpu_torch import load_dfg, save_dfg
+    from rome_tpu_torch.factors.pose2 import MutablePose2Pose2Gaussian
+    from rome_tpu_torch.frontend.odometry import (
+        accumulate_discrete_local_frame,
+        duplicate_to_standard_factor_variable,
+        reset_factor,
+    )
+    from rome_tpu_torch.frontend.robot_utils import set_solvable_old_poses
+    from rome_tpu_torch.frontend.slam import (
+        SLAMWrapperLocal,
+        block_progress,
+        check_solve_stride_trigger,
+        manage_solve_tree,
+        stop_manage_solve_tree,
+    )
+    from rome_tpu_torch.io import parse_g2o_instruction
+    from rome_tpu_torch.io.blobstore import FolderStore, add_blob_store, add_data, get_data
+
+    workdir = workdir or os.path.join(HERE, "build", "chip_smoke")
+    blobs = os.path.join(workdir, "live_blobs")
+    if os.path.isdir(blobs):
+        for f in os.listdir(blobs):
+            os.remove(os.path.join(blobs, f))
+    _reset_launches()
+    t_phase = time.time()
+    api = port_api()
+    stream = citygrid_stream(poses)
+    slam = SLAMWrapperLocal()
+    slam.dfg = fg = stream_graph(api)
+    store = add_blob_store(fg, FolderStore("live_ticks", blobs))
+    step = StepSolver(device, window=LIVE_DISENGAGE)
+    errors = []
+
+    def solve_fn(g):
+        try:
+            drift = step.frozen_drift(g)
+            check(drift == 0.0, f"live: a frozen pose moved between cycles ({drift})")
+            step(g)
+            row = step.rows[-1]
+            check(row["frozen_drift"] == 0.0, f"live: a frozen pose moved ({row['frozen_drift']})")
+        except BaseException as e:
+            errors.append(e)
+            raise
+
+    th = manage_solve_tree(slam, disengage_youngest=LIVE_DISENGAGE, solve_fn=solve_fn,
+                           device=device)
+    drt = MutablePose2Pose2Gaussian()
+    reset_factor(drt)
+    try:
+        for k, odo, edges in stream:
+            mean = np.array([float(v) for v in odo[3:6]])
+            cov = edge_cov(odo)
+            tick = se2_root(mean, LIVE_TICKS)
+            for _ in range(LIVE_TICKS):
+                accumulate_discrete_local_frame(drt, tick, cov / LIVE_TICKS)
+            with slam.lock:
+                flbl = duplicate_to_standard_factor_variable(
+                    drt, fg, f"x{k - 1}", f"x{k}", solvable=0, graphinit=False, cov=cov)
+                add_data(fg, f"x{k}", "odo_ticks", np.tile(tick, (LIVE_TICKS, 1)).tobytes())
+                for toks in edges:
+                    if toks is not odo:
+                        parse_g2o_instruction(fg, toks)
+            reset_factor(drt)
+            slam.pose_count += 1
+            slam.solve_settings.solvables.put([f"x{k}", flbl])
+            check_solve_stride_trigger(slam)
+            block_progress(slam)
+            if slam.errors:
+                break
+    finally:
+        stop_manage_solve_tree(slam)
+        th.join(timeout=600)
+    check(not th.is_alive(), "live: the solve manager did not stop")
+    check(not errors and not slam.errors, f"live: the solve thread raised {errors or slam.errors}")
+    check(slam.solve_count >= 1 and len(slam.timing_log) == slam.solve_count == len(step.rows),
+          f"live: {slam.solve_count} solves, {len(slam.timing_log)} timing rows, "
+          f"{len(step.rows)} recorded")
+    loop_s = time.time() - t_phase
+    for i, row in enumerate(step.rows):
+        print(step_line(card, f"live solve {i + 1}", row))
+    launches = {"live_loop": _launches()}
+    check(device != "cuda" or launches["live_loop"]["k1_lin"] > 0,
+          f"live: K1 launches {launches['live_loop']}, expected lin > 0")
+
+    # what the manager had not engaged yet, then one synchronous solve
+    _reset_launches()
+    while not slam.solve_settings.solvables.empty():
+        item = slam.solve_settings.solvables.get_nowait()
+        for lbl in item or ():
+            fg.set_solvable(lbl, 1)
+    fg.init_all()
+    set_solvable_old_poses(fg, youngest=LIVE_DISENGAGE)
+    res = step(fg)
+    step.close()
+    sync_row = step.rows[-1]
+    check(sync_row["frozen_drift"] == 0.0, "live: the synchronous solve moved a frozen pose")
+    wc = window_check(fg, res, device, workdir, "live_window")
+    print(f"{step_line(card, 'live synchronous solve', sync_row)}; window "
+          f"cost {wc['cost']:.6f} against f64 {wc['ref_cost']:.6f}, within "
+          f"{wc['window_err_m']:.3e} m")
+
+    # checkpoint and resume
+    t0 = time.time()
+    path = save_dfg(fg, os.path.join(workdir, "live_checkpoint.tar.gz"))
+    save_s = time.time() - t0
+    t0 = time.time()
+    fg2 = load_dfg(path)
+    load_s = time.time() - t0
+    diff = graphs_equal(fg, fg2)
+    check(diff is None, f"live: the loaded checkpoint differs ({diff})")
+    add_blob_store(fg2, store)
+    for k, _odo, _e in stream:
+        _e1, a = get_data(fg, f"x{k}", "odo_ticks")
+        _e2, b = get_data(fg2, f"x{k}", "odo_ticks")
+        check(a == b, f"live: blob of x{k} differs after the reload")
+    r1 = fixedlag_solve(fg, device)
+    r2 = fixedlag_solve(fg2, device)
+    resolve = float(np.abs(_coords(fg, poses)[:, :2] - _coords(fg2, poses)[:, :2]).max())
+    launches["live_resolve"] = _launches()
+    launches["live_window_check"] = wc["launches"]
+    check(resolve <= LIVE_RESOLVE_GATE_M, f"live: the reloaded graph solves {resolve} m apart")
+    size = os.path.getsize(path)
+    print(f"[{card}] live_slam_checkpoint: {slam.solve_count} manager solves in {loop_s:.1f} s, "
+          f"checkpoint {size} B (.tar.gz) saved in {save_s:.3f} s, loaded in {load_s:.3f} s, "
+          f"bit-equal with blobs; re-solves {r1['stats'].iterations} / "
+          f"{r2['stats'].iterations} it, {resolve:.3e} m apart; K1 {launches}")
+    return dict(rows=step.rows, solves=slam.solve_count, timing_log=slam.timing_log,
+                window=wc, checkpoint_bytes=size, save_s=save_s, load_s=load_s,
+                resolve_m=resolve, seconds=time.time() - t_phase), launches
+
+
+def _body_frame(xy, pose):
+    """World points (n, 2) in the frame of ``pose`` (x, y, theta)."""
+    d = xy - pose[:2]
+    c, s = math.cos(pose[2]), math.sin(pose[2])
+    return np.stack([c * d[:, 0] + s * d[:, 1], -s * d[:, 0] + c * d[:, 1]], axis=1)
+
+
+def wheeled_drive(seconds=WHEEL_SECONDS, hz=WHEEL_HZ, trees=WHEEL_TREES, seed=WHEEL_SEED,
+                  every=LASER_EVERY):
+    """A seeded drive of the ute: (DRS (n, 3) rows [t, raw wheel speed, raw
+    steering], {scan: LaserFeatures}, true poses after each sample, tree
+    positions). The truth is the Ackermann model of the compensated stream
+    itself (navigation.ute_odom_easy); the laser sees every tree within
+    WHEEL_RANGE_M ahead (|bearing| < pi / 2) at 5 Hz with sigma 0.1 m and
+    0.01 rad."""
+    from rome_tpu_torch.frontend.navigation import LaserFeatures, compensate_raw_drs, ute_odom_easy
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * hz)
+    t = (np.arange(n) + 1.0) / hz
+    speed = np.full(n, 4.0 / 0.94)                         # 4 m/s after the wheel scale
+    steer = 0.12 * np.sin(2 * np.pi * t / 25.0) + 0.03 * np.sin(2 * np.pi * t / 7.0)
+    DRS = np.stack([t, speed, steer], axis=1)
+    poses, x, T0 = [], np.zeros(3), 0.0
+    for i in range(n):
+        v, a = compensate_raw_drs(DRS[i])
+        x = ute_odom_easy(x, v, a, DRS[i, 0] - T0)
+        T0 = DRS[i, 0]
+        poses.append(x)
+    poses = np.asarray(poses)
+    # trees beside the path, at least 6 m apart
+    tree_xy = []
+    for _ in range(1000 * trees):
+        if len(tree_xy) == trees:
+            break
+        p = poses[rng.integers(0, n)]
+        side = rng.choice([-1.0, 1.0]) * rng.uniform(5.0, 15.0)
+        c = p[:2] + side * np.array([-math.sin(p[2]), math.cos(p[2])]) + rng.normal(0, 2.0, 2)
+        if np.min(np.linalg.norm(poses[:, :2] - c, axis=1)) < 3.0:
+            continue
+        if all(np.linalg.norm(c - q) >= 6.0 for q in tree_xy):
+            tree_xy.append(c)
+    check(len(tree_xy) == trees, f"the drive has room for {len(tree_xy)} of {trees} trees")
+    tree_xy = np.asarray(tree_xy)
+    lsr = {}
+    for j, i in enumerate(range(0, n, every)):
+        body = _body_frame(tree_xy, poses[i])
+        rng_m = np.linalg.norm(body, axis=1)
+        brg = np.arctan2(body[:, 1], body[:, 0])
+        seen = (rng_m <= WHEEL_RANGE_M) & (np.abs(brg) < np.pi / 2)
+        z = np.stack([rng_m[seen] + rng.normal(0, WHEEL_SIGMA_R, seen.sum()),
+                      brg[seen] + rng.normal(0, WHEEL_SIGMA_B, seen.sum())])
+        lsr[j + 1] = LaserFeatures(float(DRS[i, 0]), z)
+    return DRS, lsr, poses, tree_xy
+
+
+def _hom(x):
+    c, s = np.cos(x[2]), np.sin(x[2])
+    return np.array([[c, -s, x[0]], [s, c, x[1]], [0, 0, 1.0]])
+
+
+def numpy_dodo(DRS, distrule=20.0, timerule=30.0, yawrule=np.pi / 3, L=2.80381, H=0.828329):
+    """The pose triggers of advOdoByRules (NavigationSystem.jl:126-166) in
+    plain numpy, written here from the reference (WheeledRobotUtils.jl:86-103:
+    the compensated stream, the Ackermann step as a homogeneous SE(2)
+    product): {pose id: [x, y, theta, T, rule]} in the frame of the previous
+    pose."""
+    dodo = {1: np.array([0.0, 0.0, 0.0, 0.0, 0.0])}
+    x, T0, Tprev, pid = np.zeros(3), 0.0, 0.0, 1
+    for row in DRS:
+        dt = row[0] - T0
+        v_raw, a_raw = 0.94 * row[1], 1.0199 * row[2] + 0.00159
+        v = v_raw / (1.0 - np.tan(a_raw) * H / L)
+        M = _hom(x) @ _hom(dt * np.array([v, 0.0, v * np.tan(a_raw) / L]))
+        x = np.array([M[0, 2], M[1, 2], np.arctan2(M[1, 0], M[0, 0])])
+        rule = 0
+        if np.linalg.norm(x[:2]) >= distrule:
+            rule = 1
+        elif abs((x[2] + np.pi) % (2 * np.pi) - np.pi) >= yawrule:
+            rule = 2
+        elif row[0] - Tprev > timerule:
+            rule = 3
+        if rule:
+            pid += 1
+            dodo[pid] = np.array([x[0], x[1], x[2], row[0], float(rule)])
+            Tprev = row[0]
+            x = np.zeros(3)
+        T0 = row[0]
+    return dodo
+
+
+def wheeled_tracker_path(card, device="cuda", seconds=WHEEL_SECONDS, trees=WHEEL_TREES):
+    """Phase 18, ``wheeled_tracker``: ``adv_odo_by_rules`` on a seeded drive
+    (``wheeled_drive``) with its trackers on ``device``. Gates: dOdo equal
+    to ``numpy_dodo`` at 1e-12; after each scan's updates, every tracker
+    updated at least TRACKER_MIN_UPDATES times has a belief mean within
+    TRACKER_GATE_M of the nearest true tree in that sample's body frame
+    (``process_tree_trackers_updates`` wrapped from here); K3's draw
+    launched TRACKER_DRAWS_PER_UPDATE times per update, K2 and every logw
+    never."""
+    from rome_tpu_torch.frontend import navigation as NAV
+    from rome_tpu_torch.frontend import tracker as TR
+
+    DRS, lsr, poses, trees = wheeled_drive(seconds=seconds, trees=trees)
+    sample_of = {float(t): i for i, t in enumerate(DRS[:, 0])}
+    systems, updates, errs = [], defaultdict(int), []
+    make, update = NAV.make_in_situ_system, TR.FeatureTracker.update_feature
+    process = NAV.process_tree_trackers_updates
+
+    def make_kept(*a, **kw):  # keep the system the drive builds
+        systems.append(make(*a, **kw))
+        return systems[-1]
+
+    def update_counted(self, feat, z, s=(0.5, 0.05)):
+        updates[feat.id] += 1
+        return update(self, feat, z, s)
+
+    def process_checked(sys_, lsr_feats, Ts, b1Dxb, *a, **kw):
+        """After each scan's updates: every tracker with enough updates
+        against the trees in the true body frame of that sample."""
+        scan = sys_.lstlaseridx
+        process(sys_, lsr_feats, Ts, b1Dxb, *a, **kw)
+        if sys_.lstlaseridx == scan:
+            return
+        body = _body_frame(trees, poses[sample_of[float(Ts)]])
+        for fid, f in sys_.trackers.trackers.items():
+            if updates[fid] >= TRACKER_MIN_UPDATES:
+                m = f.bel.points.mean(dim=0).cpu().double().numpy()
+                errs.append((sys_.lstlaseridx, fid, float(np.min(
+                    np.linalg.norm(body - m, axis=1)))))
+
+    NAV.make_in_situ_system, TR.FeatureTracker.update_feature = make_kept, update_counted
+    NAV.process_tree_trackers_updates = process_checked
+    _reset_launches()
+    t0 = time.time()
+    try:
+        dodo, assoc = NAV.adv_odo_by_rules(DRS, lsr, device=device)
+        _sync(device)
+    finally:
+        NAV.make_in_situ_system, TR.FeatureTracker.update_feature = make, update
+        NAV.process_tree_trackers_updates = process
+    secs = time.time() - t0
+    launches = _launches()
+    want = numpy_dodo(DRS)
+    check(sorted(dodo) == sorted(want), f"tracker: pose ids {sorted(dodo)} != {sorted(want)}")
+    dodo_err = max(float(np.abs(dodo[k] - want[k]).max()) for k in want)
+    check(dodo_err <= 1e-12, f"tracker: dOdo {dodo_err} from the numpy integration")
+    tr = systems[0].trackers
+    n_updates = sum(updates.values())
+    draws = (launches["se2_gibbs_draw"], launches["euclid_gibbs_draw"])
+    e = np.array([x[2] for x in errs])
+    out = dict(seconds=secs, samples=len(DRS), scans=len(lsr), poses=len(dodo),
+               trackers_alive=len(tr.trackers), trackers_created=tr.featid,
+               updates=n_updates, checks=len(errs), trackers_checked=len({x[1] for x in errs}),
+               worst_err_m=float(e.max()) if len(e) else None,
+               mean_err_m=float(e.mean()) if len(e) else None,
+               dodo_err=dodo_err, launches=launches)
+    print(f"[{card}] wheeled_tracker: {len(DRS)} samples, {len(lsr)} scans, {len(dodo)} poses, "
+          f"{tr.featid} trackers made, {len(tr.trackers)} alive at the end, {n_updates} "
+          f"updates, {secs:.1f} s; {len(errs)} checks after a scan of "
+          f"{out['trackers_checked']} trackers with >= {TRACKER_MIN_UPDATES} updates: within "
+          f"{out['worst_err_m']} m (mean {out['mean_err_m']}) of a tree; dOdo {dodo_err:.1e}; "
+          f"launches {launches}")
+    check(len(e) and e.max() <= TRACKER_GATE_M,
+          f"tracker: belief means up to {out['worst_err_m']} m from the nearest tree")
+    check(device != "cuda" or draws == (0, TRACKER_DRAWS_PER_UPDATE * n_updates),
+          f"tracker: K2/K3 draws {draws}, expected (0, {TRACKER_DRAWS_PER_UPDATE} x {n_updates})")
+    check(launches["se2_pairwise_logw"] == 0 and launches["euclid_pairwise_logw"] == 0
+          and launches["k1_lin"] == 0 and launches["k1_normal"] == 0,
+          f"tracker: unexpected launches {launches}")
+    return out, launches
+
+
 def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path):
     """The kernels JSON line: K1 by its two epilogues (normal launched by the
     speculative citygrid path, the host-scheduled solve and the NN-mixture
@@ -2524,7 +3377,31 @@ def main():
         np_paths[name] = (rest[name], rest_launches[name])
     param_launches["fluxmix_chain_500"] = {
         epi: rest_launches["fluxmix_chain"][f"k1_{epi}"] for epi in ("lin", "normal")}
+    t0 = time.time()
+    fixedlag, fixedlag_launches = fixedlag_path(card)
+    print(f"[{card}] fixedlag_citygrid_{FIXEDLAG_POSES}: {time.time() - t0:.1f} s, "
+          f"launches {fixedlag_launches}")
+    t0 = time.time()
+    live, live_launches = live_slam_path(card)
+    print(f"[{card}] live_slam_checkpoint: {time.time() - t0:.1f} s, launches {live_launches}")
+    t0 = time.time()
+    tracker, tracker_launches = wheeled_tracker_path(card)
+    print(f"[{card}] wheeled_tracker: {time.time() - t0:.1f} s, launches {tracker_launches}")
+    for name, key in (("fixedlag_citygrid_3500", "fixedlag"),
+                      ("fixedlag_batch_optimum", "fixedlag_batch"),
+                      ("incremental_1000", "incremental"),
+                      ("fixedlag_window_checks", "fixedlag_checks")):
+        param_launches[name] = {epi: fixedlag_launches[key][f"k1_{epi}"]
+                                for epi in ("lin", "normal")}
+    param_launches["live_slam_checkpoint"] = {
+        epi: live_launches["live_loop"][f"k1_{epi}"] + live_launches["live_resolve"][f"k1_{epi}"]
+        for epi in ("lin", "normal")}
+    param_launches["live_window_check"] = {
+        epi: live_launches["live_window_check"][f"k1_{epi}"] for epi in ("lin", "normal")}
+    np_paths["wheeled_tracker"] = (tracker, tracker_launches)
     for name, (_r, l) in np_paths.items():
+        if name == "wheeled_tracker":
+            continue
         draws = (l["se2_gibbs_draw"], l["euclid_gibbs_draw"])
         check(draws == PATH_DRAWS[name],
               f"{name}: K2/K3 draw launches {draws}, expected {PATH_DRAWS[name]}")
@@ -2538,6 +3415,8 @@ def main():
                                      for k, (r, l) in np_paths.items()},
                    "sphere_se3_2500": sphere, "se3_nonparametric": se3_np,
                    "imu_euroc_mh01": imu, "factor_library_rest": rest,
+                   "fixedlag_citygrid_3500": fixedlag, "live_slam_checkpoint": live,
+                   "wheeled_tracker": tracker,
                    "seconds": time.time() - t_start}, fh, indent=1)
 
     print(json.dumps({"kernels": kernel_table(k1, k23, launches, np_launches, param_launches,

@@ -26,7 +26,12 @@ Ported so far:
   and its support factors), the legacy InertialPose3 factor, the RK4 ODE
   factor ``InertialDynamic``, the velocity-augmented 2D factors (DynPoint2,
   DynPose2), the sonar and multi-feature sensor factors, and the NN mixture
-  odometry ``MixtureFluxPose2Pose2``.
+  odometry ``MixtureFluxPose2Pose2``;
+- slices B4/B5 and the front end: the fixed-lag and live-SLAM utilities
+  (``frontend``: fixed-lag freezing, odometry accumulation and the dead-reckon
+  tether, the background solve manager, the feature tracker and the wheeled
+  navigation front end), graph persistence (``save_dfg``/``load_dfg``, the
+  JAX package's document; blob stores) and the scalar-field services.
 
 Every entry point runs on the card (``device="cuda"``, its default) unless
 the caller asks for the CPU with ``device="cpu"``, as the tests do; nothing
@@ -61,7 +66,15 @@ from rome_tpu_torch.distributions import (
 )
 from rome_tpu_torch.graph.graph import FactorGraph, SolverParams
 from rome_tpu_torch.factors import *  # noqa: F401,F403 — registers + exports factor ctors
-from rome_tpu_torch.io import export_g2o, import_g2o, load_g2o
+from rome_tpu_torch.io import (
+    export_g2o,
+    import_g2o,
+    load_dfg,
+    load_g2o,
+    loadDFG,
+    save_dfg,
+    saveDFG,
+)
 from rome_tpu_torch.solvers.gauss_newton import GNOptions
 from rome_tpu_torch.solvers.parametric import solve_graph_parametric, solveGraphParametric
 from rome_tpu_torch.solvers.multimodal import (

@@ -25,8 +25,9 @@ from rome_tpu_torch.variables import VariableType, get_variable_type
 
 @dataclass
 class SolverParams:
-    """The solver settings the ported slices read (the JAX package's
-    SolverParams has more; they arrive with the paths that use them)."""
+    """The solver settings the port reads (the JAX package's SolverParams
+    has a few more that nothing reads; io.serialization writes their
+    defaults into a saved graph)."""
 
     N: int = 100                      # particles per belief
     graphinit: bool = True            # init new variables by factor propagation
@@ -38,6 +39,7 @@ class SolverParams:
     # True: the tree upsolve restricts each clique's messages to its
     # subtree-assigned factors; False: full neighborhood belief products
     useMsgLikelihoods: bool = True
+    qfl: int = 99999999               # quasi fixed-lag window length (frontend.fifo_freeze)
     inflation: float = 5.0            # nonparametric init-noise scale
     maxincidence: int = 500           # elimination-order guard against hub variables
     dbg: bool = False                 # write the tree solve's summary to logpath

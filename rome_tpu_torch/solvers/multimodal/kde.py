@@ -142,6 +142,10 @@ class ManifoldKernelDensity:
         ) * self.bandwidth
         return self.manifold.normalize(self.manifold.boxplus(self.points[idx], eps))
 
+    def max_point(self):
+        """getKDEMax analogue: the particle of highest density."""
+        return self.points[torch.argmax(self.logpdf(self.points))]
+
 
 def gibbs_product(generator, densities, n_out: int = None, sweeps: int = 3):
     """Product of kernel densities on a shared manifold — the

@@ -5,6 +5,9 @@
   prediction, the Bayes-tree solve and its batched schedule, the batched
   solver, measurement sampling and ``approx_conv``, the lowering and the two
   numpy converters.
+- The front end's too: the solve manager, the odometry chords, the feature tracker
+  and its KDE of a sighting, the wheeled navigation system and its drive,
+  and the DEM interpolator.
 - On a machine without CUDA, an entry point called without ``device=``
   raises (a RuntimeError that names ``device="cpu"``) before it does any
   work: it never returns a CPU result and leaves the graph as it was.
@@ -22,6 +25,8 @@ import rome_tpu_torch as T  # noqa: E402
 from rome_tpu_torch.graph import convert, lower  # noqa: E402
 from rome_tpu_torch.solvers import parametric  # noqa: E402
 from rome_tpu_torch.solvers.multimodal import batched, convolve, solve, tree  # noqa: E402
+from rome_tpu_torch.frontend import navigation, odometry, slam, tracker  # noqa: E402
+from rome_tpu_torch.services import scalar_fields  # noqa: E402
 
 ENTRY_POINTS = {
     "solve_graph_parametric": parametric.solve_graph_parametric,
@@ -37,6 +42,14 @@ ENTRY_POINTS = {
     "lower": lower.lower,
     "graph_arrays_from_numpy": convert.graph_arrays_from_numpy,
     "beliefs_from_numpy": convert.beliefs_from_numpy,
+    "manage_solve_tree": slam.manage_solve_tree,
+    "assemble_chords_dict": odometry.assemble_chords_dict,
+    "FeatureTracker": tracker.FeatureTracker,
+    "FeatureTracker.init_from": tracker.FeatureTracker.init_from,
+    "p2c_pts_kde": tracker.p2c_pts_kde,
+    "make_in_situ_system": navigation.make_in_situ_system,
+    "adv_odo_by_rules": navigation.adv_odo_by_rules,
+    "dem_interp": scalar_fields.dem_interp,
 }
 
 
@@ -74,6 +87,7 @@ def _calls():
     fg = _hexagonal()
     f = fg._fct_order[1]
     gen = torch.Generator().manual_seed(0)
+    sighting = np.array([[10.0], [0.0]])
     return fg, {
         "solve_graph_parametric": lambda: T.solve_graph_parametric(fg),
         "init_all_beliefs": lambda: T.init_all_beliefs(fg, N=10),
@@ -92,6 +106,15 @@ def _calls():
             ["Pose2"], {"Pose2": 1}, {"Pose2": np.zeros((1, 3))}, {"Pose2": np.ones(1)}, []),
         "beliefs_from_numpy": lambda: convert.beliefs_from_numpy(
             {"Pose2": np.zeros((1, 10, 3))}),
+        "manage_solve_tree": lambda: slam.manage_solve_tree(slam.SLAMWrapperLocal(dfg=fg)),
+        "assemble_chords_dict": lambda: odometry.assemble_chords_dict(fg),
+        "FeatureTracker": lambda: tracker.FeatureTracker(),
+        "FeatureTracker.init_from": lambda: tracker.FeatureTracker.init_from(sighting),
+        "p2c_pts_kde": lambda: tracker.p2c_pts_kde([10.0, 0.0], [0.5, 0.02]),
+        "make_in_situ_system": lambda: navigation.make_in_situ_system(np.zeros(3), sighting),
+        "adv_odo_by_rules": lambda: navigation.adv_odo_by_rules(
+            np.array([[0.1, 1.0, 0.0]]), {1: navigation.LaserFeatures(0.0, sighting)}),
+        "dem_interp": lambda: scalar_fields.dem_interp([0.0, 1.0], [0.0, 1.0], np.zeros((2, 2))),
     }
 
 

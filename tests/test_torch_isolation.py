@@ -49,6 +49,8 @@ def test_port_modules_mirror_the_slice():
         "manifolds.quat", "factors.point3", "factors.pose3", "factors.polar",
         "factors.dyn2d", "factors.sensors", "manifolds.sgal3", "canonical.inertial_sim",
         "factors.inertial", "factors.legacy_inertial", "factors.ode", "factors.fluxmix",
+        "frontend.robot_utils", "frontend.odometry", "frontend.slam", "frontend.tracker",
+        "frontend.navigation", "io.serialization", "io.blobstore", "services.scalar_fields",
     ]:
         assert "rome_tpu_torch." + m in mods, m
     for src in ("pose2pose2_linearize.cu", "pairwise_logw.cu"):
