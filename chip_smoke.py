@@ -216,7 +216,46 @@
    path counted from 0; each with its bound from the published HBM, fp32
    and fp64 peaks), the card line,
    and as the last line {"ok": true, "device": {...}}; writes
-   chiprun_out/chip_smoke.json.
+   chiprun_out/chip_smoke.json. The kernel table's K1 and K2/K3 rows also
+   carry the distributed paths' launches, summed in ``launches_by_path``
+   and per world and rank in ``launches_by_rank``.
+
+20-22. The distributed solves (slice D, ``distributed_path``), each at
+   world 1 (one rank, NCCL) and world 4 (four ranks on the one card, gloo
+   with CUDA tensors), ranks started by ``parallel.distributed.spawn_ranks``
+   (spawn, a file rendezvous); each rank sets every launch count to 0 just
+   before each path and reads it just after; any rank's exception ends the
+   script. First, once in this process (``distributed_inputs``): citygrid
+   lowered with phase 5's chordal initialisation and the single-device
+   ``linear="pcg"`` step from it, the corridor chain and its single-device
+   ndchol optimum, the beehive optimum and a single-device batched solve.
+   20. factor_sharded_citygrid_10k: ``solve_distributed`` (max_iters 40,
+   pcg_iters 100) from the chordal point; then 100 all-reduces of the
+   PCG's payload alone (30,000 float64; host clock ending in a sync) for
+   the collectives' share of the solve. Gates: the same reason at both
+   worlds, iterations at most 4 apart and final costs within 1.5x
+   (tests/test_sharding.py:85-90); each world's first step within
+   tests/test_sharding.py:62-66's bounds of the single-device pcg step
+   (cost0 1e-3, cost1 2e-2 relative, poses 5e-3); K1 ``lin`` launched (and
+   ``normal`` not) in every rank; every rank ends with the same poses.
+   Reported: iteration drift, relative cost difference, largest pose
+   difference, ATE against data/citygrid_gt.npz, all-reduces a solve.
+   21. varpart_chain_10k: ``graft_entry._build_chain_fixture(10000,
+   "local")`` in float64 through ``make_varpart_solver(max_iters=60)``.
+   Gates: converged, final cost < 1e-3 of the start (dryrun_multichip's),
+   the single-rank cost of the result <= 1.01 x the ndchol optimum + 1e-6
+   (tests/test_varpart.py:91-100); K1 ``lin`` in every rank. Printed:
+   ``comms_note()``, the iteration drift, peak device memory. Then
+   ``graft_entry.dryrun_multichip(4)`` in the world-4 group, under its own
+   assertions.
+   22. sharded_beehive_100: beehive-100 (seed 0, N = 100, 3 sweeps,
+   ``init="points"``, phase 6's seed) through ``ShardedNonparametricSolver``.
+   Gates: phase 6's 0.5 m mean pose error against the parametric optimum;
+   symmetric k-NN KL < 2.0 against the single-device batched solve on x0,
+   x50, x100 and l0 (tests/test_multimodal_sharded.py:48-70); in every
+   rank, K2 and K3 draw launches equal to what its variable rows make
+   (3 sweeps x 3 Gibbs sweeps x K = 3) and no logw launch; every rank ends
+   with the same beliefs.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
 package is missing, or when any phase fails.
@@ -714,12 +753,16 @@ def ate_rmse(fg, gt_poses):
         E.append(fg.get_coords(lbl, "parametric")[:2])
         G.append(gt_poses[int(lbl[1:])][:2])
     E, G = np.asarray(E), np.asarray(G)
-    raw = float(np.sqrt(np.mean(np.sum((E - G) ** 2, axis=1))))
+    return ate_values(E, G), float(np.sqrt(np.mean(np.sum((E - G) ** 2, axis=1))))
+
+
+def ate_values(poses, gt_poses):
+    """ATE RMSE of (n, >= 2) positions after SE(2) alignment to the truth's."""
+    E, G = np.asarray(poses)[:, :2], np.asarray(gt_poses)[:, :2]
     Ec, Gc = E - E.mean(0), G - G.mean(0)
     U, _s, Vt = np.linalg.svd(Gc.T @ Ec)
     R = U @ np.diag([1.0, np.sign(np.linalg.det(U @ Vt))]) @ Vt
-    Ea = Ec @ R.T + G.mean(0)
-    return float(np.sqrt(np.mean(np.sum((Ea - G) ** 2, axis=1)))), raw
+    return float(np.sqrt(np.mean(np.sum((Ec @ R.T + G.mean(0) - G) ** 2, axis=1))))
 
 
 def main_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT):
@@ -3247,24 +3290,548 @@ def wheeled_tracker_path(card, device="cuda", seconds=WHEEL_SECONDS, trees=WHEEL
     return out, launches
 
 
-def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path):
+# --------------------------------------------------------------------------
+# phases 20-22: the distributed solves (slice D), one process per rank
+# --------------------------------------------------------------------------
+
+DIST_WORLDS = (1, 4)                       # world 1 over NCCL, 4 over gloo on the one card
+SHARDED_MAX_ITERS, SHARDED_PCG_ITERS, SHARDED_LAM0 = 40, 100, 1e-4
+VARPART_POSES, VARPART_MAX_ITERS = 10000, 60
+SHARDED_KL_GATE = 2.0                      # tests/test_multimodal_sharded.py:48-70
+BEEHIVE_SEED = 2024                        # solve_graph_nonparametric's default seed
+ALLREDUCE_REPS = 100
+
+
+def distributed_inputs(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT,
+                       chain_poses=VARPART_POSES, bee_poses=BEEHIVE_POSES, N=BEEHIVE_N):
+    """What every rank starts from and what the gates compare with, made once
+    on ``device`` in this process: citygrid lowered with phase 5's chordal
+    initialisation and the port's single-device ``linear="pcg"`` first step
+    from it; the corridor chain and its single-device ndchol optimum; the
+    beehive parametric optimum and a single-device batched solve. Launches
+    made here are restored: they belong to no path."""
+    import torch
+
+    from rome_tpu_torch import GNOptions, solve_graph_nonparametric
+    from rome_tpu_torch.graft_entry import _build_chain_fixture
+    from rome_tpu_torch.graph.convert import graph_arrays_from_numpy, graph_arrays_to_numpy
+    from rome_tpu_torch.graph.lower import lower
+    from rome_tpu_torch.solvers.gauss_newton import ParametricSolver
+    from rome_tpu_torch.solvers.init2d import chordal_init_pose2
+    from rome_tpu_torch.solvers.linearize import cost_at, runtime_state
+
+    saved = _launches()
+    t0 = time.time()
+    ga = lower(build_graph(g2o), device=device)
+    chordal = chordal_init_pose2(ga, ga.values0)
+    trial, c0, c1, *_ = ParametricSolver(
+        ga, GNOptions(linear="pcg", pcg_iters=SHARDED_PCG_ITERS)).step(
+            chordal, np.float32(SHARDED_LAM0), runtime_state(ga))
+    city = dict(spec=graph_arrays_to_numpy(ga),
+                values={t: v.cpu().numpy() for t, v in chordal.items()},
+                first=dict(c0=c0, c1=c1, values={t: v.cpu().numpy() for t, v in trial.items()}),
+                gt=np.load(gt_file)["poses"])
+    t_city = time.time() - t0
+
+    t0 = time.time()
+    spec = graph_arrays_to_numpy(_build_chain_fixture(chain_poses, "local", device=device))
+    gc = graph_arrays_from_numpy(**spec, dtype=torch.float64, device=device)
+    cost_start = float(cost_at(gc, gc.values0))
+    v_ref, st_ref = ParametricSolver(gc, GNOptions(linear="ndchol", max_iters=100,
+                                                   lam0=1e-4)).solve()
+    check(st_ref.converged, f"chain optimum did not converge ({st_ref.reason})")
+    chain = dict(spec=spec, cost_start=cost_start, ref_cost=float(cost_at(gc, v_ref)),
+                 ref_iterations=st_ref.iterations)
+    t_chain = time.time() - t0
+
+    t0 = time.time()
+    truth = _parametric_truth(beehive_graph(bee_poses), device)
+    fg = beehive_graph(bee_poses)
+    solve_graph_nonparametric(fg, sweeps=BEEHIVE_SWEEPS, N=N, engine="batched", init="points",
+                              seed=BEEHIVE_SEED, device=device)
+    last = max(int(l[1:]) for l in fg.ls(r"^x\d+$"))
+    kl_labels = ("x0", f"x{last // 2}", f"x{last}", "l0")   # x0, x50, x100, l0 at 100 poses
+    bee = dict(poses=bee_poses, N=N, truth={l: truth[l] for l in fg.ls(r"^x\d+$")},
+               single={l: np.asarray(fg.variables[l].beliefs["default"]) for l in kl_labels})
+    _sync(device)
+    _restore_launches(saved)
+    print(f"[{card}] distributed inputs: citygrid + chordal + pcg step {t_city:.2f} s, "
+          f"chain {chain_poses} + ndchol optimum {t_chain:.2f} s ({st_ref.iterations} LM "
+          f"iterations, cost {cost_start:.1f} -> {chain['ref_cost']:.6g}), beehive optimum + "
+          f"single-device solve {time.time() - t0:.2f} s")
+    return dict(city=city, chain=chain, bee=bee)
+
+
+class PathInputs:
+    """The inputs each kernel wrapper is given on the distributed paths of
+    one rank: the first call at each layout (shapes, dtypes, storage
+    offsets) of each path, copied with its whole storage, so that a row
+    slice keeps its offset (``_masked_gibbs(rows=...)``'s uniforms, a
+    rank's block of a batch). Installed in front of the wrappers before the
+    paths build anything; it calls them unchanged, so the launch counts are
+    theirs. ``check`` then holds each recorded call's kernel to its plain
+    version on those inputs: the per-rank shapes and the mesh padding
+    (weight-0 rows: slots 0, z = 0, S = I) that no synthetic case has."""
+
+    KERNELS = ("lin", "se2_gibbs_draw", "euclid_gibbs_draw")
+
+    def __init__(self, limit=8):
+        from rome_tpu_torch.ops import linearize_cuda as K
+        from rome_tpu_torch.ops import pairwise_cuda as P
+
+        self.path, self.calls, self.limit = None, {}, limit
+        self.kernels = {"lin": K.pose2pose2_linearize, "se2_gibbs_draw": P.se2_gibbs_draw,
+                        "euclid_gibbs_draw": P.euclid_gibbs_draw}
+        lin = self._recording("lin")
+        for ftype, fn in K.FUSED_LINEARIZE.items():
+            if fn is K.pose2pose2_linearize:
+                K.FUSED_LINEARIZE[ftype] = lin
+        for name in ("se2_gibbs_draw", "euclid_gibbs_draw"):
+            setattr(P, name, self._recording(name))
+
+    @staticmethod
+    def _copy(a):
+        import torch
+
+        if not isinstance(a, torch.Tensor):
+            return a
+        return torch.empty(0, dtype=a.dtype, device=a.device).set_(
+            a.untyped_storage().clone(), a.storage_offset(), a.size(), a.stride())
+
+    def _recording(self, name):
+        import torch
+
+        fn = self.kernels[name]
+
+        def recording(*args):
+            key = (self.path, name) + tuple(
+                (tuple(a.shape), str(a.dtype), a.storage_offset())
+                if isinstance(a, torch.Tensor) else a for a in args)
+            if self.path is not None and key not in self.calls and sum(
+                    k[:2] == key[:2] for k in self.calls) < self.limit:
+                self.calls[key] = [self._copy(a) for a in args]
+            return fn(*args)
+
+        return recording
+
+    def check(self, card):
+        """Every recorded call: K1 lin within the float32 / float64 bound
+        below of its plain version and its weight-0 rows exactly 0; a draw's
+        labels equal to the plain draw's or near-ties (``draw_agreement``).
+        One row per call."""
+        import torch
+
+        from rome_tpu_torch.ops.fused_linearize import pose2pose2_linearize_plain
+        from rome_tpu_torch.ops.pairwise import (
+            euclid_pairwise_logw_plain,
+            se2_pairwise_logw_plain,
+        )
+
+        out = []
+        for key, args in self.calls.items():
+            path, name = key[:2]
+            got = self.kernels[name](*args)
+            _sync(args[0].device.type)
+            row = dict(path=path, kernel=name, shapes=[list(k[0]) for k in key[2:]],
+                       offsets=[k[2] for k in key[2:]])
+            if name == "lin":
+                p, q, z, S, w = args
+                want = pose2pose2_linearize_plain(*args)
+                # float32 keeps eps |pose| in a pose difference, times |S|
+                # and w: 2e-5 absolute or 1e-6 of that row scale (float64:
+                # 1e-10 or 1e-13)
+                scale = (S.abs().amax(dim=(1, 2)) * w.abs() * (
+                    p.abs().amax(1) + q.abs().amax(1) + z.abs().amax(1) + 1.0))
+                atol, rtol = (2e-5, 1e-6) if p.dtype == torch.float32 else (1e-10, 1e-13)
+                pad = w == 0
+                err, ok, zero = 0.0, True, True
+                for a, b in ((got[0], want[0]), (got[1][0], want[1][0]),
+                             (got[1][1], want[1][1])):
+                    d = (a - b).abs().reshape(a.shape[0], -1).amax(1)
+                    err = max(err, float(d.max()) if d.numel() else 0.0)
+                    ok = ok and bool(torch.isfinite(a).all()) and bool(
+                        (d <= atol + rtol * scale).all())
+                    zero = zero and bool((a[pad] == 0).all())
+                row.update(dtype=str(p.dtype)[6:], max_abs_err=err, weight0_rows=int(pad.sum()),
+                           max_row_scale=float(scale.max()) if scale.numel() else 0.0)
+                print(f"[{card}] {path} K1 lin {row['dtype']} n={p.shape[0]} (offsets "
+                      f"{row['offsets']}): max_abs_err {err:.3e} ({atol:g} or {rtol:g} of the "
+                      f"row scale, at most {row['max_row_scale']:.3g}); "
+                      f"{row['weight0_rows']} weight-0 rows zero={zero}")
+                check(ok and zero, f"{path}: K1 lin disagrees with its plain version on "
+                                   f"the path's inputs at n={p.shape[0]} ({row})")
+            else:
+                *sc, u = args
+                plain = se2_pairwise_logw_plain if name == "se2_gibbs_draw" \
+                    else euclid_pairwise_logw_plain
+                V, N, Nj = u.shape
+                total = (plain(*sc) + (-torch.log(-torch.log(
+                    u.clamp_min(torch.finfo(u.dtype).tiny))))).reshape(V * N, Nj)
+                differ, gap = draw_agreement(got.reshape(-1), total)
+                row.update(rows=V * N, rows_differ=differ, max_gap=gap)
+                print(f"[{card}] {path} {name} V={V} N={N} Nj={Nj} (u at storage offset "
+                      f"{u.storage_offset()}): {V * N - differ} of {V * N} labels equal to "
+                      f"the plain draw, worst near-tie gap {gap:.3e}")
+            out.append(row)
+        return out
+
+
+def _expected_draws(solver, mesh, sweeps):
+    """K2 (Pose2) and K3 (Point2) draw launches of this rank's Gibbs
+    products: per sweep, gibbs_sweeps x K for each type whose rows it holds
+    (K > 1)."""
+    from rome_tpu_torch.parallel.multimodal import _block
+
+    out = {"se2_gibbs_draw": 0, "euclid_gibbs_draw": 0}
+    bp, ga = solver.bp, solver.ga
+    for t, key in (("Pose2", "se2_gibbs_draw"), ("Point2", "euclid_gibbs_draw")):
+        lo, hi = _block(ga.counts[t], mesh)
+        if bp.has_msg[t].any() and hi > lo and bp.kmax[t] > 1:
+            out[key] += sweeps * bp.gibbs_sweeps * bp.kmax[t]
+    return out
+
+
+def distributed_rank(mesh, inputs, dryrun, t_spawn, card):
+    """One rank of phases 20-22 (and of ``dryrun_multichip`` with
+    ``dryrun``): each path driven with every launch count set to 0 just
+    before it and read just after. Returns the rows the gates read."""
+    import torch
+
+    from rome_tpu_torch.graft_entry import dryrun_multichip
+    from rome_tpu_torch.graph.convert import graph_arrays_from_numpy
+    from rome_tpu_torch.parallel.distributed import global_mesh
+    from rome_tpu_torch.parallel.multimodal import ShardedNonparametricSolver
+    from rome_tpu_torch.parallel.sharding import make_sharded_gn_step, solve_distributed
+    from rome_tpu_torch.parallel.varpart import make_varpart_solver
+
+    from rome_tpu_torch.ops.linearize_cuda import FUSED_LINEARIZE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, kind = mesh.device, mesh.device.type
+    out = dict(rank=mesh.rank, world=mesh.world, device=str(dev),
+               entered_s=time.time() - t_spawn)   # process start-up and group init
+    recorded = PathInputs()
+
+    def host(values):
+        return {t: v.cpu().numpy() for t, v in values.items()}
+
+    def timed(path, fn):
+        recorded.path = path
+        _reset_launches()
+        _sync(kind)
+        if kind == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(kind)
+        row = dict(seconds=time.perf_counter() - t0, launches=_launches())
+        recorded.path = None
+        if kind == "cuda":
+            row["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        return res, row
+
+    # phase 20: factor-sharded LM on citygrid
+    city = inputs["city"]
+    ga = graph_arrays_from_numpy(**city["spec"], device=dev)
+    values = {t: torch.as_tensor(v, device=dev) for t, v in city["values"].items()}
+    step, ga_p = make_sharded_gn_step(ga, mesh, pcg_iters=SHARDED_PCG_ITERS, device=kind)
+    v1, c0, c1, _gn, ok = step(values, SHARDED_LAM0)
+    (vals, stats), row = timed("factor_sharded", lambda: solve_distributed(
+        ga, mesh, max_iters=SHARDED_MAX_ITERS, pcg_iters=SHARDED_PCG_ITERS, lam0=SHARDED_LAM0,
+        values=values, device=kind))
+    # the collective alone at the PCG's payload (one float64 per dof, the
+    # Hvp's all-reduce): does it or the shard-local work set the pace?
+    buf = torch.zeros(sum(ga.counts[t] * ga.manifolds[t].dof for t in ga.type_names),
+                      dtype=torch.float64, device=dev)
+    mesh.all_reduce(buf)
+    _sync(kind)
+    t0 = time.perf_counter()
+    for _ in range(ALLREDUCE_REPS):
+        mesh.all_reduce(buf)
+    _sync(kind)
+    # this rank's block of the mesh-padded K1 batches: its weight-0 rows
+    m = {b.ftype.name: b.n // mesh.world for b in ga_p.batches}
+    pad_rows = sum(int((b.weight[mesh.rank * m[b.ftype.name]:
+                                 (mesh.rank + 1) * m[b.ftype.name]] == 0).sum())
+                   for b in ga_p.batches if b.ftype.name in FUSED_LINEARIZE)
+    out["factor_sharded"] = dict(stats, **row, values=host(vals), k1_weight0_rows=pad_rows,
+                                 allreduce_ms=(time.perf_counter() - t0) / ALLREDUCE_REPS * 1e3,
+                                 first=dict(c0=c0, c1=c1, ok=ok, values=host(v1)))
+
+    # phase 21: owner-computes variable partition on the corridor chain
+    gc = graph_arrays_from_numpy(**inputs["chain"]["spec"], dtype=torch.float64, device=dev)
+    solve, plan = make_varpart_solver(gc, global_mesh("v", kind), max_iters=VARPART_MAX_ITERS,
+                                      device=kind)
+    (vals, stats), row = timed("varpart", lambda: solve(lam0=1e-4))
+    out["varpart"] = dict(stats, **row, values=host(vals),
+                          own_dof=plan.n_loc["Pose2"] * 3, sep_dof=plan.n_sep["Pose2"] * 3)
+
+    # phase 22: the sharded nonparametric sweep on beehive
+    bee = inputs["bee"]
+    fg = beehive_graph(bee["poses"])
+    solver = ShardedNonparametricSolver(fg, mesh, N=bee["N"], device=kind)
+    _r, row = timed("sharded_beehive", lambda: solver.solve(
+        sweeps=BEEHIVE_SWEEPS, seed=BEEHIVE_SEED, init="points"))
+    out["sharded_beehive"] = dict(
+        **row, expected=_expected_draws(solver, mesh, BEEHIVE_SWEEPS),
+        beliefs={l: np.asarray(fg.variables[l].beliefs["default"]) for l in fg._var_order})
+
+    if dryrun:
+        res, row = timed("dryrun", lambda: dryrun_multichip(mesh.world, device=kind))
+        out["dryrun"] = dict(res, **row)
+    # the kernels on the inputs the paths gave them (these launches come
+    # after every path's counts were read)
+    out["kernel_checks"] = recorded.check(f"{card} rank {mesh.rank}/{mesh.world}")
+    out["left_s"] = time.time() - t_spawn
+    return out
+
+
+def _max_diff(a, b):
+    """Largest coordinate difference of two {type: array} sets, Pose2 angles
+    modulo 2 pi (a heading at +-pi may come out on either side)."""
+    out = 0.0
+    for t in a:
+        d = np.asarray(a[t], np.float64) - np.asarray(b[t], np.float64)
+        if t == "Pose2":
+            d[..., 2] = (d[..., 2] + np.pi) % (2 * np.pi) - np.pi
+        out = max(out, float(np.abs(d).max()))
+    return out
+
+
+def distributed_path(card, inputs, device="cuda", worlds=DIST_WORLDS, dryrun_world=4):
+    """Phases 20-22 at each world size (ranks started with
+    ``spawn_ranks``: spawn, a file rendezvous, NCCL for one rank on the
+    card, gloo with CUDA tensors for several ranks on one card), then the
+    gates. Any rank's exception ends the script. Returns the rows and the
+    launches per path and rank."""
+    import torch
+
+    from rome_tpu_torch.parallel.distributed import spawn_ranks
+    from rome_tpu_torch.solvers.multimodal.metrics import symmetric_kl_knn
+    from rome_tpu_torch.manifolds.base import T2
+
+    if device == "cuda":
+        torch.cuda.empty_cache()  # this process's cache: the ranks need the room
+    runs = {}
+    for w in worlds:
+        t0 = time.time()
+        ranks = spawn_ranks(distributed_rank, w, args=(inputs, w == dryrun_world, t0, card),
+                            device=device)
+        runs[w] = ranks
+        print(f"[{card}] distributed world={w}: {time.time() - t0:.1f} s "
+              f"({'nccl' if device == 'cuda' and w <= torch.cuda.device_count() else 'gloo'}); "
+              f"ranks entered after {max(r['entered_s'] for r in ranks):.1f} s and left "
+              f"after {max(r['left_s'] for r in ranks):.1f} s")
+
+    def rows(w, key):
+        rr = [r[key] for r in runs[w]]
+        for r in rr[1:]:  # every rank ends with the same values
+            got = r.get("values", r.get("beliefs"))
+            want = rr[0].get("values", rr[0].get("beliefs"))
+            check(_max_diff(got, want) == 0.0, f"{key} world {w}: ranks disagree")
+        return rr
+
+    def lin_in_every_rank(rr, what):
+        for r in rr:
+            check(device != "cuda" or (r["launches"]["k1_lin"] > 0
+                                       and r["launches"]["k1_normal"] == 0),
+                  f"{what}: rank launches {r['launches']}, expected K1 lin > 0 and no normal")
+
+    def summary(rr):
+        return dict({k: v for k, v in rr[0].items()
+                     if k not in ("values", "beliefs", "first", "launches", "seconds")},
+                    seconds=[r["seconds"] for r in rr], launches=[r["launches"] for r in rr])
+
+    city, chain, bee = inputs["city"], inputs["chain"], inputs["bee"]
+    result, by_rank = {}, {}
+
+    # ---- phase 20 ----
+    fs = {w: rows(w, "factor_sharded") for w in worlds}
+    for w, rr in fs.items():
+        r = rr[0]
+        first = r["first"]
+        s = city["first"]
+        check(abs(first["c0"] - s["c0"]) < 1e-3 * max(1.0, abs(s["c0"])),
+              f"world {w}: first-step cost0 {first['c0']} vs single-device pcg {s['c0']}")
+        check(abs(first["c1"] - s["c1"]) < 2e-2 * max(1.0, abs(s["c1"])),
+              f"world {w}: first-step cost1 {first['c1']} vs single-device pcg {s['c1']}")
+        d_first = _max_diff(first["values"], s["values"])
+        check(d_first <= 5e-3, f"world {w}: first step {d_first} from the single-device pcg step")
+        check(np.isfinite(r["values"]["Pose2"]).all(), f"world {w}: poses not finite")
+        lin_in_every_rank(rr, f"factor_sharded_citygrid_10k world {w}")
+        row = dict(summary(rr), first_step_max_pose_diff_m=d_first,
+                   ate_m=ate_values(r["values"]["Pose2"], city["gt"]),
+                   allreduce_share=r["collectives"] * r["allreduce_ms"] / 1e3 / r["seconds"])
+        result[f"factor_sharded_citygrid_10k_w{w}"] = row
+        print(f"[{card}] factor_sharded_citygrid_10k world={w}: " + json.dumps(row))
+    a, b = (fs[w][0] for w in worlds)
+    check(a["reason"] == b["reason"], f"reason codes differ: {a['reason']} vs {b['reason']}")
+    check(abs(a["iterations"] - b["iterations"]) <= 4,
+          f"iterations {a['iterations']} vs {b['iterations']}")
+    lo_c, hi_c = sorted((a["final_cost"], b["final_cost"]))
+    check(hi_c <= lo_c * 1.5 + 1e-12, f"costs {a['final_cost']} vs {b['final_cost']}")
+    result["factor_sharded_citygrid_10k"] = dict(
+        iteration_drift=b["iterations"] - a["iterations"],
+        relative_cost_diff=(b["final_cost"] - a["final_cost"]) / a["final_cost"],
+        max_pose_diff_m=_max_diff(a["values"], b["values"]))
+    print(f"[{card}] factor_sharded_citygrid_10k: "
+          + json.dumps(result["factor_sharded_citygrid_10k"]))
+
+    # ---- phase 21 ----
+    from rome_tpu_torch.graph.convert import graph_arrays_from_numpy
+    from rome_tpu_torch.solvers.linearize import cost_at
+
+    gc = graph_arrays_from_numpy(**chain["spec"], dtype=torch.float64, device=device)
+    vp = {w: rows(w, "varpart") for w in worlds}
+    for w, rr in vp.items():
+        r = rr[0]
+        c = float(cost_at(gc, {t: torch.as_tensor(v, device=device)
+                               for t, v in r["values"].items()}))
+        check(r["converged"], f"varpart world {w} did not converge ({r['reason']})")
+        check(r["final_cost"] < chain["cost_start"] * 1e-3,
+              f"varpart world {w}: cost {r['final_cost']} >= 1e-3 x {chain['cost_start']}")
+        check(c <= chain["ref_cost"] * 1.01 + 1e-6,
+              f"varpart world {w}: single-rank cost {c} > 1.01 x optimum {chain['ref_cost']}")
+        lin_in_every_rank(rr, f"varpart_chain_10k world {w}")
+        row = dict(summary(rr), single_rank_cost=c, optimum_cost=chain["ref_cost"],
+                   cost_start=chain["cost_start"])
+        result[f"varpart_chain_10k_w{w}"] = row
+        print(f"[{card}] varpart_chain_10k world={w}: comms_note {json.dumps(r['comms'])}; "
+              + json.dumps(row))
+    a, b = (vp[w][0] for w in worlds)
+    result["varpart_chain_10k"] = dict(iteration_drift=b["iterations"] - a["iterations"],
+                                       max_pose_diff_m=_max_diff(a["values"], b["values"]))
+    print(f"[{card}] varpart_chain_10k: " + json.dumps(result["varpart_chain_10k"]))
+
+    # ---- phase 22 ----
+    rng = np.random.default_rng(0)
+    for w in worlds:
+        rr = rows(w, "sharded_beehive")
+        bel = rr[0]["beliefs"]
+        errs = [float(np.linalg.norm(bel[l][:, :2].mean(0) - bee["truth"][l][:2]))
+                for l in bee["truth"]]
+        err = float(np.mean(errs))
+        check(err < BEEHIVE_GATE_M, f"sharded beehive world {w}: mean pose error {err}")
+        kl = {}
+        for l in bee["single"]:
+            p = torch.as_tensor(bee["single"][l][:, :2] + rng.normal(0, 1e-4, (bee["N"], 2)))
+            q = torch.as_tensor(bel[l][:, :2] + rng.normal(0, 1e-4, (bee["N"], 2)))
+            kl[l] = float(symmetric_kl_knn(T2, p, q))
+            check(np.isfinite(kl[l]) and kl[l] < SHARDED_KL_GATE,
+                  f"sharded beehive world {w}: KL {l} {kl[l]} >= {SHARDED_KL_GATE}")
+        for rank, r in enumerate(rr):
+            got = {k: r["launches"][k] for k in ("se2_gibbs_draw", "euclid_gibbs_draw")}
+            check(device != "cuda" or (
+                got == r["expected"] and min(got.values()) > 0
+                and r["launches"]["se2_pairwise_logw"] == 0
+                and r["launches"]["euclid_pairwise_logw"] == 0),
+                  f"sharded beehive world {w} rank {rank}: launches {r['launches']}, "
+                  f"expected {r['expected']} draws and no logw")
+        row = dict(summary(rr), mean_pose_err_m=err, max_pose_err_m=max(errs), kl=kl)
+        result[f"sharded_beehive_100_w{w}"] = row
+        print(f"[{card}] sharded_beehive_100 world={w}: " + json.dumps(row))
+
+    if dryrun_world in worlds:
+        d = runs[dryrun_world][0]["dryrun"]
+        result["dryrun_multichip"] = dict(
+            {k: v for k, v in d.items() if k != "launches"},
+            launches=[r["dryrun"]["launches"] for r in runs[dryrun_world]])
+        print(f"[{card}] dryrun_multichip({dryrun_world}): "
+              + json.dumps(result["dryrun_multichip"]))
+
+    result["path_inputs"] = _check_path_inputs(card, runs, device)
+
+    for path, key in (("factor_sharded_citygrid_10k", "factor_sharded"),
+                      ("varpart_chain_10k", "varpart"), ("sharded_beehive_100", "sharded_beehive"),
+                      (f"dryrun_multichip_{dryrun_world}", "dryrun")):
+        by_rank[path] = {f"world{w}": [r[key]["launches"] for r in runs[w]]
+                         for w in worlds if key in runs[w][0]}
+    return result, by_rank
+
+
+def _check_path_inputs(card, runs, device):
+    """The gates on the ranks' ``PathInputs`` checks: on the card, every
+    kernel a path launched in a rank was checked on that path's inputs in
+    that rank; the factor-sharded path's checks covered every mesh-padded
+    K1 row of the rank's block; the draws' labels agree with the plain
+    draw's on >= LABEL_AGREE of the rows of each kernel. Returns the worst
+    errors per kernel."""
+    keys = {"k1_lin": "lin", "se2_gibbs_draw": "se2_gibbs_draw",
+            "euclid_gibbs_draw": "euclid_gibbs_draw"}
+    out = {k: dict(calls=0, max_abs_err=0.0, rows=0, rows_differ=0, max_gap=0.0,
+                   weight0_rows=0, shapes=set()) for k in PathInputs.KERNELS}
+    for w, ranks in runs.items():
+        for r in ranks:
+            checks = r["kernel_checks"]
+            for path in ("factor_sharded", "varpart", "sharded_beehive", "dryrun"):
+                if path not in r:
+                    continue
+                for key, name in keys.items():
+                    check(device != "cuda" or r[path]["launches"][key] == 0 or any(
+                        c["path"] == path and c["kernel"] == name for c in checks),
+                        f"world {w} rank {r['rank']}: {path} launched {name} but no call "
+                        f"of it was checked")
+            got = sum(c["weight0_rows"] for c in checks
+                      if c["path"] == "factor_sharded" and c["kernel"] == "lin")
+            check(got == r["factor_sharded"]["k1_weight0_rows"],
+                  f"world {w} rank {r['rank']}: {got} weight-0 K1 rows checked, "
+                  f"{r['factor_sharded']['k1_weight0_rows']} in its block")
+            for c in checks:
+                o = out[c["kernel"]]
+                o["calls"] += 1
+                o["shapes"].add(f"{c['path']} w{w} {c['shapes'][0]}")
+                for k in ("rows", "rows_differ", "weight0_rows"):
+                    o[k] += c.get(k, 0)
+                o["max_abs_err"] = max(o["max_abs_err"], c.get("max_abs_err", 0.0))
+                o["max_gap"] = max(o["max_gap"], c.get("max_gap", 0.0))
+    for name, o in out.items():
+        o["shapes"] = sorted(o["shapes"])
+        if o["rows"]:
+            o["label_agreement"] = 1.0 - o["rows_differ"] / o["rows"]
+            check(o["label_agreement"] >= LABEL_AGREE,
+                  f"{name} on the paths' inputs: labels equal on {o['label_agreement']} "
+                  f"< {LABEL_AGREE} of rows")
+    print(f"[{card}] kernels on the distributed paths' inputs: " + json.dumps(out))
+    return out
+
+
+def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path, dist_by_rank,
+                 path_inputs):
     """The kernels JSON line: K1 by its two epilogues (normal launched by the
     speculative citygrid path, the host-scheduled solve and the NN-mixture
     chain of phase 15, lin by the
-    dense32, mixed, pcg and covariance paths and the parametric optima of the
-    nonparametric paths; each path counted from 0, ``launches_by_path``),
-    and K2/K3 by their draw epilogues (what the paths launch, per path in
-    ``launches_by_path``) with their logw epilogues nested. Times and bounds at n = 13,085, with 1,048,576 nested."""
+    dense32, mixed, pcg and covariance paths, the parametric optima of the
+    nonparametric paths and every rank of the distributed paths; each path
+    counted from 0, ``launches_by_path``), and K2/K3 by their draw epilogues
+    (what the paths launch, per path in ``launches_by_path``) with their
+    logw epilogues nested. The distributed paths' launches are summed over
+    their ranks and world sizes in ``launches_by_path`` and listed per world
+    and rank in ``launches_by_rank``; ``path_inputs``: the checks of each
+    kernel on the inputs those paths gave it (``PathInputs``). Times and
+    bounds at n = 13,085, with 1,048,576 nested."""
+    def dist_sum(key):
+        return {p: sum(r[key] for ranks in w.values() for r in ranks)
+                for p, w in dist_by_rank.items() if w}
+
+    def dist_ranks(key):
+        return {p: {world: [r[key] for r in ranks] for world, ranks in w.items()}
+                for p, w in dist_by_rank.items() if w}
+
     kernels = []
     for epi, name in (("lin", "pose2pose2_linearize"), ("normal", "pose2pose2_normal")):
         by_path = {"citygrid_10k": k1_launches[epi],
                    **{k: v[epi] for k, v in param_launches.items()},
-                   "nonparametric_optima": np_launches[f"k1_{epi}"]}
+                   "nonparametric_optima": np_launches[f"k1_{epi}"],
+                   **{p: n for p, n in dist_sum(f"k1_{epi}").items()
+                      if not p.startswith("sharded_beehive")}}
         t, big = k1[epi][f"n={K1_TIMED[0]}"], k1[epi][f"n={K1_TIMED[1]}"]
         kernels.append(dict(
             name=name, source="pose2pose2_linearize.cu",
             replaces="rome_tpu/ops/linearize_pallas.py:54",
             launches=sum(by_path.values()), launches_by_path=by_path,
+            launches_by_rank={p: r for p, r in dist_ranks(f"k1_{epi}").items()
+                              if not p.startswith("sharded_beehive")},
+            **({"path_inputs": path_inputs["lin"]} if epi == "lin" else {}),
             max_abs_err=k1[epi]["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
             shape=[K1_TIMED[0]],
@@ -3275,10 +3842,14 @@ def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path):
         t = k23[k]["timed"][f"V={V}"]
         # the draw epilogue is what the paths launch; its error is the worst
         # score gap of a label that differs from the plain draw's
+        key = f"{name}_gibbs_draw"
+        sharded = {p: n for p, n in dist_sum(key).items() if p.startswith("sharded_beehive")}
         kernels.append(dict(
-            name=f"{name}_gibbs_draw", source="pairwise_logw.cu", replaces=tpu,
-            launches=np_launches[f"{name}_gibbs_draw"],
-            launches_by_path={p: l[f"{name}_gibbs_draw"] for p, l in np_by_path.items()},
+            name=key, source="pairwise_logw.cu", replaces=tpu,
+            launches=np_launches[key] + sum(sharded.values()),
+            launches_by_path={**{p: l[key] for p, l in np_by_path.items()}, **sharded},
+            launches_by_rank={p: r for p, r in dist_ranks(key).items() if p in sharded},
+            path_inputs=path_inputs[key],
             max_abs_err=k23[k]["draw_max_gap"],
             ms=t["draw"], plain_ms=t["plain_draw"], bound_ms=t["draw_bound_ms"],
             bound_by=t["draw_bound_by"], library_ms=None, shape=[V, BEEHIVE_N, BEEHIVE_N],
@@ -3387,6 +3958,9 @@ def main():
     t0 = time.time()
     tracker, tracker_launches = wheeled_tracker_path(card)
     print(f"[{card}] wheeled_tracker: {time.time() - t0:.1f} s, launches {tracker_launches}")
+    t0 = time.time()
+    dist, dist_by_rank = distributed_path(card, distributed_inputs(card))
+    print(f"[{card}] distributed phases 20-22: {time.time() - t0:.1f} s")
     for name, key in (("fixedlag_citygrid_3500", "fixedlag"),
                       ("fixedlag_batch_optimum", "fixedlag_batch"),
                       ("incremental_1000", "incremental"),
@@ -3416,11 +3990,13 @@ def main():
                    "sphere_se3_2500": sphere, "se3_nonparametric": se3_np,
                    "imu_euroc_mh01": imu, "factor_library_rest": rest,
                    "fixedlag_citygrid_3500": fixedlag, "live_slam_checkpoint": live,
-                   "wheeled_tracker": tracker,
-                   "seconds": time.time() - t_start}, fh, indent=1)
+                   "wheeled_tracker": tracker, "distributed": dist,
+                   "distributed_launches_by_rank": dist_by_rank,
+                   "seconds": time.time() - t_start}, fh, indent=1, default=float)
 
     print(json.dumps({"kernels": kernel_table(k1, k23, launches, np_launches, param_launches,
-                                              {k: l for k, (_r, l) in np_paths.items()})}))
+                                              {k: l for k, (_r, l) in np_paths.items()},
+                                              dist_by_rank, dist["path_inputs"])}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -74,6 +74,26 @@ def graph_arrays_from_numpy(
     return ga.to_device()
 
 
+def graph_arrays_to_numpy(ga) -> dict:
+    """The numpy arrays of a lowered graph, as :func:`graph_arrays_from_numpy`
+    takes them (its keyword arguments less ``dtype`` and ``device``): for
+    either package's GraphArrays, so one graph can be rebuilt elsewhere (in
+    another process, on another device)."""
+    def host(v):
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    return dict(
+        type_names=list(ga.type_names),
+        counts={t: int(ga.counts[t]) for t in ga.type_names},
+        values0={t: host(v) for t, v in ga.values0.items()},
+        free={t: host(v) for t, v in ga.free.items()},
+        batches=[dict(ftype=b.ftype.name, vslots=host(b.vslots),
+                      params={k: host(v) for k, v in b.params.items()},
+                      weight=host(b.weight)) for b in ga.batches],
+        var_labels={t: list(ga.var_labels[t]) for t in ga.type_names},
+    )
+
+
 def beliefs_from_numpy(beliefs, device="cuda", dtype=torch.float32) -> dict:
     """Particle beliefs ``{type: (V, N, point_dim)}`` as tensors on
     ``device``: the same particles for both engines."""

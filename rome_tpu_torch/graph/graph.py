@@ -33,7 +33,7 @@ class SolverParams:
     graphinit: bool = True            # init new variables by factor propagation
     treeinit: bool = False            # solve_graph_nonparametric routes through the Bayes tree
     downsolve: bool = True            # the tree solve's root-to-leaves pass
-    multiproc: bool = False           # multi-device solve where > 1 card is visible (slice D, not ported yet); one card solves as usual
+    multiproc: bool = False           # factor-sharded solve inside a process group of > 1 rank; one rank solves as usual
     drawtree: bool = False            # write the ASCII Bayes tree to logpath/bt.txt
     showtree: bool = False            # print the ASCII Bayes tree after the build
     # True: the tree upsolve restricts each clique's messages to its

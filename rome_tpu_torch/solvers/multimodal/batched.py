@@ -277,15 +277,27 @@ def _messages(bp: BeliefPropagator, ga: GraphArrays, beliefs, params_all, gen):
             for src in bp.sources]
 
 
-def _masked_gibbs(man, msgs, mask, gibbs_sweeps, gen):
+def _masked_gibbs(man, msgs, mask, gibbs_sweeps, gen, rows=None):
     """Product of up to K kernel densities for each of V variables at once:
     msgs (V, K, N, pdim), mask (V, K) -> (V, N, pdim). Padded densities
-    (mask 0) keep their labels and carry no weight."""
+    (mask 0) keep their labels and carry no weight.
+
+    ``rows`` = (lo, V_all): the V variables are rows lo..lo+V-1 of V_all;
+    every random draw is made for all V_all rows and these rows taken, so a
+    variable's draws do not depend on how the rows are split."""
     V, K, N, pdim = msgs.shape
+    lo, V_all = (0, V) if rows is None else rows
     dev = msgs.device
-    bw = silverman_bandwidth(man, msgs).clamp_min(1e-5)   # (V, K, dof)
+
+    def mine(x):
+        return x[lo: lo + V]
+
+    # (V, K, dof); with no rows (a rank holding none of the type) the draws
+    # below are still made, so a shared stream stays in step
+    bw = (silverman_bandwidth(man, msgs).clamp_min(1e-5) if V
+          else msgs.new_zeros((0, K, man.dof)))
     lam = mask[..., None] / (bw * bw)                     # (V, K, dof) masked precisions
-    labels = torch.randint(0, N, (V, K, N), generator=gen, device=dev)
+    labels = mine(torch.randint(0, N, (V_all, K, N), generator=gen, device=dev))
     vidx = torch.arange(V, device=dev)
     draw_fn = pairwise_draw(man)
 
@@ -312,7 +324,7 @@ def _masked_gibbs(man, msgs, mask, gibbs_sweeps, gen):
             ref, mu_c, prec = estimate(sel, inc)
             var = 1.0 / prec.clamp_min(1e-12) + bw[:, j] * bw[:, j]
             # the uniforms categorical() would draw for the (V, N, Nj) scores
-            u = torch.rand((V, N, N), generator=gen, dtype=torch.float32, device=dev)
+            u = mine(torch.rand((V_all, N, N), generator=gen, dtype=torch.float32, device=dev))
             new_j = draw_fn(
                 ref.contiguous(), mu_c.contiguous(), msgs[:, j].contiguous(),
                 (1.0 / var).contiguous(), u,
@@ -321,7 +333,8 @@ def _masked_gibbs(man, msgs, mask, gibbs_sweeps, gen):
 
     ref, mu_c, prec = estimate(selected(labels), mask)
     std = torch.sqrt(1.0 / prec.clamp_min(1e-12))
-    eps = torch.randn(mu_c.shape, generator=gen, dtype=msgs.dtype, device=dev)
+    eps = mine(torch.randn((V_all,) + tuple(mu_c.shape[1:]), generator=gen, dtype=msgs.dtype,
+                           device=dev))
     return man.normalize(man.boxplus(ref, mu_c + eps * std[:, None, :]))
 
 

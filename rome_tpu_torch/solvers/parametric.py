@@ -8,6 +8,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from rome_tpu_torch.graph.graph import FactorGraph
 from rome_tpu_torch.graph.lower import lower, write_back
@@ -48,9 +49,10 @@ def solve_graph_parametric(
     accept loop for ndchol), ``"host"`` runs ``solve_host``. The chordal
     init always runs as its own stage before LM, ``GNOptions.fused_chordal``
     or not. The solver comes from the structure cache
-    (``ParametricSolver.cached``). ``fg.params.multiproc`` takes the
-    multi-device solve only where more than one card is visible; that solve
-    is not ported yet.
+    (``ParametricSolver.cached``). With ``fg.params.multiproc`` set inside
+    an initialized process group of more than one rank, every rank takes the
+    factor-sharded distributed solve (``solve_graph_distributed``); otherwise
+    the graph solves on its one device.
 
     Returns a result dict with stats, and covariances when requested.
     """
@@ -61,11 +63,11 @@ def solve_graph_parametric(
         dtype = torch.float64 if fg.params.dtype == "float64" else torch.float32
     if init:
         fg.init_all(solve_key)
-    if (fg.params.multiproc and torch.device(device).type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "the multi-device solve is not ported yet (ROADMAP slice D)"
-        )
+    if fg.params.multiproc and dist.is_initialized() and dist.get_world_size() > 1:
+        # SolverParams.multiproc: the factor-sharded solve over every rank
+        from rome_tpu_torch.parallel.distributed import solve_graph_distributed
+
+        return solve_graph_distributed(fg, solve_key=solve_key, device=device)
 
     ga = lower(fg, solve_key, dtype=dtype, pad=pad, device=device)
 

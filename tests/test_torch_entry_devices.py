@@ -5,6 +5,9 @@
   prediction, the Bayes-tree solve and its batched schedule, the batched
   solver, measurement sampling and ``approx_conv``, the lowering and the two
   numpy converters.
+- The distributed solves' too: the distributed runtime and the global
+  mesh, the factor-sharded step and solve, the variable-partitioned solver,
+  the sharded nonparametric solver and the graft_entry step and dryrun.
 - The front end's too: the solve manager, the odometry chords, the feature tracker
   and its KDE of a sighting, the wheeled navigation system and its drive,
   and the DEM interpolator.
@@ -27,6 +30,8 @@ from rome_tpu_torch.solvers import parametric  # noqa: E402
 from rome_tpu_torch.solvers.multimodal import batched, convolve, solve, tree  # noqa: E402
 from rome_tpu_torch.frontend import navigation, odometry, slam, tracker  # noqa: E402
 from rome_tpu_torch.services import scalar_fields  # noqa: E402
+from rome_tpu_torch import graft_entry  # noqa: E402
+from rome_tpu_torch.parallel import distributed, multimodal, sharding, varpart  # noqa: E402
 
 ENTRY_POINTS = {
     "solve_graph_parametric": parametric.solve_graph_parametric,
@@ -50,6 +55,17 @@ ENTRY_POINTS = {
     "make_in_situ_system": navigation.make_in_situ_system,
     "adv_odo_by_rules": navigation.adv_odo_by_rules,
     "dem_interp": scalar_fields.dem_interp,
+    "init_distributed": distributed.init_distributed,
+    "global_mesh": distributed.global_mesh,
+    "spawn_ranks": distributed.spawn_ranks,
+    "solve_graph_distributed": distributed.solve_graph_distributed,
+    "make_sharded_gn_step": sharding.make_sharded_gn_step,
+    "solve_distributed": sharding.solve_distributed,
+    "make_varpart_solver": varpart.make_varpart_solver,
+    "ShardedNonparametricSolver": multimodal.ShardedNonparametricSolver,
+    "graft_entry.entry": graft_entry.entry,
+    "graft_entry._build_chain_fixture": graft_entry._build_chain_fixture,
+    "dryrun_multichip": graft_entry.dryrun_multichip,
 }
 
 
@@ -115,6 +131,17 @@ def _calls():
         "adv_odo_by_rules": lambda: navigation.adv_odo_by_rules(
             np.array([[0.1, 1.0, 0.0]]), {1: navigation.LaserFeatures(0.0, sighting)}),
         "dem_interp": lambda: scalar_fields.dem_interp([0.0, 1.0], [0.0, 1.0], np.zeros((2, 2))),
+        "init_distributed": lambda: distributed.init_distributed(),
+        "global_mesh": lambda: distributed.global_mesh(),
+        "spawn_ranks": lambda: distributed.spawn_ranks(distributed.global_mesh, 1),
+        "solve_graph_distributed": lambda: distributed.solve_graph_distributed(fg),
+        "make_sharded_gn_step": lambda: sharding.make_sharded_gn_step(lower.lower(fg, device="cpu")),
+        "solve_distributed": lambda: sharding.solve_distributed(lower.lower(fg, device="cpu")),
+        "make_varpart_solver": lambda: varpart.make_varpart_solver(lower.lower(fg, device="cpu")),
+        "ShardedNonparametricSolver": lambda: multimodal.ShardedNonparametricSolver(fg, N=10),
+        "graft_entry.entry": lambda: graft_entry.entry(),
+        "graft_entry._build_chain_fixture": lambda: graft_entry._build_chain_fixture(30),
+        "dryrun_multichip": lambda: graft_entry.dryrun_multichip(1),
     }
 
 

@@ -51,6 +51,8 @@ def test_port_modules_mirror_the_slice():
         "factors.inertial", "factors.legacy_inertial", "factors.ode", "factors.fluxmix",
         "frontend.robot_utils", "frontend.odometry", "frontend.slam", "frontend.tracker",
         "frontend.navigation", "io.serialization", "io.blobstore", "services.scalar_fields",
+        "parallel", "parallel.distributed", "parallel.sharding", "parallel.varpart",
+        "parallel.multimodal", "graft_entry",
     ]:
         assert "rome_tpu_torch." + m in mods, m
     for src in ("pose2pose2_linearize.cu", "pairwise_logw.cu"):
