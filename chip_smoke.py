@@ -257,6 +257,48 @@
    (3 sweeps x 3 Gibbs sweeps x K = 3) and no logw launch; every rank ends
    with the same beliefs.
 
+4b. Fixed-order sums (``fixed_order_check``, after the kernel phases): on
+   citygrid's own LM inputs on the card, the ndchol assembly, the diagonal
+   of H and the gradient, each summed FIXED_ORDER_REPS times in the order
+   the symbolic plan fixes (ops/segment_sum.SegmentPlan), must give the
+   same bits every time; the atomic ``index_add_`` they replaced is run on
+   the same values and its distinct results reported. Phase 14 then gates
+   that its cold and warm ndchol runs take the same LM iterations to the
+   same final cost, bit for bit.
+
+23. vision_bundle_ladybug49 (``vision_bundle_path``): a bundle synthesized
+   at the counts of BAL's Ladybug problem-49-7776-pre: 49 Pose3 cameras 4 m
+   apart along a street, 7,776 Point3 landmarks on facades 4-30 m away,
+   31,843 GenericProjection factors (every landmark seen twice or more,
+   every depth > 0), 1 px noise, PriorPose3 on x0 and x1 (1e-3), started
+   0.05 m / 0.01 rad and 0.3 m off: the dense LM in float64 once (the
+   optimum; its reprojection RMSE within 0.8-1.2 px), then ndchol with the
+   big options less the dtol stop cold and warm (converged, cost <= 1.002 *
+   the optimum + 1e-3, landmark RMSE to it <= 1e-3 m); then
+   ``solve_multiview_landmark`` (retry 100, iters 50) on 128 seeded
+   landmarks started 2 m from the truth, each within 0.05 m of the
+   optimum's. No K1-K3 launch. Prints solve seconds, LM iterations, peak
+   memory, the generic linearize's ms per LM iteration, ndchol's largest
+   front, ms per triangulation.
+24. tcp_citygrid_10k (``tcp_path``): a TCPSLAMServer on 127.0.0.1 solving
+   on the card and a client in this process: INIT, citygrid's 13,085
+   EDGE_SE2 lines as ODOMETRY commands (covariance = inverse information),
+   BATCHSOLVE, GETPARTICLES of x0, x5000, x9999, QUIT. Gates: every reply
+   OK (or the particle rows); BATCHSOLVE's converged equal to a direct
+   solve of the same graph on the card, its poses within 1e-3 m of it; each
+   particle block N rows, its mean within 4 sigma / sqrt(N) of the pose; K1
+   launched. Prints the ATE to data/citygrid_gt.npz, seconds per session
+   phase, the linear solver picked.
+25. periphery (``periphery_path``): ``utils.profiling.trace`` around one
+   warm citygrid solve with ``annotate`` around the linearize and the linear
+   solve (the trace names both and K1's kernel); phase 23's PhaseTimer
+   rows; plot_slam2d of that solve and plot_kde of a beehive belief as PNGs
+   in chiprun_out/periphery/ (non-empty); predict_body_br, mahalanobis_br
+   and range_comp_all_poses on phase 6's beehive solve against its
+   parametric optimum; every examples/torch/*.py as a subprocess on the
+   card, all started together (exit 0; seconds each). The kernel table's K1
+   rows gain the TCP path's launches and phase 23's zeros.
+
 Exits non-zero, printing no result, when there is no CUDA device, when the
 package is missing, or when any phase fails.
 """
@@ -352,7 +394,9 @@ PATH_DRAWS = {"beehive_points": (81, 81), "honeycomb_grow_default": (1269, 279),
               # take the per-factor fallback, which leaves no Gauss-Seidel
               # routing, so three Jacobi sweeps of 3 x K_max = 6
               "dynpoint2_chain": (0, 3 * 3 * 22 + 3 * 9),
-              "fluxmix_pose2_chain": (3 * 6, 0)}
+              "fluxmix_pose2_chain": (3 * 6, 0),
+              # phase 23: a Pose3 x Point3 bundle, no Gibbs product at all
+              "vision_bundle_ladybug49": (0, 0)}
 # phase 12: the sphere graph (g2o's create_sphere layout, sphere2500's size)
 SPHERE_LAPS, SPHERE_PER_LAP, SPHERE_RADIUS_M = 50, 50, 100.0
 SPHERE_SIGMA_T, SPHERE_SIGMA_R = 0.05, 0.005
@@ -1386,10 +1430,11 @@ def beehive_graph(poses=BEEHIVE_POSES):
     return generate_graph_beehive(pose_count_target=poses, graphinit=False, seed=0)
 
 
-def beehive_path(card, device="cuda", poses=BEEHIVE_POSES, N=BEEHIVE_N):
+def beehive_path(card, device="cuda", poses=BEEHIVE_POSES, N=BEEHIVE_N, keep=None):
     """Three nonparametric solves (cold, warm, warm) of fresh beehive graphs,
     each gated against the parametric optimum; returns the run rows and the
-    K2/K3 launch counts of the path."""
+    K2/K3 launch counts of the path. ``keep``: a list that gets the last
+    solved graph and the optimum's graph (phase 25 reads them)."""
     import torch
 
     from rome_tpu_torch import solve_graph_nonparametric, solve_graph_parametric
@@ -1432,6 +1477,8 @@ def beehive_path(card, device="cuda", poses=BEEHIVE_POSES, N=BEEHIVE_N):
             se2_pairwise_logw=0, euclid_pairwise_logw=0, se2_gibbs_draw=per_solve,
             euclid_gibbs_draw=per_solve),
               f"{label} run: K2/K3 launches {launches}, expected {per_solve} draws each")
+    if keep is not None:
+        keep[:] = [fg, fp]
     return runs, _launches()
 
 
@@ -2264,6 +2311,10 @@ def imu_path(card, device="cuda", keyframes=IMU_KEYFRAMES, window=IMU_WINDOW, wa
             check(row["rmse_to_optimum_m"] <= IMU_OPT_GATE_M,
                   f"{label} run RMSE to the optimum {row['rmse_to_optimum_m']} > "
                   f"{IMU_OPT_GATE_M} m")
+        # the LM path sums in a fixed order: every run takes the same steps
+        check(len({(r["iterations"], r["final_cost"]) for r in runs}) == 1,
+              "the ndchol runs differ: " + json.dumps(
+                  [(r["iterations"], repr(r["final_cost"])) for r in runs]))
     finally:
         timer.unwrap()
     launches = _launches()
@@ -2603,6 +2654,25 @@ def citygrid_stream(poses, path=CITYGRID):
                 odo.setdefault(k, t)
     check(all(k in odo for k in range(1, poses)), "citygrid stream: a pose without its odometry")
     return [(k, odo[k], edges[k]) for k in range(1, poses)]
+
+
+def write_stream_g2o(path, poses, src=CITYGRID):
+    """Citygrid's first ``poses`` poses as a g2o stream in time order: each
+    VERTEX_SE2 line followed by the EDGE_SE2 lines whose larger endpoint it
+    is (file order), the order an incremental or fixed-lag example reads.
+    Returns the number of lines written."""
+    vertex, edges = {}, defaultdict(list)
+    with open(src) as fh:
+        for line in fh:
+            t = line.split()
+            if t and t[0] == "VERTEX_SE2" and int(t[1]) < poses:
+                vertex[int(t[1])] = line.strip()
+            elif t and t[0] == "EDGE_SE2" and max(int(t[1]), int(t[2])) < poses:
+                edges[max(int(t[1]), int(t[2]))].append(line.strip())
+    lines = [ln for k in range(poses) for ln in [vertex[k]] + edges[k]]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return len(lines)
 
 
 def port_api():
@@ -3795,6 +3865,582 @@ def _check_path_inputs(card, runs, device):
     return out
 
 
+# phase 23, vision_bundle_ladybug49: the counts of BAL's Ladybug problem
+# problem-49-7776-pre (Agarwal, Snavely, Seitz and Szeliski, "Bundle
+# Adjustment in the Large", ECCV 2010, grail.cs.washington.edu/projects/bal),
+# synthesized (the data file is not in the repository): 49 Pose3 cameras 4 m
+# apart along a street, looking at its left facades, 7,776 Point3 landmarks
+# on facades 4-30 m away, 31,843 GenericProjection sightings, the default
+# CameraCalibration (640 x 480, f = 510 px), pixel noise 1 px
+BUNDLE_CAMERAS, BUNDLE_POINTS, BUNDLE_OBS = 49, 7776, 31843
+BUNDLE_SPACING_M, BUNDLE_DEPTH_M, BUNDLE_HEIGHT_M = 4.0, (4.0, 30.0), (-1.5, 8.0)
+BUNDLE_PIXEL_SIGMA, BUNDLE_PRIOR_SIGMA = 1.0, 1e-3   # px; the gauge priors on x0, x1
+BUNDLE_CAM_NOISE, BUNDLE_POINT_NOISE_M = (0.05, 0.01), 0.3   # the start: (m, rad); m
+BUNDLE_SEED = 49
+# ndchol with the big options less the dtol stop: dtol_auto reads its metric
+# scale from the arity-2 batch's z, here a pixel coordinate of about 320, so
+# the stop would fire at once (the rule IMU_BIG works around; a fault of the
+# reference, ROADMAP.md section 3)
+BUNDLE_BIG = IMU_BIG
+BUNDLE_LANDMARK_GATE_M = 1e-3
+# sqrt(mean squared pixel distance) at the optimum: 2 sigma^2 (1 - D / 2M)
+# = 1.12 px expected for 1 px noise per axis
+BUNDLE_REPROJ_GATE_PX = (0.8, 1.2)
+MULTIVIEW_SAMPLE, MULTIVIEW_RETRY, MULTIVIEW_ITERS = 128, 100, 50
+MULTIVIEW_OFFSET_M, MULTIVIEW_GATE_M = 2.0, 0.05
+# phase 24, tcp_citygrid_10k: the server's particles per GETPARTICLES block
+TCP_N = 100
+TCP_LABELS = ("x0", "x5000", "x9999")
+TCP_POSE_GATE_M = 1e-3
+# phase 25: the torch examples' subprocesses, started together
+EXAMPLE_TIMEOUT_S = 300
+
+
+# --- fixed-order sums (the LM path's scatters without atomics) ----------------
+
+FIXED_ORDER_REPS = 8
+
+
+def fixed_order_check(card, device="cuda", g2o=CITYGRID):
+    """The fixed-order sums on the card, on citygrid's own LM inputs: the
+    ndchol assembly (``sum_asm``), the diagonal of H and the gradient
+    (``TangentScatter``) repeated FIXED_ORDER_REPS times give the same bits
+    every time; the atomic ``index_add_`` they replaced, fed the same
+    values, is reported (how many distinct results). Each fixed-order sum
+    within 1e-9 relative of the float64 sum of its terms."""
+    import torch
+
+    from rome_tpu_torch.graph.lower import lower
+    from rome_tpu_torch.solvers import gauss_newton as GN
+    from rome_tpu_torch.solvers import linearize as L
+    from rome_tpu_torch.solvers.sparse import ndchol_assemble
+
+    fg = build_graph(g2o)
+    ga = lower(fg, device=device)
+    ga64 = copy.copy(ga)
+    ga64.dtype = torch.float64
+    rt = L.runtime_state(ga)
+    values = {t: v.to(torch.float64) for t, v in ga.values0.items()}
+    lins, parts = L.linearize_all_mixed_j(ga64, ga, values, rt)
+    sym, nd = GN._symbolic_plan(ga, BIG["nd_leaf"])
+    vals = L.normal_eq_entry_values(ga64, lins, dtype=torch.float32, parts=parts)
+    fvec = L.free_vector(ga).to(torch.float32)
+    scatter = L.TangentScatter.of(ga, rt["vslots"])
+    rt_s = dict(rt, scatter=scatter)
+
+    def diag():
+        return nd["sum_diag"].add_(torch.zeros(sym.D, dtype=torch.float32, device=device), vals)
+
+    def fronts():
+        d = torch.rsqrt(torch.clamp(diag() * 1.001, min=1e-12)) * fvec
+        return torch.cat([W.reshape(-1) for W in ndchol_assemble(sym, nd, vals, d, 1.0 - fvec)])
+
+    def grad():
+        g = L.gradient_from_lins(ga64, lins, rt_s, parts=parts)
+        return torch.cat([g[t].reshape(-1) for t in ga.type_names])
+
+    def atomic_diag():
+        return torch.zeros(sym.D, dtype=torch.float32, device=device).index_add_(
+            0, nd["diag_dst"], vals[nd["diag_src"]])
+
+    out = {}
+    for name, fn in (("diag", diag), ("fronts", fronts), ("gradient", grad),
+                     ("atomic_index_add_diag", atomic_diag)):
+        runs = [fn() for _ in range(FIXED_ORDER_REPS)]
+        _sync(device)
+        distinct = len({r.cpu().numpy().tobytes() for r in runs})
+        out[name] = dict(distinct_results=distinct, n=int(runs[0].numel()))
+        if not name.startswith("atomic"):
+            check(distinct == 1, f"fixed-order {name}: {distinct} distinct results in "
+                                 f"{FIXED_ORDER_REPS} runs")
+    want = torch.zeros(sym.D, dtype=torch.float64, device=device).index_add_(
+        0, nd["diag_dst"], vals[nd["diag_src"]].double())
+    err = float(((diag().double() - want).abs() / want.abs().clamp(min=1e-30)).max())
+    out["diag"]["max_rel_err_vs_f64"] = err
+    check(err <= 1e-6, f"fixed-order diagonal {err} relative from the float64 sum")
+    out["plans"] = dict(asm_max_run=nd["sum_asm"].max_run,
+                        ea_pairs=len(sym.ea_pairs), fea_pairs=len(sym.fea_pairs),
+                        tangent_max_run={t: p.max_run for t, p in scatter.plans.items()})
+    print(f"[{card}] fixed-order sums on citygrid's LM inputs ({FIXED_ORDER_REPS} runs each): "
+          + json.dumps(out))
+    return out
+
+
+# --- phase 23: vision_bundle_ladybug49 ------------------------------------------
+
+def _rot(axis, a):
+    c, s = np.cos(a), np.sin(a)
+    R = np.zeros(np.shape(a) + (3, 3))
+    i, j = [(1, 2), (2, 0), (0, 1)][axis]
+    R[..., axis, axis] = 1.0
+    R[..., i, i], R[..., i, j], R[..., j, i], R[..., j, j] = c, -s, s, c
+    return R
+
+
+def bundle_scene(cameras=BUNDLE_CAMERAS, points=BUNDLE_POINTS, obs=BUNDLE_OBS,
+                 seed=BUNDLE_SEED):
+    """A seeded street scene at BAL problem-49-7776-pre's counts: ``cameras``
+    world-from-camera poses (t, q wxyz) BUNDLE_SPACING_M apart along x, each
+    looking at the left façades (+y) with a little yaw and pitch,
+    ``points`` façade points BUNDLE_DEPTH_M away, and exactly ``obs``
+    sightings (every point seen by at least two cameras, in front of each,
+    inside the 640 x 480 image), pixels with BUNDLE_PIXEL_SIGMA noise."""
+    import torch
+
+    from rome_tpu_torch.manifolds import quat as Q
+    from rome_tpu_torch.vision import CameraCalibration
+
+    rng = np.random.default_rng(seed)
+    cal = CameraCalibration()
+    K = cal.K
+    # camera axes in the world: x right = +x, y down = -z, z forward = +y
+    R0 = np.array([[1.0, 0, 0], [0, 0, 1], [0, -1, 0]])
+    R = _rot(2, rng.uniform(-0.1, 0.1, cameras)) @ _rot(0, rng.uniform(-0.05, 0.05, cameras)) @ R0
+    t = np.stack([np.arange(cameras) * BUNDLE_SPACING_M, rng.normal(0, 0.3, cameras),
+                  rng.normal(0, 0.1, cameras)], axis=1)
+    n = 4 * points
+    P = np.stack([rng.uniform(-10.0, (cameras - 1) * BUNDLE_SPACING_M + 10.0, n),
+                  rng.uniform(*BUNDLE_DEPTH_M, n), rng.uniform(*BUNDLE_HEIGHT_M, n)], axis=1)
+    c = np.einsum("cji,cpj->cpi", R, P[None] - t[:, None])
+    uvw = c @ K.T
+    px = uvw[..., :2] / uvw[..., 2:3]
+    vis = ((c[..., 2] > 0) & (px[..., 0] >= 0) & (px[..., 0] < cal.width)
+           & (px[..., 1] >= 0) & (px[..., 1] < cal.height))
+    good = np.nonzero(vis.sum(0) >= 2)[0]
+    check(len(good) >= points, f"bundle scene: {len(good)} points seen twice, {points} needed")
+    pick = np.sort(rng.permutation(good)[:points])
+    vis, px, P = vis[:, pick], px[:, pick], P[pick]
+    cam_i, pt_i = np.nonzero(vis.T)[::-1]           # sightings ordered by point
+    check(len(cam_i) >= obs, f"bundle scene: {len(cam_i)} sightings, {obs} needed")
+    # keep two random sightings of every point, then random others up to obs
+    key = rng.random(len(cam_i))
+    order = np.lexsort((key, pt_i))
+    first = np.r_[0, np.nonzero(np.diff(pt_i[order]))[0] + 1]
+    rank = np.arange(len(order)) - np.repeat(first, np.diff(np.r_[first, len(order)]))
+    must, extra = order[rank < 2], order[rank >= 2]
+    keep = np.sort(np.r_[must, rng.permutation(extra)[: obs - len(must)]])
+    cam_i, pt_i = cam_i[keep], pt_i[keep]
+    pix = px[cam_i, pt_i] + rng.normal(0, BUNDLE_PIXEL_SIGMA, (len(keep), 2))
+    q = Q.qfrom_matrix(torch.as_tensor(R)).numpy()
+    return dict(cams=np.concatenate([t, q], axis=1), points=P, cam=cam_i, pt=pt_i,
+                pixels=pix, K=K)
+
+
+def bundle_graph(mod, scene, seed=BUNDLE_SEED + 1):
+    """The scene as a FactorGraph of ``mod`` (the port): Pose3 x0.., Point3
+    l0.., a GenericProjection per sighting (sigma BUNDLE_PIXEL_SIGMA), a
+    PriorPose3 on x0 and x1 at the truth (sigma BUNDLE_PRIOR_SIGMA); cameras
+    started BUNDLE_CAM_NOISE (m, rad) and points BUNDLE_POINT_NOISE_M from
+    the truth."""
+    import torch
+
+    from rome_tpu_torch.manifolds import quat as Q
+    from rome_tpu_torch.manifolds.base import SE3_
+    from rome_tpu_torch.vision import CameraCalibration, GenericProjection
+
+    rng = np.random.default_rng(seed)
+    cal = CameraCalibration()
+    fg = mod.FactorGraph()
+    fg.params.graphinit = False
+    cams, P = scene["cams"], scene["points"]
+    for k in range(len(cams)):
+        fg.add_variable(f"x{k}", mod.Pose3)
+    for j in range(len(P)):
+        fg.add_variable(f"l{j}", mod.Point3)
+    for k in (0, 1):
+        z = SE3_.log(torch.as_tensor(cams[k])).numpy()
+        fg.add_factor([f"x{k}"], mod.PriorPose3(mod.MvNormal(
+            z, np.eye(6) * BUNDLE_PRIOR_SIGMA ** 2)))
+    cov = np.eye(2) * BUNDLE_PIXEL_SIGMA ** 2
+    for k, j, z in zip(scene["cam"], scene["pt"], scene["pixels"]):
+        fg.add_factor([f"x{k}", f"l{j}"], GenericProjection(cal, mod.MvNormal(z, cov)))
+    dq = Q.qexp(torch.as_tensor(rng.normal(0, BUNDLE_CAM_NOISE[1], (len(cams), 3))))
+    q0 = Q.qmul(torch.as_tensor(cams[:, 3:]), dq).numpy()
+    t0 = cams[:, :3] + rng.normal(0, BUNDLE_CAM_NOISE[0], (len(cams), 3))
+    for k in range(len(cams)):
+        fg.set_point(f"x{k}", np.r_[t0[k], q0[k]])
+    P0 = P + rng.normal(0, BUNDLE_POINT_NOISE_M, P.shape)
+    for j in range(len(P)):
+        fg.set_point(f"l{j}", P0[j])
+    return fg
+
+
+def _bundle_points(fg, prefix, n):
+    return np.stack([fg.get_point(f"{prefix}{i}") for i in range(n)])
+
+
+def reprojection_rmse(scene, cams, points):
+    """sqrt(mean over sightings of the squared pixel distance) between the
+    measured pixels and the projection of ``points`` by ``cams``."""
+    import torch
+
+    from rome_tpu_torch.manifolds import quat as Q
+
+    R = Q.qto_matrix(torch.as_tensor(cams[:, 3:])).numpy()
+    c = np.einsum("nji,nj->ni", R[scene["cam"]], points[scene["pt"]] - cams[scene["cam"], :3])
+    uvw = c @ scene["K"].T
+    e = scene["pixels"] - uvw[:, :2] / uvw[:, 2:3]
+    return float(np.sqrt(np.mean(np.sum(e * e, axis=1)))), float(c[:, 2].min())
+
+
+def vision_bundle_path(card, device="cuda", cameras=BUNDLE_CAMERAS, points=BUNDLE_POINTS,
+                       obs=BUNDLE_OBS, sample=MULTIVIEW_SAMPLE, timer=None):
+    """Phase 23, ``vision_bundle_ladybug49``: the synthesized bundle
+    (``bundle_scene``) solved through solve_graph_parametric on ``device``:
+    LM with the dense Cholesky in float64 once (the reference optimum, its
+    reprojection RMSE within BUNDLE_REPROJ_GATE_PX), then ndchol with
+    BUNDLE_BIG cold and warm, each converged, cost <= 1.002 * the optimum +
+    1e-3 and landmark RMSE to the optimum <= BUNDLE_LANDMARK_GATE_M; then
+    ``solve_multiview_landmark`` (MULTIVIEW_RETRY restarts, MULTIVIEW_ITERS
+    iterations) on ``sample`` seeded landmarks started MULTIVIEW_OFFSET_M
+    from the truth, each within MULTIVIEW_GATE_M of the optimum's. K1-K3
+    launch 0 times. ``timer``: a profiling.PhaseTimer for the steps.
+    Returns (result, launches)."""
+    import torch
+
+    import rome_tpu_torch as T
+    from rome_tpu_torch.graph.lower import lower
+    from rome_tpu_torch.solvers import gauss_newton as GN
+    from rome_tpu_torch.utils.profiling import PhaseTimer
+    from rome_tpu_torch.vision import solve_multiview_landmark
+
+    timer = timer if timer is not None else PhaseTimer(device=device)
+    _reset_launches()
+    with timer.phase("build"):
+        scene = bundle_scene(cameras, points, obs)
+        fg0 = bundle_graph(T, scene)
+    dof = 6 * cameras + 3 * points
+    rmse_truth = reprojection_rmse(scene, scene["cams"], scene["points"])[0]
+    print(f"[{card}] vision_bundle_ladybug49: {cameras} cameras, {points} landmarks, "
+          f"{len(scene['cam'])} GenericProjection factors, {dof} dof; reprojection RMSE "
+          f"at the truth {rmse_truth:.4f} px")
+    check(len(scene["cam"]) == obs and np.bincount(scene["pt"]).min() >= 2,
+          "the scene's sightings miss their counts")
+    lin = LinearizeTimer(torch, device)
+    try:
+        fg = copy.deepcopy(fg0)
+        with timer.phase("dense_f64"):
+            res, wall, peak = _solve_timed(fg, T.GNOptions(**SPHERE_DENSE), device,
+                                           torch.float64)
+        st = res["stats"]
+        opt_c, opt_p = _bundle_points(fg, "x", cameras), _bundle_points(fg, "l", points)
+        reproj, min_depth = reprojection_rmse(scene, opt_c, opt_p)
+        dense = dict(iterations=st.iterations, converged=st.converged, reason=st.reason,
+                     final_cost=st.final_cost, wall_s=wall, solve_time_s=res["solve_time_s"],
+                     peak_device_gib=peak, reprojection_rmse_px=reproj, min_depth_m=min_depth,
+                     landmark_rmse_to_truth_m=_rmse(opt_p, scene["points"]),
+                     linearize=lin.per_iteration(device, st.iterations))
+        print(f"[{card}] vision_bundle_ladybug49 dense f64 reference: " + json.dumps(dense))
+        check(st.converged and np.isfinite(opt_p).all(), "the dense reference did not converge")
+        lo, hi = BUNDLE_REPROJ_GATE_PX
+        check(lo <= reproj <= hi, f"the optimum's reprojection RMSE {reproj} px is outside "
+                                  f"{BUNDLE_REPROJ_GATE_PX}")
+        check(min_depth > 0, f"the optimum puts a landmark behind a camera ({min_depth} m)")
+        runs = []
+        for label in ("cold", "warm"):
+            f2 = copy.deepcopy(fg0)
+            with timer.phase(f"ndchol_{label}"):
+                res, wall, peak = _solve_timed(f2, T.GNOptions(**BUNDLE_BIG), device)
+            st = res["stats"]
+            pts = _bundle_points(f2, "l", points)
+            row = dict(run=label, iterations=st.iterations, converged=st.converged,
+                       reason=st.reason, final_cost=st.final_cost, ref_cost=dense["final_cost"],
+                       landmark_rmse_to_optimum_m=_rmse(pts, opt_p),
+                       camera_rmse_to_optimum_m=_rmse(_bundle_points(f2, "x", cameras)[:, :3],
+                                                      opt_c[:, :3]),
+                       solve_time_s=res["solve_time_s"], wall_s=wall, peak_device_gib=peak,
+                       linear=res["linear_solver"],
+                       linearize=lin.per_iteration(device, st.iterations))
+            runs.append(row)
+            print(f"[{card}] vision_bundle_ladybug49 ndchol {label}: " + json.dumps(row))
+            check(np.isfinite(pts).all(), "landmarks not finite")
+            check(st.converged, f"{label} run did not converge ({st.reason})")
+            check(st.final_cost <= dense["final_cost"] * 1.002 + 1e-3,
+                  f"{label} run cost {st.final_cost} > 1.002 * {dense['final_cost']}")
+            check(row["landmark_rmse_to_optimum_m"] <= BUNDLE_LANDMARK_GATE_M,
+                  f"{label} run landmark RMSE to the optimum "
+                  f"{row['landmark_rmse_to_optimum_m']} > {BUNDLE_LANDMARK_GATE_M} m")
+    finally:
+        lin.unwrap()
+    sym, _nd = GN._symbolic_plan(lower(fg0, device=device), BUNDLE_BIG["nd_leaf"])
+    rng = np.random.default_rng(BUNDLE_SEED + 2)
+    picks = np.sort(rng.choice(points, sample, replace=False))
+    errs, ms = [], []
+    with timer.phase("multiview"):
+        for j in picks:
+            d = rng.normal(size=3)
+            fg.set_point(f"l{j}", scene["points"][j] + MULTIVIEW_OFFSET_M * d / np.linalg.norm(d))
+            _sync(device)
+            t0 = time.time()
+            got = solve_multiview_landmark(fg, f"l{j}", retry=MULTIVIEW_RETRY,
+                                           iters=MULTIVIEW_ITERS, seed=int(j), device=device)
+            ms.append(1e3 * (time.time() - t0))
+            errs.append(float(np.linalg.norm(got - opt_p[j])))
+    multiview = dict(landmarks=int(sample), retry=MULTIVIEW_RETRY, iters=MULTIVIEW_ITERS,
+                     max_err_to_optimum_m=max(errs), mean_err_to_optimum_m=float(np.mean(errs)),
+                     ms_per_call_mean=float(np.mean(ms)), ms_per_call_median=float(np.median(ms)))
+    print(f"[{card}] vision_bundle_ladybug49 multiview: " + json.dumps(multiview))
+    check(max(errs) <= MULTIVIEW_GATE_M,
+          f"a triangulated landmark is {max(errs)} m from the optimum's, gate {MULTIVIEW_GATE_M}")
+    launches = _launches()
+    check(device != "cuda" or all(v == 0 for v in launches.values()),
+          f"the bundle path launched K1-K3: {launches}")
+    return dict(cameras=cameras, landmarks=points, factors=len(scene["cam"]), dof=dof,
+                reprojection_rmse_at_truth_px=rmse_truth, dense=dense, runs=runs,
+                multiview=multiview, ndchol_max_front=int(sym.stats["max_front"]),
+                ndchol_levels=int(sym.nlev), phases=timer.rows()), launches
+
+
+# --- phase 24: tcp_citygrid_10k ----------------------------------------------------
+
+def citygrid_commands(path=CITYGRID):
+    """INIT, then every EDGE_SE2 line of ``path`` as an ODOMETRY command in
+    file order, its covariance the inverse of the line's information."""
+    cmds = ["INIT"]
+    with open(path) as fh:
+        for line in fh:
+            t = line.split()
+            if not t or t[0] != "EDGE_SE2":
+                continue
+            c = edge_cov(t)
+            cmds.append("ODOMETRY {} {} {} {} {} ".format(*t[1:6]) + " ".join(
+                repr(float(v)) for v in (c[0, 0], c[0, 1], c[0, 2], c[1, 1], c[1, 2], c[2, 2])))
+    return cmds
+
+
+def tcp_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT, labels=TCP_LABELS,
+             N=TCP_N):
+    """Phase 24, ``tcp_citygrid_10k``: a TCPSLAMServer on 127.0.0.1 with its
+    solves on ``device`` and a client in this process: INIT, citygrid's
+    EDGE_SE2 lines as ODOMETRY commands, BATCHSOLVE, GETPARTICLES of
+    ``labels``, QUIT. Gates: every reply OK or particle rows; BATCHSOLVE's
+    converged equal to a direct solve_graph_parametric of the same graph (the
+    same commands replayed into a session in this process), its poses within
+    TCP_POSE_GATE_M of that solve; each GETPARTICLES block N rows, its mean
+    within 4 sigma / sqrt(N) of the pose (sigma from the session's marginal
+    covariance); K1 launched. Returns (result, launches)."""
+    import torch
+
+    from rome_tpu_torch import solve_graph_parametric
+    from rome_tpu_torch.graph.lower import lower
+    from rome_tpu_torch.interop import TCPSLAMClient, TCPSLAMServer
+    from rome_tpu_torch.interop.tcp_server import _SLAMSession
+    from rome_tpu_torch.solvers.gauss_newton import marginal_covariances
+
+    cmds = citygrid_commands(g2o)
+    _reset_launches()
+    server = TCPSLAMServer(port=0, N=N, device=device)
+    server.serve_background()
+    secs, replies, blocks = {}, [], {}
+    try:
+        cl = TCPSLAMClient(port=server.server_address[1])
+        t0 = time.time()
+        replies = [cl.send_cmd(c) for c in cmds]
+        secs["send"] = time.time() - t0
+        t0 = time.time()
+        replies.append(cl.send_cmd("BATCHSOLVE"))
+        secs["solve"] = time.time() - t0
+        t0 = time.time()
+        for lbl in labels:
+            reply = cl.send_cmd(f"GETPARTICLES {lbl}")
+            blocks[lbl] = reply
+        secs["covariances"] = time.time() - t0
+        cl.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+    launches = _launches()
+    bad = [r for r in replies if not r.startswith("OK")]
+    check(not bad, f"{len(bad)} replies not OK, the first: {bad[:1]}")
+    (session,) = server.sessions
+    solved = session.last_solve
+    check(solved is not None, "the session ran no BATCHSOLVE")
+    # the same graph, solved directly
+    direct = _SLAMSession(N=N, device=device)
+    for c in cmds:
+        direct.handle(c)
+    direct.fg.init_all()
+    t0 = time.time()
+    ref = solve_graph_parametric(direct.fg, init=False, device=device)
+    _sync(device)
+    secs["direct_solve"] = time.time() - t0
+    n = len(session.fg.ls(r"^x\d+$"))
+    got = np.stack([session.fg.get_coords(f"x{i}") for i in range(n)])
+    want = np.stack([direct.fg.get_coords(f"x{i}") for i in range(n)])
+    gap = float(np.abs(got[:, :2] - want[:, :2]).max())
+    gt = np.load(gt_file)
+    ate = ate_values(got, gt["poses"])
+    check(replies[-1] == f"OK BATCHSOLVE converged={ref['stats'].converged}",
+          f"BATCHSOLVE replied {replies[-1]!r}; the direct solve converged="
+          f"{ref['stats'].converged}")
+    check(gap <= TCP_POSE_GATE_M, f"the session's poses are {gap} m from the direct solve's")
+    ga = lower(session.fg, device=device)
+    covs = marginal_covariances(ga, ga.values0)["Pose2"]
+    particles = {}
+    for lbl, reply in blocks.items():
+        rows = np.array([[float(v) for v in r.split(",")] for r in reply.rstrip(";").split(";")])
+        rec = session.fg.variables[lbl]
+        sigma = np.sqrt(np.diag(covs[rec.slot].double().cpu().numpy()))
+        dev_ = np.abs(rows.mean(0) - session.fg.get_coords(lbl))
+        particles[lbl] = dict(rows=len(rows), mean_offset=dev_.tolist(), sigma=sigma.tolist())
+        check(rows.shape == (N, 3) and np.isfinite(rows).all(), f"{lbl}: particle rows {rows.shape}")
+        check(np.all(dev_ <= 4 * sigma / np.sqrt(N)),
+              f"{lbl}: particle mean {dev_} from the pose, more than 4 sigma / sqrt(N)")
+    check(device != "cuda" or launches["k1_lin"] + launches["k1_normal"] > 0,
+          f"the TCP path did not launch K1: {launches}")
+    st = solved["stats"]
+    out = dict(commands=len(cmds) + 2 + len(labels), poses=n, seconds=secs,
+               iterations=st.iterations, converged=st.converged, reason=st.reason,
+               final_cost=st.final_cost, direct_iterations=ref["stats"].iterations,
+               direct_final_cost=ref["stats"].final_cost, linear=solved["linear_solver"],
+               max_pose_gap_to_direct_m=gap, ate_rmse_m=ate, particles=particles,
+               launches=launches)
+    print(f"[{card}] tcp_citygrid_10k: " + json.dumps(out))
+    return out, launches
+
+
+# --- phase 25: periphery -------------------------------------------------------------
+
+EXAMPLE_RUNS = {
+    # each example's own sizes: the whole file for the batch examples, the
+    # examples' default instruction caps (300) for the streams
+    "hexagonal2d_slam": [],
+    "live_slam": [],
+    "tcp_interop": [],
+    "manhattan_batch": ["{citygrid}", "{out}/manhattan_batch"],
+    "mit_batch": ["{citygrid}", "{out}/mit_batch"],
+    "manhattan_fixedlag": ["{stream}"],
+    "manhattan_incremental": ["{stream}", "300", "10", "{out}/manhattan_incremental"],
+}
+
+
+def run_examples(card, out_dir, device="cuda", g2o=CITYGRID, poses=10000,
+                 timeout=EXAMPLE_TIMEOUT_S):
+    """Every examples/torch/*.py as a subprocess on ``device``, all started
+    together (``g2o`` for the batch examples, its time-ordered stream of
+    ``poses`` poses for the stream examples). Each must exit 0. Returns
+    {name: seconds}."""
+    os.makedirs(out_dir, exist_ok=True)
+    stream = os.path.join(out_dir, "citygrid_stream.g2o")
+    write_stream_g2o(stream, poses, src=g2o)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    procs = {}
+    for name, args in EXAMPLE_RUNS.items():
+        argv = [a.format(citygrid=g2o, stream=stream, out=out_dir) for a in args]
+        log = open(os.path.join(out_dir, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "examples", "torch", f"{name}.py"), *argv,
+             "--device", device], cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT),
+            log, time.time())
+    secs, failed, start = {}, [], time.time()
+    while procs:
+        for name, (p, log, t0) in list(procs.items()):
+            rc = p.poll()
+            if rc is None and time.time() - start > timeout:
+                p.kill()
+                rc = p.wait()
+            if rc is not None:
+                secs[name] = time.time() - t0
+                log.close()
+                del procs[name]
+                if rc != 0:
+                    failed.append((name, rc))
+        time.sleep(0.05)
+    print(f"[{card}] examples/torch: " + json.dumps({k: round(v, 2) for k, v in secs.items()}))
+    for name, rc in failed:
+        with open(os.path.join(out_dir, f"{name}.log")) as fh:
+            print(f"--- {name} (exit {rc})\n" + fh.read()[-3000:])
+    check(not failed, f"examples failed: {failed}")
+    return secs
+
+
+def periphery_path(card, bundle_phases, bee_keep, device="cuda", out_dir=None,
+                   g2o=CITYGRID, gt_file=CITYGRID_GT, examples=True):
+    """Phase 25, ``periphery``: a profiler trace of one warm citygrid solve
+    with ``annotate`` around the linearize and the linear solve (the trace,
+    in build/periphery_trace/, must name both and K1's kernel); phase 23's
+    PhaseTimer rows; the citygrid
+    solve's plot_slam2d and one beehive belief's plot_kde as PNGs; the
+    analysis helpers on phase 6's beehive solve against its parametric
+    optimum; every torch example as a subprocess. Returns the result."""
+    from rome_tpu_torch import GNOptions, solve_graph_parametric
+    from rome_tpu_torch.services import analysis as A
+    from rome_tpu_torch.services import plotting
+    from rome_tpu_torch.solvers import gauss_newton as GN
+    from rome_tpu_torch.utils.profiling import annotate, trace
+
+    out_dir = out_dir or os.path.join(HERE, "chiprun_out", "periphery")
+    os.makedirs(out_dir, exist_ok=True)
+    fg = build_graph(g2o)
+    wrapped = [(GN, "linearize_all_mixed_j", "lm.linearize"),
+               (GN.ParametricSolver, "_linear_solve", "lm.linear_solve")]
+    saved = []
+    for owner, name, label in wrapped:
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+
+        def annotated(*a, _fn=fn, _label=label, **kw):
+            with annotate(_label):
+                return _fn(*a, **kw)
+
+        setattr(owner, name, annotated)
+    try:
+        # the trace stays out of chiprun_out/ (tens of MB at this size)
+        with trace(os.path.join(HERE, "build", "periphery_trace")) as logdir:
+            res = solve_graph_parametric(fg, init=False, options=GNOptions(**BIG),
+                                         chordal_init=True, device=device)
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    path = os.path.join(logdir, "trace.json")
+    with open(path) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    k1_named = any("pose2pose2_kernel" in n for n in names)
+    traced = dict(file=os.path.relpath(path, HERE), bytes=os.path.getsize(path),
+                  events=len(names), annotations=sorted(n for n in names if n.startswith("lm.")),
+                  k1_kernel_named=k1_named, iterations=res["stats"].iterations)
+    print(f"[{card}] periphery trace: " + json.dumps(traced))
+    check({"lm.linearize", "lm.linear_solve"} <= names, "the trace lacks the annotations")
+    check(device != "cuda" or k1_named, "the trace does not name K1's kernel")
+    print(f"[{card}] periphery: PhaseTimer rows of phase 23: " + json.dumps(bundle_phases))
+    gt = np.load(gt_file)
+    pngs = {"citygrid_slam2d.png": lambda p: plotting.plot_slam2d(
+        fg, path=p, title="citygrid_10k", gt=gt["poses"])}
+    bee, bee_truth = bee_keep
+    mid = f"x{len(bee.ls(r'^x[0-9]+$')) // 2}"
+    pngs[f"beehive_{mid}_kde.png"] = lambda p: plotting.plot_kde(
+        bee.variables[mid].beliefs["default"], path=p)
+    try:
+        import matplotlib  # noqa: F401 -- plotting's one dependency beyond torch
+    except ImportError:
+        # the machine with the card may lack it: the figures are then drawn
+        # by the CPU tests only (tests/test_torch_plotting.py)
+        sizes = "not drawn: matplotlib is not installed on this machine"
+        print(f"[{card}] periphery: {sizes}")
+    else:
+        sizes = {}
+        for name, draw in pngs.items():
+            p = os.path.join(out_dir, name)
+            draw(p)
+            sizes[name] = os.path.getsize(p)
+            check(sizes[name] > 0, f"{name} is empty")
+    b_np = A.predict_body_br(bee, "x0", "l1")
+    b_opt = A.predict_body_br(bee_truth, "x0", "l1", solve_key="parametric")
+    errs = A.range_comp_all_poses(bee, bee_truth)
+    analysis = dict(predict_body_br_belief=b_np, predict_body_br_optimum=b_opt,
+                    mahalanobis_br=A.mahalanobis_br(b_np, b_opt, np.diag([0.05 ** 2, 0.5 ** 2])),
+                    range_comp_all_poses_mean_m=float(errs.mean()),
+                    range_comp_all_poses_max_m=float(errs.max()), poses=int(len(errs)))
+    print(f"[{card}] periphery analysis on the beehive solve: " + json.dumps(analysis))
+    check(len(errs) == len(bee_truth.ls(r"^x\d+$")) and np.isfinite(errs).all(),
+          "range_comp_all_poses: poses missing or not finite")
+    check(errs.mean() < BEEHIVE_GATE_M, f"beehive mean range error {errs.mean()} m")
+    ex = run_examples(card, os.path.join(out_dir, "examples"), device, g2o,
+                      len(gt["poses"])) if examples else {}
+    return dict(trace=traced, phase23_rows=bundle_phases, pngs=sizes, analysis=analysis,
+                examples_s=ex)
+
+
 def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path, dist_by_rank,
                  path_inputs):
     """The kernels JSON line: K1 by its two epilogues (normal launched by the
@@ -3899,6 +4545,7 @@ def main():
     bytes_per_s = stream_bandwidth(card)
     k1 = kernel_phase(card, bytes_per_s)
     k23 = pairwise_phase(card, bytes_per_s)
+    fixed_order = fixed_order_check(card)
     runs, launches = main_path(card)
     warm = [r["solve_time_s"] for r in runs[1:]]
     print(f"[{card}] citygrid_10k: cold {runs[0]['solve_time_s']:.3f} s, warm "
@@ -3907,7 +4554,8 @@ def main():
     t0 = time.time()
     params, param_launches = parametric_solvers_path(card)
     print(parametric_summary(card, params, param_launches, time.time() - t0))
-    bee, bee_launches = beehive_path(card)
+    bee_keep = []
+    bee, bee_launches = beehive_path(card, keep=bee_keep)
     secs = ", ".join(f"{r['solve_time_s']:.3f}" for r in bee)
     errs = ", ".join(f"{r['mean_pose_err_m']:.4f}" for r in bee)
     print(f"[{card}] beehive_{BEEHIVE_POSES} N={BEEHIVE_N}: solves (cold, warm, warm) "
@@ -3961,6 +4609,21 @@ def main():
     t0 = time.time()
     dist, dist_by_rank = distributed_path(card, distributed_inputs(card))
     print(f"[{card}] distributed phases 20-22: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    bundle, bundle_launches = vision_bundle_path(card)
+    print(f"[{card}] vision_bundle_ladybug49: {time.time() - t0:.1f} s, "
+          f"launches {bundle_launches}")
+    np_paths["vision_bundle_ladybug49"] = ({"phase": 23}, bundle_launches)
+    param_launches["vision_bundle_ladybug49"] = {
+        epi: bundle_launches[f"k1_{epi}"] for epi in ("lin", "normal")}
+    t0 = time.time()
+    tcp, tcp_launches = tcp_path(card)
+    print(f"[{card}] tcp_citygrid_10k: {time.time() - t0:.1f} s, launches {tcp_launches}")
+    param_launches["tcp_citygrid_10k"] = {
+        epi: tcp_launches[f"k1_{epi}"] for epi in ("lin", "normal")}
+    t0 = time.time()
+    periphery = periphery_path(card, bundle["phases"], bee_keep)
+    print(f"[{card}] periphery: {time.time() - t0:.1f} s")
     for name, key in (("fixedlag_citygrid_3500", "fixedlag"),
                       ("fixedlag_batch_optimum", "fixedlag_batch"),
                       ("incremental_1000", "incremental"),
@@ -3991,6 +4654,8 @@ def main():
                    "imu_euroc_mh01": imu, "factor_library_rest": rest,
                    "fixedlag_citygrid_3500": fixedlag, "live_slam_checkpoint": live,
                    "wheeled_tracker": tracker, "distributed": dist,
+                   "fixed_order": fixed_order, "vision_bundle_ladybug49": bundle,
+                   "tcp_citygrid_10k": tcp, "periphery": periphery,
                    "distributed_launches_by_rank": dist_by_rank,
                    "seconds": time.time() - t_start}, fh, indent=1, default=float)
 

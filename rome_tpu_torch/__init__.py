@@ -64,8 +64,15 @@ from rome_tpu_torch.distributions import (
     Uniform,
     dist_mean_cov,
 )
-from rome_tpu_torch.graph.graph import FactorGraph, SolverParams
+from rome_tpu_torch.graph.graph import FactorGraph, SolverParams, addFactor, addVariable
 from rome_tpu_torch.factors import *  # noqa: F401,F403 — registers + exports factor ctors
+from rome_tpu_torch.factors.base import (
+    Factor,
+    FactorType,
+    get_factor_type,
+    list_factor_types,
+    register_factor_type,
+)
 from rome_tpu_torch.io import (
     export_g2o,
     import_g2o,

@@ -288,6 +288,10 @@ class FactorGraph:
     def get_ppe(self, label: str, ppe_key: str = "simulated") -> np.ndarray:
         return self.variables[str(label)].ppes[ppe_key]
 
+    def get_ppe_suggested(self, label: str, solve_key: str = "parametric"):
+        """getPPESuggested analogue: the current estimate's coordinates."""
+        return self.get_coords(label, solve_key)
+
     def set_solvable(self, label: str, value: int):
         label = str(label)
         if label in self.variables:
@@ -383,3 +387,12 @@ class FactorGraph:
             f"{self.num_factors} factors)"
         )
 
+
+# reference-style free functions
+
+def addVariable(fg: FactorGraph, label, vtype, **kw):
+    return fg.add_variable(label, vtype, **kw)
+
+
+def addFactor(fg: FactorGraph, var_labels, factor: Factor, **kw):
+    return fg.add_factor(var_labels, factor, **kw)

@@ -65,6 +65,10 @@ class Manifold:
         """Coords of q relative to p: log(p⁻¹ ∘ q). boxplus(p, local(p,q)) == q."""
         return self.log(self.compose(self.inverse(p), q))
 
+    def dist(self, p, q):
+        """Geodesic distance: the norm of ``local(p, q)`` over the last dim."""
+        return torch.linalg.vector_norm(self.local(p, q), dim=-1)
+
     def random_tangent_scale(self):
         """Per-dim scale hints for random sampling (1.0 everywhere)."""
         return np.ones(self.dof)

@@ -64,6 +64,7 @@ from rome_tpu_torch.solvers.linearize import (
     runtime_state,
     structure_signature,
     tangent_offsets,
+    TangentScatter,
     unflatten_tangent,
 )
 from rome_tpu_torch.utils.math import einsum
@@ -175,6 +176,7 @@ def _symbolic_plan(ga: GraphArrays, leaf: int, vslots=None):
     default the graph's own), cached on the host per connectivity bytes,
     with its index tensors per device."""
     from rome_tpu_torch.solvers.sparse import cached_symbolic, symbolic_factor
+    from rome_tpu_torch.solvers.sparse.symbolic import entry_keys
 
     vslots = [b.vslots for b in ga.batches] if vslots is None else vslots
     vs = [v.cpu().numpy() for v in vslots]
@@ -189,7 +191,9 @@ def _symbolic_plan(ga: GraphArrays, leaf: int, vslots=None):
     def build():
         dofs = {t: ga.manifolds[t].dof for t in ga.type_names}
         specs = [(b.vtypes, v) for b, v in zip(ga.batches, vs)]
-        return symbolic_factor(ga.type_names, ga.counts, dofs, specs, leaf=leaf)
+        sym = symbolic_factor(ga.type_names, ga.counts, dofs, specs, leaf=leaf)
+        sym.entry_key = entry_keys(dofs, specs)
+        return sym
 
     return cached_symbolic(key, build, ga.device)
 
@@ -270,6 +274,7 @@ class ParametricSolver:
         else:
             self._dtol = opts.dtol
         self._rt0 = runtime_state(ga)
+        self._scatter = TangentScatter.of(ga, self._rt0["vslots"])
         self._sym, self._nd = (
             _symbolic_plan(ga, opts.nd_leaf) if linear == "ndchol" else (None, None)
         )
@@ -310,14 +315,25 @@ class ParametricSolver:
             return self._sym, self._nd
         return _symbolic_plan(self.ga, self.opts.nd_leaf, vs)
 
+    def _scatter_for(self, rt):
+        """The tangent sums' plan (``TangentScatter``) of ``rt``'s
+        connectivity: this graph's own, or one made for another's."""
+        vs, own = rt["vslots"], self._rt0["vslots"]
+        if len(vs) == len(own) and all(a is b for a, b in zip(vs, own)):
+            return self._scatter
+        return TangentScatter.of(self.ga, vs)
+
     def _start(self, values, rt):
-        """(values in the working dtype, rt with the ndchol plan)."""
+        """(values in the working dtype, rt with the ndchol plan and the
+        tangent sums' plan)."""
         values = values or self.ga.values0
         if self._use64:
             values = {t: v.to(F64) for t, v in values.items()}
         rt = rt if rt is not None else self._rt0
         if self.linear == "ndchol" and "ndchol" not in rt:
             rt = {**rt, "ndchol": self._plan_for(rt)}
+        if "scatter" not in rt:
+            rt = {**rt, "scatter": self._scatter_for(rt)}
         return values, rt
 
     def _pstate0(self):
@@ -467,9 +483,9 @@ class ParametricSolver:
         vals = normal_eq_entry_values(gaW, lins, dtype=F32, parts=parts)
         fvec32 = free_vector(gaW, rt).to(F32)
         lam32 = torch.tensor(lam, dtype=F32, device=ga.device)
-        diag_H = torch.zeros(sym.D, dtype=F32, device=ga.device).index_add_(
-            0, nd["diag_dst"], vals[nd["diag_src"]] * fvec32[nd["diag_dst"]] ** 2
-        )
+        # the free mask is 0/1, so it applies after the sum exactly
+        diag_H = nd["sum_diag"].add_(torch.zeros(sym.D, dtype=F32, device=ga.device),
+                                     vals) * fvec32
         dv = torch.rsqrt(torch.clamp(diag_H * (1.0 + lam32), min=1e-12))
         df = dv * fvec32
         if opts.precond_reuse and not (pstate or {}).get("stale", True):
@@ -522,7 +538,7 @@ class ParametricSolver:
         ga, opts = self.ga, self.opts
         free = rt["free"]
         gvec = gradient_from_lins(ga, lins, rt)
-        D = block_diag_from_lins(ga, lins)
+        D = block_diag_from_lins(ga, lins, rt)
         lamt = torch.tensor(lam, dtype=ga.dtype, device=ga.device)
         dd, Pinv = {}, {}
         for t in ga.type_names:
@@ -582,7 +598,7 @@ class ParametricSolver:
         lins64 = [(b, r0.to(F64), tuple(J.to(F64) for J in Js), vs) for b, r0, Js, vs in lins]
         rt64 = _cast_floats(rt, ga.dtype, F64)
         g64 = gradient_from_lins(ga64, lins64, rt64)
-        D64 = block_diag_from_lins(ga64, lins64)
+        D64 = block_diag_from_lins(ga64, lins64, rt64)
         lam64 = lamt.to(F64)
         dd = {t: torch.clamp(torch.diagonal(D64[t], dim1=-2, dim2=-1), min=1e-8) for t in D64}
 
@@ -873,9 +889,8 @@ def _marginal_covariances_takahashi(ga: GraphArrays, lins, rt, hdt):
     sym, arrs = _symbolic_plan(ga, 16, rt["vslots"])
     vals = normal_eq_entry_values(ga, lins, dtype=hdt)
     fvec = free_vector(ga, rt).to(hdt)
-    diag_H = torch.zeros(sym.D, dtype=hdt, device=ga.device).index_add_(
-        0, arrs["diag_dst"], vals[arrs["diag_src"]] * fvec[arrs["diag_dst"]] ** 2
-    )
+    diag_H = arrs["sum_diag"].add_(torch.zeros(sym.D, dtype=hdt, device=ga.device),
+                                   vals) * fvec
     df = 1.0 / torch.sqrt(torch.clamp(diag_H, min=1e-12)) * fvec
     diag_add = fvec * 1e-8 + (1.0 - fvec)
     Ws = ndchol_assemble(sym, arrs, vals, df, diag_add)

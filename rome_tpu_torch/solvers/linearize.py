@@ -2,8 +2,9 @@
 ``rome_tpu/solvers/linearize.py``).
 
 Every factor type linearizes over its dense batch: gathers from per-type
-variable tensors, per-factor Jacobians wrt local tangent deltas, scatter-adds
-(``index_add_``) back into per-type tangent tensors. Pose2Pose2 batches go
+variable tensors, per-factor Jacobians wrt local tangent deltas, sums back
+into per-type tangent tensors in an order fixed by the structure
+(``TangentScatter``, no atomics). Pose2Pose2 batches go
 through the hand kernel K1 (ops/linearize_cuda.py); every other type through
 ``torch.func.vmap(jacfwd)`` of its residual. ``lins`` entries are
 ``(batch, r0, Js, vslots)``; ``rt`` (``runtime_state``) carries the batch
@@ -19,11 +20,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
 from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays
 from rome_tpu_torch.ops.linearize_cuda import FUSED_LINEARIZE, FUSED_NORMAL
+from rome_tpu_torch.ops.segment_sum import SegmentPlan
 from rome_tpu_torch.utils.math import einsum, matvec
 
 
@@ -223,50 +226,98 @@ def _free_of(ga: GraphArrays, rt):
     return ga.free if rt is None else rt["free"]
 
 
+class TangentScatter:
+    """Per variable type, one fixed-order sum of every (batch, slot)
+    contribution into that type's rows. A variable's contributions are
+    summed by batch, then slot, then the contributing factor's variable
+    slots: the order follows the graph's structure, not its batches' row
+    order (only factors on the same variables in the same batch keep their
+    row order). Made once per connectivity on the host."""
+
+    def __init__(self, type_names, specs, device):
+        """``specs``: per batch, (vtypes, vslots as an (n, arity) numpy
+        array)."""
+        width = max((vs.shape[1] for _vt, vs in specs), default=0)
+        self.parts, self.plans = {}, {}
+        for t in type_names:
+            parts = [(i, k) for i, (vt, _vs) in enumerate(specs)
+                     for k, tk in enumerate(vt) if tk == t]
+            dst, keys = [], []
+            for i, k in parts:
+                vs = np.asarray(specs[i][1], dtype=np.int64)
+                n = vs.shape[0]
+                row = np.full((n, width), -1, dtype=np.int64)
+                row[:, : vs.shape[1]] = vs
+                dst.append(vs[:, k])
+                keys.append(np.concatenate([np.full((n, 2), (i, k)), row], axis=1))
+            self.parts[t] = parts
+            if parts:
+                self.plans[t] = SegmentPlan(np.concatenate(dst), keys=(np.concatenate(keys),),
+                                            device=device)
+
+    @classmethod
+    def of(cls, ga: GraphArrays, vslots):
+        """The plan of ``ga``'s types over the per-batch ``vslots``."""
+        specs = [(b.vtypes, v.cpu().numpy()) for b, v in zip(ga.batches, vslots)]
+        return cls(ga.type_names, specs, ga.device)
+
+    def sum(self, ga: GraphArrays, contribs, block=False):
+        """``contribs[i][k]``: batch i's (n, dof) contributions at slot k,
+        (n, dof, dof) with ``block``. Returns type -> (count, dof) sums, or
+        (count, dof, dof), in ``ga.dtype``."""
+        out = {}
+        for t in ga.type_names:
+            d = ga.manifolds[t].dof
+            o = torch.zeros((ga.counts[t], d, d) if block else (ga.counts[t], d),
+                            dtype=ga.dtype, device=ga.device)
+            if self.parts[t]:
+                self.plans[t].add_(o, torch.cat([contribs[i][k].to(o.dtype)
+                                                 for i, k in self.parts[t]]))
+            out[t] = o
+        return out
+
+
+def tangent_scatter(ga: GraphArrays, lins, rt=None):
+    """``rt``'s plan (the solvers put one there), else one made for
+    ``lins``' slots."""
+    if rt is not None and "scatter" in rt:
+        return rt["scatter"]
+    return TangentScatter.of(ga, [vs for _b, _r0, _Js, vs in lins])
+
+
 def gradient_from_lins(ga: GraphArrays, lins, rt=None, parts=None):
     """g = J^T r as a per-type tangent dict, masked by free. ``parts``
     (``NormalParts``) supplies the contributions of the batches the normal
     epilogue served."""
     free = _free_of(ga, rt)
-    g = ga.tangent_zeros()
-    for i, (batch, r0, Js, vslots) in enumerate(lins):
+    contribs = []
+    for i, (batch, r0, Js, _vs) in enumerate(lins):
         pre = None if parts is None else parts.jtr.get(i)
-        for k, t in enumerate(batch.vtypes):
-            contrib = einsum("nij,ni->nj", Js[k], r0) if pre is None else pre[k]
-            g[t].index_add_(0, vslots[:, k], contrib.to(g[t].dtype))
+        contribs.append([einsum("nij,ni->nj", Js[k], r0) if pre is None else pre[k]
+                         for k in range(len(batch.vtypes))])
+    g = tangent_scatter(ga, lins, rt).sum(ga, contribs)
     return {t: g[t] * free[t][:, None] for t in g}
 
 
 def hvp_from_lins(ga: GraphArrays, lins, v, rt=None):
     """(J^T J) v as a tangent dict (Gauss-Newton Hessian-vector product)."""
     free = _free_of(ga, rt)
-    out = ga.tangent_zeros()
+    contribs = []
     for batch, _r0, Js, vslots in lins:
         u = torch.zeros((batch.n, batch.ftype.zdim), dtype=ga.dtype, device=ga.device)
         for k, t in enumerate(batch.vtypes):
             vk = v[t][vslots[:, k]] * free[t][vslots[:, k], None]
             u = u + einsum("nij,nj->ni", Js[k], vk)
-        for k, t in enumerate(batch.vtypes):
-            out[t].index_add_(
-                0, vslots[:, k], einsum("nij,ni->nj", Js[k], u).to(out[t].dtype)
-            )
+        contribs.append([einsum("nij,ni->nj", Js[k], u) for k in range(len(batch.vtypes))])
+    out = tangent_scatter(ga, lins, rt).sum(ga, contribs)
     return {t: out[t] * free[t][:, None] for t in out}
 
 
-def block_diag_from_lins(ga: GraphArrays, lins):
+def block_diag_from_lins(ga: GraphArrays, lins, rt=None):
     """Per-variable dof x dof diagonal blocks of J^T J (block-Jacobi)."""
-    D = {
-        t: torch.zeros(
-            (ga.counts[t], ga.manifolds[t].dof, ga.manifolds[t].dof),
-            dtype=ga.dtype, device=ga.device,
-        )
-        for t in ga.type_names
-    }
-    for batch, _r0, Js, vslots in lins:
-        for k, t in enumerate(batch.vtypes):
-            blk = einsum("nij,nik->njk", Js[k], Js[k])
-            D[t].index_add_(0, vslots[:, k], blk.to(D[t].dtype))
-    return D
+    contribs = [[einsum("nij,nik->njk", Js[k], Js[k]) for k in range(len(batch.vtypes))]
+                for batch, _r0, Js, _vs in lins]
+    return tangent_scatter(ga, lins, rt).sum(ga, contribs, block=True)
 
 
 # ---------------------------------------------------------------------------

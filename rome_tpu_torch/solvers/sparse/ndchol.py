@@ -1,11 +1,16 @@
 """Numeric phase of the nested-dissection multifrontal Cholesky, in PyTorch
 (counterpart of ``rome_tpu/solvers/sparse/ndchol.py``).
 
-One scatter-add assembly into per-level padded front tensors, a leaf-to-root
-sweep of batched dense partial Cholesky factorizations, and two tree sweeps
-for the solve. The static level structure comes from the
-:class:`SymbolicChol` plan; the index maps (``arrs``) are the tensors of
-``SymbolicChol.device_arrs(device)``.
+One assembly into per-level padded front tensors, a leaf-to-root sweep of
+batched dense partial Cholesky factorizations, and two tree sweeps for the
+solve. The static level structure comes from the :class:`SymbolicChol` plan;
+the index maps (``arrs``) are the tensors of
+``SymbolicChol.device_arrs(device)``. The levels' fronts, and their
+right-hand sides, live in one flat buffer each, so every sum of colliding
+contributions (the assembly; per level, its extend-add and its forward-sweep
+update into all its ancestors) is one sum in the order its ``sum_*`` plan
+fixes: a factorization gives the same bits on every run. The other scatters
+write each destination once.
 
 Scaling convention: the caller assembles the Jacobi-scaled damped system
 Hs = D (H + lam*diag(H)) D with unit diagonal via per-entry scale factors;
@@ -52,23 +57,20 @@ def ndchol_assemble(sym, arrs, vals, scale_vec, diag_add):
     scale_vec: (D,) per-scalar-dim scale (d * free) — entries are scaled by
       scale_vec[row]*scale_vec[col].
     diag_add: (D,) value added to each real diagonal front position.
-    Returns list of (n_l, fmax_l, fmax_l) front tensors.
+    Returns list of (n_l, fmax_l, fmax_l) front tensors, views of one flat
+    buffer (``arrs["front_offsets"]``).
     """
     sv = vals * scale_vec[arrs["rows"]] * scale_vec[arrs["cols"]]
-    Ws = []
-    for l, (n_l, sm, bm) in enumerate(sym.plan):
-        f = sm + bm
-        w = torch.zeros((n_l * f * f,), dtype=vals.dtype, device=vals.device)
-        if n_l:
-            w.index_add_(0, arrs[f"asm_dst_{l}"], sv[arrs[f"asm_src_{l}"]])
-            dummy = arrs[f"dummy_diag_{l}"]
-            w.index_add_(0, dummy, torch.ones_like(dummy, dtype=vals.dtype))
-            w.index_add_(
-                0, arrs[f"real_diag_{l}"],
-                diag_add[arrs[f"real_diag_scalar_{l}"]].to(vals.dtype),
-            )
-        Ws.append(w.reshape(n_l, f, f))
-    return Ws
+    offs = arrs["front_offsets"]
+    w = torch.zeros((offs[-1],), dtype=vals.dtype, device=vals.device)
+    arrs["sum_asm"].add_(w, sv)
+    # the padding and the real diagonals: each position once
+    dummy = arrs["dummy_diag_all"]
+    w.index_add_(0, dummy, torch.ones_like(dummy, dtype=vals.dtype))
+    w.index_add_(0, arrs["real_diag_all"],
+                 diag_add[arrs["real_diag_scalar_all"]].to(vals.dtype))
+    return [w[offs[l]: offs[l + 1]].reshape(n_l, sm + bm, sm + bm)
+            for l, (n_l, sm, bm) in enumerate(sym.plan)]
 
 
 def _chol_or_nan(A):
@@ -123,13 +125,16 @@ def ndchol_factorize(sym, arrs, Ws, blocked=False):
     Per level: ONE batched Cholesky, ONE batched triangular inversion
     (L11^{-1} against identity), then L21, the Schur update and both solve
     sweeps are batched matmuls. The Schur updates are added into the
-    ancestor fronts of ``Ws`` in place. ``blocked=True`` factors and inverts
-    each level by recursive 2x2 blocking (matmuls around small native
-    factorizations) instead of one native call each; its extra float32
-    rounding makes a weaker preconditioner, so it is off by default.
+    ancestor fronts of a copy of ``Ws`` in one flat buffer (``Ws`` is left
+    as it was), one fixed-order sum per level (``sum_ea_{l}``).
+    ``blocked=True`` factors and inverts each level by recursive 2x2
+    blocking (matmuls around small native factorizations) instead of one
+    native call each; its extra float32 rounding makes a weaker
+    preconditioner, so it is off by default.
 
     Returns (Linvs, L21s, L11s) lists per level."""
-    flat = [W.reshape(-1) for W in Ws]
+    offs = arrs["front_offsets"]
+    flat = torch.cat([W.reshape(-1) for W in Ws])
     Linvs, L21s, L11s = [], [], []
     for l, (n_l, sm, bm) in enumerate(sym.plan):
         if n_l == 0:
@@ -137,7 +142,7 @@ def ndchol_factorize(sym, arrs, Ws, blocked=False):
             L21s.append(None)
             L11s.append(None)
             continue
-        W = flat[l].reshape(n_l, sm + bm, sm + bm)
+        W = flat[offs[l]: offs[l + 1]].reshape(n_l, sm + bm, sm + bm)
         if blocked:
             L11 = _chol_blocked(W[:, :sm, :sm])
             Linv = _tri_inv_blocked(L11)
@@ -152,12 +157,8 @@ def ndchol_factorize(sym, arrs, Ws, blocked=False):
         L21 = W[:, sm:, :sm] @ Linv.transpose(-1, -2)  # A21 L11^{-T}
         L21s.append(L21)
         U = W[:, sm:, sm:] - L21 @ L21.transpose(-1, -2)
-        u = U.reshape(-1)
-        for (ll, m) in sym.ea_pairs:
-            if ll == l:
-                flat[m].index_add_(
-                    0, arrs[f"ea_dst_{l}_{m}"], u[arrs[f"ea_src_{l}_{m}"]]
-                )
+        if f"sum_ea_{l}" in arrs:
+            arrs[f"sum_ea_{l}"].add_(flat, U.reshape(-1))
     return Linvs, L21s, L11s
 
 
@@ -167,28 +168,22 @@ def ndchol_solve(sym, arrs, Linvs, L21s, b):
 
     b: (D,) in the factor dtype. Returns x: (D,)."""
     dt, dev = b.dtype, b.device
-    Rs = []
-    for l, (n_l, sm, bm) in enumerate(sym.plan):
-        r = torch.zeros((n_l * sm,), dtype=dt, device=dev)
-        if n_l and sm:
-            r[arrs[f"rhs_dst_{l}"]] = b[arrs[f"rhs_src_{l}"]]
-        Rs.append(r)
+    offs = arrs["rhs_offsets"]
+    R = torch.zeros((offs[-1],), dtype=dt, device=dev)  # every level's rhs
+    R[arrs["rhs_dst_all"]] = b[arrs["rhs_src_all"]]
     # forward: L y = b (leaf-to-root)
     ys = []
     for l, (n_l, sm, bm) in enumerate(sym.plan):
         if n_l == 0 or sm == 0:
             ys.append(None)
             continue
-        y = (Linvs[l] @ Rs[l].reshape(n_l, sm, 1))[..., 0]
+        y = (Linvs[l] @ R[offs[l]: offs[l + 1]].reshape(n_l, sm, 1))[..., 0]
         ys.append(y)
         if bm == 0:
             continue
         uf = -(L21s[l] @ y[..., None])[..., 0].reshape(-1)  # (n_l*bm,)
-        for (ll, m) in sym.fea_pairs:
-            if ll == l:
-                Rs[m].index_add_(
-                    0, arrs[f"fea_dst_{l}_{m}"], uf[arrs[f"fea_src_{l}_{m}"]]
-                )
+        if f"sum_fea_{l}" in arrs:
+            arrs[f"sum_fea_{l}"].add_(R, uf)
     # backward: L^T x = y (root-to-leaf); slot D is the dump row that the
     # padding entries of sup_idx write to (duplicate writes land only there)
     x = torch.zeros((sym.D + 1,), dtype=dt, device=dev)

@@ -1,8 +1,11 @@
 """Host-side symbolic phase of the nested-dissection multifrontal Cholesky.
 
 A copy of ``rome_tpu/solvers/sparse/symbolic.py`` (held to it by
-tests/test_torch_ndchol.py); only ``SymbolicChol.device_arrs`` differs, and
-returns torch tensors.
+tests/test_torch_ndchol.py). What differs: ``SymbolicChol.device_arrs``
+returns torch tensors and, beside the index maps, the flat-buffer maps and
+the fixed-order plans of the port's numeric phase
+(``ops/segment_sum.SegmentPlan``), whose ties follow
+``SymbolicChol.entry_key`` (made by :func:`entry_keys`) where it is set.
 
 One-time per graph structure (numpy only): build the variable
 adjacency from the lowered factor batches, compute a nested-dissection
@@ -35,6 +38,7 @@ tree, with cliques batched per level.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 
@@ -225,18 +229,68 @@ class SymbolicChol:
     fea_pairs: tuple            # ((l, m), ...) forward-solve scatter routes
     arrs: dict = field(repr=False)
     stats: dict = field(default_factory=dict)
+    # per assembled entry, the structural key that orders the contributions
+    # of one front position (``entry_keys``); None: the entry order
+    entry_key: Optional[np.ndarray] = field(default=None, repr=False)
 
     def device_arrs(self, device="cpu"):
         """The index maps as torch tensors on ``device``: integer maps as
-        int64 (torch's index dtype), masks as float32."""
+        int64 (torch's index dtype), masks as float32. Besides them, what
+        the port's numeric phase reads: the levels' fronts and right-hand
+        sides each live in one flat buffer (``front_offsets``,
+        ``rhs_offsets``: per level, its start), the assembly's and the
+        right-hand side's maps address those buffers (``rhs_dst_all``,
+        ``rhs_src_all``, ``dummy_diag_all``, ``real_diag_all``,
+        ``real_diag_scalar_all``), and every sum of colliding contributions
+        has a fixed-order plan (``ops/segment_sum.SegmentPlan``): the
+        assembly (``sum_asm``), per level its extend-add into every ancestor
+        (``sum_ea_{l}``) and its forward-sweep update (``sum_fea_{l}``),
+        and the diagonal of H (``sum_diag``)."""
         import torch
 
-        return {
+        from rome_tpu_torch.ops.segment_sum import SegmentPlan
+
+        out = {
             k: torch.as_tensor(
                 v.astype(np.int64) if v.dtype.kind in "iu" else v, device=device
             )
             for k, v in self.arrs.items()
         }
+        a = self.arrs
+        fo = np.cumsum([0] + [n * (sm + bm) ** 2 for n, sm, bm in self.plan])
+        ro = np.cumsum([0] + [n * sm for n, sm, _bm in self.plan])
+        out["front_offsets"], out["rhs_offsets"] = fo.tolist(), ro.tolist()
+        levels = range(self.nlev)
+
+        def cat(fmt, offs=None):
+            parts = [a[fmt.format(l=l)].astype(np.int64) + (0 if offs is None else offs[l])
+                     for l in levels]
+            return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+        def index(arr):
+            return torch.as_tensor(arr, device=device)
+
+        out["rhs_dst_all"], out["rhs_src_all"] = index(cat("rhs_dst_{l}", ro)), index(
+            cat("rhs_src_{l}"))
+        out["dummy_diag_all"] = index(cat("dummy_diag_{l}", fo))
+        out["real_diag_all"] = index(cat("real_diag_{l}", fo))
+        out["real_diag_scalar_all"] = index(cat("real_diag_scalar_{l}"))
+
+        def keys(src):
+            return () if self.entry_key is None else (self.entry_key[src],)
+
+        src = cat("asm_src_{l}")
+        out["sum_asm"] = SegmentPlan(cat("asm_dst_{l}", fo), src, keys(src), device)
+        for kind, pairs, offs in (("ea", self.ea_pairs, fo), ("fea", self.fea_pairs, ro)):
+            for l in levels:
+                ms = [m for ll, m in pairs if ll == l]
+                if ms:
+                    out[f"sum_{kind}_{l}"] = SegmentPlan(
+                        np.concatenate([a[f"{kind}_dst_{l}_{m}"] + offs[m] for m in ms]),
+                        np.concatenate([a[f"{kind}_src_{l}_{m}"] for m in ms]), device=device)
+        out["sum_diag"] = SegmentPlan(a["diag_dst"], a["diag_src"], keys(a["diag_src"]),
+                                      device)
+        return out
 
 
 def entry_coords(type_names, counts, dofs, batch_specs):
@@ -272,6 +326,26 @@ def entry_coords(type_names, counts, dofs, batch_specs):
     if rows_all:
         return np.concatenate(rows_all), np.concatenate(cols_all)
     return np.zeros(0, np.int64), np.zeros(0, np.int64)
+
+
+def entry_keys(dofs, batch_specs):
+    """Per normal-equation entry (in ``entry_coords``' order), its batch and
+    its factor's variable slots (padded with -1): the key that orders the
+    contributions of one front position by the graph's structure rather
+    than by the batches' row order. Port-only; arguments as in
+    :func:`entry_coords`."""
+    width = max((vs.shape[1] for _vt, vs in batch_specs), default=0)
+    out = []
+    for i, (vtypes, vslots) in enumerate(batch_specs):
+        n, arity = vslots.shape
+        row = np.full((n, 1 + width), -1, dtype=np.int64)
+        row[:, 0] = i
+        row[:, 1: 1 + arity] = vslots
+        for tk in vtypes:
+            for tl in vtypes:
+                # the (n, dk, dl) block of this slot pair, row-major
+                out.append(np.repeat(row, dofs[tk] * dofs[tl], axis=0))
+    return np.concatenate(out) if out else np.zeros((0, 1 + width), np.int64)
 
 
 def symbolic_factor(

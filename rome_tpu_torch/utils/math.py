@@ -1,8 +1,8 @@
 """Small numerical utilities shared across the port.
 
-Counterpart of ``rome_tpu/utils/math.py`` (the parts the ported slices
-need). Every function is shape-polymorphic over leading dims and keeps the
-dtype and device of its input.
+Counterpart of ``rome_tpu/utils/math.py``. Every function is
+shape-polymorphic over leading dims and keeps the dtype and device of its
+input.
 """
 
 from __future__ import annotations
@@ -33,6 +33,38 @@ def sym_rem(theta: torch.Tensor) -> torch.Tensor:
 def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
     """Alias of :func:`sym_rem`."""
     return sym_rem(theta)
+
+
+def spd_repair(mat: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Symmetrize a covariance, ``(M + M^T) / 2``, and add ``eps * I`` when
+    ``eps`` is not 0 (the g2o parser's and the IMU preintegration's repair)."""
+    mat = 0.5 * (mat + mat.transpose(-1, -2))
+    if eps:
+        mat = mat + eps * torch.eye(mat.shape[-1], dtype=mat.dtype, device=mat.device)
+    return mat
+
+
+def sqrt_info_from_cov(cov: torch.Tensor) -> torch.Tensor:
+    """The lower-triangular whitener ``S = inv(chol(cov))`` with
+    ``S^T S = inv(cov)``, over leading dims."""
+    L = torch.linalg.cholesky(spd_repair(cov))
+    eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device).expand(cov.shape)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def cont2disc(F: torch.Tensor, G: torch.Tensor, Qc: torch.Tensor, dt):
+    """First-order continuous-to-discrete noise integration: ``Phi = I + F
+    dt``, ``Qd = Phi G Qc G^T Phi^T dt``. Returns ``(Phi, spd_repair(Qd))``."""
+    Phi = torch.eye(F.shape[-1], dtype=F.dtype, device=F.device) + F * dt
+    M = G @ Qc @ G.transpose(-1, -2)
+    Qd = Phi @ M @ Phi.transpose(-1, -2) * dt
+    return Phi, spd_repair(Qd)
+
+
+def skew2(omega: torch.Tensor) -> torch.Tensor:
+    """so(2) hat map: (...,) -> (...,2,2)."""
+    z = torch.zeros_like(omega)
+    return torch.stack([torch.stack([z, -omega], -1), torch.stack([omega, z], -1)], -2)
 
 
 def skew3(v: torch.Tensor) -> torch.Tensor:

@@ -11,12 +11,16 @@
 - The front end's too: the solve manager, the odometry chords, the feature tracker
   and its KDE of a sighting, the wheeled navigation system and its drive,
   and the DEM interpolator.
+- The periphery's too: the multiview triangulation, the TCP server and
+  its per-connection session, and the factor prediction of the analysis
+  helpers.
 - On a machine without CUDA, an entry point called without ``device=``
   raises (a RuntimeError that names ``device="cpu"``) before it does any
   work: it never returns a CPU result and leaves the graph as it was.
 - With ``device="cpu"`` the same calls run (the other tests of the port).
 """
 
+import copy
 import inspect
 
 import numpy as np
@@ -31,6 +35,9 @@ from rome_tpu_torch.solvers.multimodal import batched, convolve, solve, tree  # 
 from rome_tpu_torch.frontend import navigation, odometry, slam, tracker  # noqa: E402
 from rome_tpu_torch.services import scalar_fields  # noqa: E402
 from rome_tpu_torch import graft_entry  # noqa: E402
+from rome_tpu_torch.interop import tcp_server  # noqa: E402
+from rome_tpu_torch.services import analysis  # noqa: E402
+from rome_tpu_torch.vision import camera  # noqa: E402
 from rome_tpu_torch.parallel import distributed, multimodal, sharding, varpart  # noqa: E402
 
 ENTRY_POINTS = {
@@ -66,6 +73,10 @@ ENTRY_POINTS = {
     "graft_entry.entry": graft_entry.entry,
     "graft_entry._build_chain_fixture": graft_entry._build_chain_fixture,
     "dryrun_multichip": graft_entry.dryrun_multichip,
+    "solve_multiview_landmark": camera.solve_multiview_landmark,
+    "TCPSLAMServer": tcp_server.TCPSLAMServer,
+    "TCPSLAMServer session": tcp_server._SLAMSession,
+    "predict_variable_by_factor": analysis.predict_variable_by_factor,
 }
 
 
@@ -142,6 +153,11 @@ def _calls():
         "graft_entry.entry": lambda: graft_entry.entry(),
         "graft_entry._build_chain_fixture": lambda: graft_entry._build_chain_fixture(30),
         "dryrun_multichip": lambda: graft_entry.dryrun_multichip(1),
+        "solve_multiview_landmark": lambda: camera.solve_multiview_landmark(fg, "l1"),
+        "TCPSLAMServer": lambda: tcp_server.TCPSLAMServer(port=0),
+        "TCPSLAMServer session": lambda: tcp_server._SLAMSession(),
+        "predict_variable_by_factor": lambda: analysis.predict_variable_by_factor(
+            fg, "x1", copy.copy(fg.factors[f]), ["x0", "x1"]),
     }
 
 

@@ -53,6 +53,8 @@ def test_port_modules_mirror_the_slice():
         "frontend.navigation", "io.serialization", "io.blobstore", "services.scalar_fields",
         "parallel", "parallel.distributed", "parallel.sharding", "parallel.varpart",
         "parallel.multimodal", "graft_entry",
+        "vision", "vision.camera", "services.analysis", "services.plotting", "interop",
+        "interop.tcp_server", "utils.profiling", "ops.segment_sum",
     ]:
         assert "rome_tpu_torch." + m in mods, m
     for src in ("pose2pose2_linearize.cu", "pairwise_logw.cu"):
