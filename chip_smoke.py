@@ -184,6 +184,9 @@
    batch optimum of the same prefix (ndchol, BIG; reported). The
    incremental tier: the stream through x1,000, every pose free (100
    solves), the last under citygrid's gates against the dense f64 optimum.
+   Before the batch optimum the stream's first FIXEDLAG_REPEAT_STEPS = 50
+   steps run again: every step the same LM iterations and poses, bit for
+   bit.
 17. live_slam_checkpoint (``live_slam_path``): examples/live_slam.py's loop
    on the stream's poses 1-300: each odometry edge accumulated in ten ticks
    on a MutablePose2Pose2Gaussian tether, duplicated into a solvable-0
@@ -240,6 +243,8 @@
    ``normal`` not) in every rank; every rank ends with the same poses.
    Reported: iteration drift, relative cost difference, largest pose
    difference, ATE against data/citygrid_gt.npz, all-reduces a solve.
+   World 1 solves twice: the same iterations, final cost and poses, bit for
+   bit (so does phase 21's).
    21. varpart_chain_10k: ``graft_entry._build_chain_fixture(10000,
    "local")`` in float64 through ``make_varpart_solver(max_iters=60)``.
    Gates: converged, final cost < 1e-3 of the start (dryrun_multichip's),
@@ -262,9 +267,19 @@
    of H and the gradient, each summed FIXED_ORDER_REPS times in the order
    the symbolic plan fixes (ops/segment_sum.SegmentPlan), must give the
    same bits every time; the atomic ``index_add_`` they replaced is run on
-   the same values and its distinct results reported. Phase 14 then gates
-   that its cold and warm ndchol runs take the same LM iterations to the
-   same final cost, bit for bit.
+   the same values and its distinct results reported. So must, on
+   citygrid's start, the chordal stage's sums (the float32 diagonal of its
+   ND system; stage 1's gradient and matvec, stage 2's gradient and matvec
+   in float64) and dense32's normal equations (H's entries and g in
+   float32), each also within 1e-6 of the float64 sum of its terms
+   relative to their summed magnitudes, its atomic twin reported beside
+   it. Phase 14 then gates that its cold and warm ndchol runs take the
+   same LM iterations to the same final cost, bit for bit.
+5c. One answer per input (``citygrid_repeat_check``, right after phase 5):
+   citygrid from the g2o CITYGRID_REPEATS = 8 more times, warm; over these
+   and phase 5's four solves one LM iteration count, one final-cost bit
+   pattern and one chordal start (SHA-256 of its float32 poses), all three
+   printed.
 
 23. vision_bundle_ladybug49 (``vision_bundle_path``): a bundle synthesized
    at the counts of BAL's Ladybug problem-49-7776-pre: 49 Pose3 cameras 4 m
@@ -464,6 +479,7 @@ FIXEDLAG_MAX_ITERS = 30
 FIXEDLAG_CHECK_EVERY = 25                  # solves between same-problem f64 checks
 FIXEDLAG_REF = dict(max_iters=100, linear="dense", ftol=1e-12)
 FIXEDLAG_WINDOW_GATE_M = 0.1               # 1 % of citygrid's 10 m edge
+FIXEDLAG_REPEAT_STEPS = 50                 # steps run again: the same iterations and poses
 INCREMENTAL_POSES = 1001                   # x0..x1000, every pose free: 100 solves
 # phase 17, live_slam_checkpoint: examples/live_slam.py's loop on the stream
 LIVE_POSES, LIVE_TICKS, LIVE_DISENGAGE = 301, 10, 25
@@ -864,6 +880,68 @@ def main_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT):
     check(device != "cuda" or total_launches["normal"] >= total_iters,
           "K1 normal launches do not cover the LM iterations")
     return runs, total_launches
+
+
+CITYGRID_REPEATS = 8          # warm solves of the repeat check after the citygrid path
+
+
+class ChordalStarts:
+    """The SHA-256 of every chordal start (the Pose2 values
+    ``init2d.chordal_init_pose2`` returns, as float32 bytes on the host)
+    made in a ``with`` block, in order."""
+
+    def __enter__(self):
+        import hashlib
+
+        from rome_tpu_torch.solvers import init2d
+
+        self.digests, self._real = [], init2d.chordal_init_pose2
+        real, digests = self._real, self.digests
+
+        def recorded(ga, values):
+            out = real(ga, values)
+            digests.append(hashlib.sha256(out["Pose2"].cpu().numpy().tobytes()).hexdigest())
+            return out
+
+        init2d.chordal_init_pose2 = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from rome_tpu_torch.solvers import init2d
+
+        init2d.chordal_init_pose2 = self._real
+
+
+def citygrid_repeat_check(card, runs, starts, device="cuda", g2o=CITYGRID, reps=CITYGRID_REPEATS):
+    """One answer per input: citygrid from the g2o ``reps`` more times, warm,
+    as ``main_path`` solves it (inside the same ``ChordalStarts`` block).
+    Over these solves and ``main_path``'s ``runs``: one LM iteration count,
+    one final-cost bit pattern and one chordal start."""
+    from rome_tpu_torch import GNOptions, solve_graph_parametric
+
+    rows = [dict(run=r["run"], iterations=r["iterations"], final_cost=r["final_cost"],
+                 solve_time_s=r["solve_time_s"]) for r in runs]
+    for _ in range(reps):
+        fg = build_graph(g2o)
+        res = solve_graph_parametric(fg, init=False, options=GNOptions(**BIG), chordal_init=True,
+                                     device=device)
+        st = res["stats"]
+        rows.append(dict(run="repeat", iterations=st.iterations, final_cost=st.final_cost,
+                         solve_time_s=res["solve_time_s"]))
+    check(len(starts.digests) == len(rows),
+          f"citygrid repeats: {len(starts.digests)} chordal starts for {len(rows)} solves")
+    for r, d in zip(rows, starts.digests):
+        r["chordal_start_sha256"] = d
+    out = dict(solves=len(rows), rows=rows,
+               iterations=sorted({r["iterations"] for r in rows}),
+               final_cost_bits=sorted({float(r["final_cost"]).hex() for r in rows}),
+               chordal_start_sha256=sorted({r["chordal_start_sha256"] for r in rows}))
+    print(f"[{card}] citygrid repeats ({len(rows)} solves: main path's {len(runs)} and "
+          f"{reps} warm): LM iterations {out['iterations']}, final cost bits "
+          f"{out['final_cost_bits']}, chordal start sha256 {out['chordal_start_sha256']}")
+    for key in ("iterations", "final_cost_bits", "chordal_start_sha256"):
+        check(len(out[key]) == 1, f"citygrid repeats: {len(out[key])} distinct {key}: {out[key]}")
+    return out
 
 
 class CholeskyTimer:
@@ -2919,6 +2997,8 @@ def fixedlag_path(card, device="cuda", poses=FIXEDLAG_POSES, incremental=INCREME
     def on_step(k, fg, res):
         row = step.rows[-1]
         row["k"] = k
+        if len(step.rows) <= FIXEDLAG_REPEAT_STEPS:
+            row["poses_sha256"] = _poses_sha256(fg, k + 1)
         print(step_line(card, f"fixedlag x{k}", row))
         check(row["frozen_drift"] == 0.0, f"fixedlag x{k}: a frozen pose moved ({row['frozen_drift']})")
         if len(step.rows) % FIXEDLAG_CHECK_EVERY == 0 or k == stream[-1][0]:
@@ -2943,6 +3023,30 @@ def fixedlag_path(card, device="cuda", poses=FIXEDLAG_POSES, incremental=INCREME
     check(launches["fixedlag"]["k1_lin"] == sum(r["k1_lin"] for r in step.rows),
           f"fixedlag: K1 lin {launches['fixedlag']['k1_lin']} launches, the steps' "
           f"{sum(r['k1_lin'] for r in step.rows)}")
+
+    # one answer per input: the first steps again, the same iterations and
+    # poses bit for bit
+    _reset_launches()
+    rep = StepSolver(device, window=FIXEDLAG_WINDOW)
+    again = []
+
+    def on_rep(k, fg, res):
+        again.append((k, rep.rows[-1]["iterations"], _poses_sha256(fg, k + 1)))
+
+    try:
+        run_stream(api, stream[: FIXEDLAG_REPEAT_STEPS * FIXEDLAG_STRIDE], rep,
+                   window=FIXEDLAG_WINDOW, on_step=on_rep)
+    finally:
+        rep.close()
+    first = [(r["k"], r["iterations"], r["poses_sha256"])
+             for r in step.rows[:FIXEDLAG_REPEAT_STEPS]]
+    same = sum(a == b for a, b in zip(first, again))
+    out["fixedlag_repeat"] = dict(steps=len(again), same_steps=same,
+                                  iterations=[it for _k, it, _h in again])
+    print(f"[{card}] fixedlag first {len(again)} steps again: {same} of {len(first)} with the "
+          f"same LM iterations and poses bit for bit")
+    check(len(again) == len(first) and same == len(first),
+          f"fixedlag repeat: {same} of {len(first)} steps the same")
 
     # the end state against the batch optimum of the same prefix
     _reset_launches()
@@ -3007,6 +3111,13 @@ def fixedlag_path(card, device="cuda", poses=FIXEDLAG_POSES, incremental=INCREME
           f"incremental: K1 launches {launches['incremental']}, expected lin > 0")
     out["seconds"] = time.time() - t_phase
     return out, launches
+
+
+def _poses_sha256(fg, n):
+    """SHA-256 of poses x0 .. x{n-1}'s float64 coordinates."""
+    import hashlib
+
+    return hashlib.sha256(_coords(fg, n).tobytes()).hexdigest()
 
 
 def _same_bits(a, b):
@@ -3627,6 +3738,12 @@ def distributed_rank(mesh, inputs, dryrun, t_spawn, card):
     out["factor_sharded"] = dict(stats, **row, values=host(vals), k1_weight0_rows=pad_rows,
                                  allreduce_ms=(time.perf_counter() - t0) / ALLREDUCE_REPS * 1e3,
                                  first=dict(c0=c0, c1=c1, ok=ok, values=host(v1)))
+    if mesh.world == 1:   # one answer per input: the same solve again
+        v2, s2 = solve_distributed(ga, mesh, max_iters=SHARDED_MAX_ITERS,
+                                   pcg_iters=SHARDED_PCG_ITERS, lam0=SHARDED_LAM0,
+                                   values=values, device=kind)
+        out["factor_sharded"]["repeat"] = dict(iterations=s2["iterations"],
+                                               final_cost=s2["final_cost"], values=host(v2))
 
     # phase 21: owner-computes variable partition on the corridor chain
     gc = graph_arrays_from_numpy(**inputs["chain"]["spec"], dtype=torch.float64, device=dev)
@@ -3635,6 +3752,10 @@ def distributed_rank(mesh, inputs, dryrun, t_spawn, card):
     (vals, stats), row = timed("varpart", lambda: solve(lam0=1e-4))
     out["varpart"] = dict(stats, **row, values=host(vals),
                           own_dof=plan.n_loc["Pose2"] * 3, sep_dof=plan.n_sep["Pose2"] * 3)
+    if mesh.world == 1:
+        v2, s2 = solve(lam0=1e-4)
+        out["varpart"]["repeat"] = dict(iterations=s2["iterations"],
+                                        final_cost=s2["final_cost"], values=host(v2))
 
     # phase 22: the sharded nonparametric sweep on beehive
     bee = inputs["bee"]
@@ -3709,8 +3830,21 @@ def distributed_path(card, inputs, device="cuda", worlds=DIST_WORLDS, dryrun_wor
 
     def summary(rr):
         return dict({k: v for k, v in rr[0].items()
-                     if k not in ("values", "beliefs", "first", "launches", "seconds")},
+                     if k not in ("values", "beliefs", "first", "launches", "seconds", "repeat")},
                     seconds=[r["seconds"] for r in rr], launches=[r["launches"] for r in rr])
+
+    def same_again(rr, what):
+        """World 1's second solve: the same iterations, final cost and
+        values, bit for bit."""
+        r, again = rr[0], rr[0]["repeat"]
+        bits = [float(x["final_cost"]).hex() for x in (r, again)]
+        same = (again["iterations"] == r["iterations"] and bits[0] == bits[1]
+                and all(np.array_equal(again["values"][t], r["values"][t]) for t in r["values"]))
+        row = dict(iterations=[r["iterations"], again["iterations"]], final_cost_bits=bits,
+                   same=same)
+        print(f"[{card}] {what} world=1 twice: " + json.dumps(row))
+        check(same, f"{what} world 1: the second solve differs ({row})")
+        return row
 
     city, chain, bee = inputs["city"], inputs["chain"], inputs["bee"]
     result, by_rank = {}, {}
@@ -3734,6 +3868,9 @@ def distributed_path(card, inputs, device="cuda", worlds=DIST_WORLDS, dryrun_wor
                    allreduce_share=r["collectives"] * r["allreduce_ms"] / 1e3 / r["seconds"])
         result[f"factor_sharded_citygrid_10k_w{w}"] = row
         print(f"[{card}] factor_sharded_citygrid_10k world={w}: " + json.dumps(row))
+    if 1 in worlds:
+        result["factor_sharded_citygrid_10k_w1_repeat"] = same_again(
+            fs[1], "factor_sharded_citygrid_10k")
     a, b = (fs[w][0] for w in worlds)
     check(a["reason"] == b["reason"], f"reason codes differ: {a['reason']} vs {b['reason']}")
     check(abs(a["iterations"] - b["iterations"]) <= 4,
@@ -3768,6 +3905,8 @@ def distributed_path(card, inputs, device="cuda", worlds=DIST_WORLDS, dryrun_wor
         result[f"varpart_chain_10k_w{w}"] = row
         print(f"[{card}] varpart_chain_10k world={w}: comms_note {json.dumps(r['comms'])}; "
               + json.dumps(row))
+    if 1 in worlds:
+        result["varpart_chain_10k_w1_repeat"] = same_again(vp[1], "varpart_chain_10k")
     a, b = (vp[w][0] for w in worlds)
     result["varpart_chain_10k"] = dict(iteration_drift=b["iterations"] - a["iterations"],
                                        max_pose_diff_m=_max_diff(a["values"], b["values"]))
@@ -3963,7 +4102,140 @@ def fixed_order_check(card, device="cuda", g2o=CITYGRID):
                         tangent_max_run={t: p.max_run for t, p in scatter.plans.items()})
     print(f"[{card}] fixed-order sums on citygrid's LM inputs ({FIXED_ORDER_REPS} runs each): "
           + json.dumps(out))
+    rest = {}
+    for name, case in {**chordal_sum_cases(ga, device),
+                       **dense_sum_cases(ga, ga64, values, rt, device)}.items():
+        rest[name] = planned_sum_check(name, **case)
+    print(f"[{card}] fixed-order sums of the chordal stage and dense32's normal equations on "
+          f"citygrid ({FIXED_ORDER_REPS} runs each, the atomic sums they replaced beside them): "
+          + json.dumps(rest))
+    out.update(rest)
     return out
+
+
+def _digest(t):
+    """Two wrapping int64 sums of ``t``'s bit pattern (integer sums do not
+    depend on their order, so equal tensors give equal digests); computed
+    on ``t``'s device."""
+    import torch
+
+    b = t.contiguous().reshape(-1)
+    b = b.view(torch.int64 if b.element_size() == 8 else torch.int32).to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device) % 1000003 + 1
+    return int(b.sum()), int((b * w).sum())
+
+
+def planned_sum_check(name, fixed, atomic, dst, terms, at):
+    """``fixed()`` (a fixed-order sum) and ``atomic()`` (the atomic
+    ``index_add_`` it replaced) each FIXED_ORDER_REPS times on the same
+    inputs: their distinct results (digests of the result at ``at``, the
+    flat destinations that hold a sum); ``fixed`` must give one, within
+    1e-6 of the float64 sum of its ``terms`` (into flat destinations
+    ``dst``) relative to the summed magnitudes of the terms there."""
+    import torch
+
+    out = {}
+    for kind, fn in (("fixed", fixed), ("atomic", atomic)):
+        digests = set()
+        for _ in range(FIXED_ORDER_REPS):
+            r = fn()
+            digests.add(_digest(r.reshape(-1, *terms.shape[1:])[at]))
+        out[f"{kind}_distinct_results"] = len(digests)
+    check(out["fixed_distinct_results"] == 1,
+          f"fixed-order {name}: {out['fixed_distinct_results']} distinct results in "
+          f"{FIXED_ORDER_REPS} runs")
+    uniq, inv = torch.unique(dst, return_inverse=True)
+    check(torch.equal(uniq, at), f"fixed-order {name}: the destinations differ")
+    shape = (uniq.numel(),) + tuple(terms.shape[1:])
+    want = torch.zeros(shape, dtype=torch.float64, device=dst.device).index_add_(
+        0, inv, terms.double())
+    mag = torch.zeros(shape, dtype=torch.float64, device=dst.device).index_add_(
+        0, inv, terms.double().abs())
+    got = fixed().reshape(-1, *terms.shape[1:])[at].double()
+    err = float(((got - want).abs() / mag.clamp(min=1e-300)).max())
+    out.update(n_terms=int(dst.numel()), n_sums=int(uniq.numel()), dtype=str(terms.dtype),
+               max_err_rel_to_terms=err)
+    check(err <= 1e-6, f"fixed-order {name}: {err} of its terms' magnitude from the float64 sum")
+    return out
+
+
+def chordal_sum_cases(ga, device):
+    """The chordal stage's sums on ``ga``'s Pose2 graph and start
+    (``init2d``'s own pieces): the float32 diagonal of the ND system and,
+    in float64, stage 1's gradient and matvec and stage 2's gradient and
+    matvec (at the start's rotations, on a seeded vector), each with the
+    ``index_add_`` it replaced."""
+    import torch
+
+    from rome_tpu_torch.solvers import init2d as I
+
+    n = ga.counts["Pose2"]
+    e32, p32 = I._pose2_edges(ga), I._pose2_priors(ga)
+    _plan, arrs = I._chordal_plan(n, e32, p32, device)
+    f64 = torch.float64
+    edges = [(i, j, z.to(f64), S.to(f64), w.to(f64)) for i, j, z, S, w in e32]
+    priors = [(i, z.to(f64), S.to(f64), w.to(f64)) for i, z, S, w in p32]
+    th0 = ga.values0["Pose2"][:, 2].to(f64)
+    u0 = torch.stack([torch.cos(th0), torch.sin(th0)], -1)
+    t0 = ga.values0["Pose2"][:, :2].to(f64)
+    x = torch.as_tensor(np.random.default_rng(3).normal(size=(n, 2)), device=device)
+    et1, pt1 = I._rot_terms(edges, priors)
+    et2, pt2 = I._tr_terms(edges, priors, I.rot2(th0))
+    slots = torch.cat([v for i, j, *_ in et1 for v in (i, j)] + [p[0] for p in pt1])
+    rows = arrs["rows"]
+    nd = arrs["nd"]
+    vals32 = I._rot_entries(et1, pt1)
+    cases = {"chordal_diag": dict(
+        fixed=lambda: nd["sum_diag"].add_(torch.zeros(2 * n, dtype=torch.float32,
+                                                      device=device), vals32),
+        atomic=lambda: torch.zeros(2 * n, dtype=torch.float32, device=device).index_add_(
+            0, nd["diag_dst"], vals32[nd["diag_src"]]),
+        dst=nd["diag_dst"], terms=vals32[nd["diag_src"]], at=nd["sum_diag"].dst)}
+    for name, parts_of in (("chordal_g_rot", lambda: I._rot_rows(et1, pt1, u0, grad=True)),
+                           ("chordal_mv_rot", lambda: I._rot_rows(et1, pt1, x)),
+                           ("chordal_g_tr", lambda: I._tr_rows(et2, pt2, t0, grad=True)),
+                           ("chordal_mv_tr", lambda: I._tr_rows(et2, pt2, x))):
+        cases[name] = dict(
+            fixed=lambda p=parts_of: rows.add_(torch.zeros((n, 2), dtype=f64, device=device),
+                                               torch.cat(p())),
+            atomic=lambda p=parts_of: torch.zeros((n, 2), dtype=f64, device=device).index_add_(
+                0, slots, torch.cat(p())),
+            dst=slots, terms=torch.cat(parts_of()), at=rows.dst)
+    return cases
+
+
+def dense_sum_cases(ga, ga64, values, rt, device):
+    """dense32's normal equations on citygrid's start (``dense_normal_eqs``
+    in float32 over float64 linearizations, as ``_solve_dense32``): the
+    sums of H's entries and of g, each with the atomic ``index_add_`` into
+    the same flat destinations."""
+    import torch
+
+    from rome_tpu_torch.solvers import linearize as L
+
+    lins = L.linearize_all(ga64, values, rt)
+    plan = L.DenseScatter.of(ga, rt["vslots"])
+    hv, gv = plan.terms(lins, torch.float32)
+    base, D = L.tangent_offsets(ga)
+    h_dst, g_dst = [], []
+    for b, vs in zip(ga.batches, rt["vslots"]):
+        offs = [base[t] + vs[:, k, None] * ga.manifolds[t].dof
+                + torch.arange(ga.manifolds[t].dof, device=device)
+                for k, t in enumerate(b.vtypes)]
+        for ok in offs:
+            g_dst.append(ok.reshape(-1))
+            h_dst.extend((ok[:, :, None] * D + ol[:, None, :]).reshape(-1) for ol in offs)
+    h_dst, g_dst = torch.cat(h_dst), torch.cat(g_dst)
+
+    def zeros(k):
+        return torch.zeros(k, dtype=torch.float32, device=device)
+
+    return {"dense32_H": dict(fixed=lambda: plan.h.add_(zeros(D * D), hv),
+                              atomic=lambda: zeros(D * D).index_add_(0, h_dst, hv),
+                              dst=h_dst, terms=hv, at=plan.h.dst),
+            "dense32_g": dict(fixed=lambda: plan.g.add_(zeros(D), gv),
+                              atomic=lambda: zeros(D).index_add_(0, g_dst, gv),
+                              dst=g_dst, terms=gv, at=plan.g.dst)}
 
 
 # --- phase 23: vision_bundle_ladybug49 ------------------------------------------
@@ -4546,7 +4818,9 @@ def main():
     k1 = kernel_phase(card, bytes_per_s)
     k23 = pairwise_phase(card, bytes_per_s)
     fixed_order = fixed_order_check(card)
-    runs, launches = main_path(card)
+    with ChordalStarts() as starts:
+        runs, launches = main_path(card)
+        repeats = citygrid_repeat_check(card, runs, starts)
     warm = [r["solve_time_s"] for r in runs[1:]]
     print(f"[{card}] citygrid_10k: cold {runs[0]['solve_time_s']:.3f} s, warm "
           f"{', '.join(f'{w:.3f}' for w in warm)} s, best {10000 / min(warm):.1f} poses/s, "
@@ -4654,7 +4928,8 @@ def main():
                    "imu_euroc_mh01": imu, "factor_library_rest": rest,
                    "fixedlag_citygrid_3500": fixedlag, "live_slam_checkpoint": live,
                    "wheeled_tracker": tracker, "distributed": dist,
-                   "fixed_order": fixed_order, "vision_bundle_ladybug49": bundle,
+                   "fixed_order": fixed_order, "citygrid_repeats": repeats,
+                   "vision_bundle_ladybug49": bundle,
                    "tcp_citygrid_10k": tcp, "periphery": periphery,
                    "distributed_launches_by_rank": dist_by_rank,
                    "seconds": time.time() - t_start}, fh, indent=1, default=float)

@@ -5,19 +5,29 @@ iterations, reason, final cost (repr), wall seconds, the LM loop's seconds
 ms per LM iteration; for the IMU solves also the accepted (a) / rejected (r)
 steps and each step's CG polish iterations. IMU_SOLVES in PyTorch's default
 mode, then DET_SOLVES under ``torch.use_deterministic_algorithms(True)``,
-then CITY_SOLVES citygrid solves, each with its own chordal initialization,
-then CITY_LM_SOLVES LM solves of citygrid from one chordal start computed
-once (``chordal_init=False`` from that start: the LM stage alone); all share
-one graph and the structure cache, as the smoke run's warm solves do. The
-last line is a JSON summary: per path the iteration counts, whether the
-final costs are bit-identical, and the median ms per LM iteration.
+then CITY_SOLVES citygrid solves, each with its own chordal initialization
+(its SHA-256 printed), then CITY_LM_SOLVES LM solves of citygrid from one
+chordal start computed once (``chordal_init=False`` from that start: the LM
+stage alone); all share one graph and the structure cache, as the smoke
+run's warm solves do. Then CHORDAL_REPS chordal stages on citygrid's
+lowered graph, each timed alone with CUDA events (after one untimed call),
+and the CUDA kernels one of them launches (torch.profiler). Then the
+fixed-lag stream of chip_smoke.py's phase 16 through FIXEDLAG_POSES poses
+(stride 10, window 25): each step's wall seconds (host clock, ending in a
+sync), the steady median and p90, and where the checkout has one, the
+seconds spent building the dense solvers' sum plans (``DenseScatter.of``,
+between syncs) per step. The last line is a JSON summary: per path the
+iteration counts, whether the final costs are bit-identical, and the median
+ms per LM iteration; the chordal stage's ms and kernels; the fixed-lag
+summary.
 
     python3 imu_repeat.py [IMU_SOLVES] [DET_SOLVES] [CITY_SOLVES] [CITY_LM_SOLVES]
-                                                          (defaults 6, 0, 6, 0)
+                          [CHORDAL_REPS] [FIXEDLAG_POSES]    (defaults 6, 0, 6, 0, 0, 0)
 
 Run it from the root of a checkout: it reads that checkout's chip_smoke.py
 and package (a copy of this file in an older checkout times that one).
 """
+import contextlib
 import copy
 import json
 import os
@@ -36,8 +46,8 @@ def main():
     import rome_tpu_torch
     from rome_tpu_torch.solvers import gauss_newton as GN
 
-    args = [int(a) for a in sys.argv[1:]] + [6, 0, 6, 0][len(sys.argv) - 1:]
-    solves, det, city, city_lm = args[:4]
+    args = [int(a) for a in sys.argv[1:]] + [6, 0, 6, 0, 0, 0][len(sys.argv) - 1:]
+    solves, det, city, city_lm, chordal_reps, fixedlag_poses = args[:6]
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
     print(card)
@@ -72,16 +82,20 @@ def main():
                   f"{rows[mode][-1]['ms_per_iter']:.2f} ms per iteration; steps {steps}; "
                   f"CG {[r['cg'] for r in h]}", flush=True)
         torch.use_deterministic_algorithms(False)
-        for _ in range(city):
-            fg = cs.build_graph(cs.CITYGRID)
-            res, wall, _peak = cs._solve_timed(fg, rome_tpu_torch.GNOptions(**cs.BIG), "cuda")
-            st = res["stats"]
-            rows["citygrid"].append(dict(iterations=st.iterations, cost=st.final_cost,
-                                         wall_s=wall, lm_s=lm[-1],
-                                         ms_per_iter=1e3 * lm[-1] / st.iterations))
-            print(f"[{card}] citygrid: {st.iterations} iterations, {st.reason}, cost "
-                  f"{st.final_cost!r}, {wall:.2f} s, LM {lm[-1]:.3f} s = "
-                  f"{rows['citygrid'][-1]['ms_per_iter']:.2f} ms per iteration", flush=True)
+        with chordal_starts() as starts:
+            for _ in range(city):
+                fg = cs.build_graph(cs.CITYGRID)
+                res, wall, _peak = cs._solve_timed(fg, rome_tpu_torch.GNOptions(**cs.BIG),
+                                                   "cuda")
+                st = res["stats"]
+                rows["citygrid"].append(dict(iterations=st.iterations, cost=st.final_cost,
+                                             wall_s=wall, lm_s=lm[-1],
+                                             ms_per_iter=1e3 * lm[-1] / st.iterations,
+                                             chordal_start_sha256=starts[-1]))
+                print(f"[{card}] citygrid: {st.iterations} iterations, {st.reason}, cost "
+                      f"{st.final_cost!r}, {wall:.2f} s, LM {lm[-1]:.3f} s = "
+                      f"{rows['citygrid'][-1]['ms_per_iter']:.2f} ms per iteration; chordal "
+                      f"start {starts[-1][:16]}", flush=True)
         if city_lm:
             from rome_tpu_torch.graph.lower import lower, write_back
             from rome_tpu_torch.solvers.init2d import chordal_init_pose2
@@ -107,8 +121,187 @@ def main():
                        ms_per_iter_median=float(np.median([r["ms_per_iter"] for r in v])),
                        ms_per_iter=[round(r["ms_per_iter"], 3) for r in v])
                for k, v in rows.items() if v}
+    if rows["citygrid"]:
+        summary["citygrid"]["chordal_starts"] = len(
+            {r["chordal_start_sha256"] for r in rows["citygrid"]})
+    if chordal_reps:
+        summary["chordal_stage"] = chordal_stage(card, chordal_reps)
+    if fixedlag_poses:
+        summary["fixedlag"] = fixedlag(card, fixedlag_poses)
     print(card)
     print(json.dumps({"checkout": os.getcwd(), "summary": summary}))
+
+
+@contextlib.contextmanager
+def chordal_starts():
+    """The SHA-256 of every chordal start made in the block (the Pose2
+    values ``init2d.chordal_init_pose2`` returns), in order."""
+    import hashlib
+
+    from rome_tpu_torch.solvers import init2d
+
+    real, digests = init2d.chordal_init_pose2, []
+
+    def recorded(ga, values):
+        out = real(ga, values)
+        digests.append(hashlib.sha256(out["Pose2"].cpu().numpy().tobytes()).hexdigest())
+        return out
+
+    init2d.chordal_init_pose2 = recorded
+    try:
+        yield digests
+    finally:
+        init2d.chordal_init_pose2 = real
+
+
+def chordal_stage(card, reps):
+    """``reps`` chordal stages on citygrid's lowered graph (CUDA events each,
+    after one untimed call) and the CUDA kernels of one (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from rome_tpu_torch.graph.lower import lower
+    from rome_tpu_torch.solvers.init2d import chordal_init_pose2
+
+    ga = lower(cs.build_graph(cs.CITYGRID), device="cuda")
+    chordal_init_pose2(ga, ga.values0)
+    ms = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        chordal_init_pose2(ga, ga.values0)
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chordal_init_pose2(ga, ga.values0)
+        torch.cuda.synchronize()
+    kernels = sum(1 for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not ev.name.startswith("Memcpy") and not ev.name.startswith("Memset"))
+    out = dict(ms=[round(m, 3) for m in ms], ms_median=float(np.median(ms)), kernels=kernels,
+               host_waits=_host_waits(prof),
+               top_ops=_top_ops(prof), scatter_costs=scatter_costs(card, ga))
+    print(f"[{card}] chordal stage: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _host_waits(prof):
+    """CUDA runtime calls in a trace that make the host wait for the card."""
+    names = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+             "cudaMemcpyAsync", "cudaEventSynchronize")
+    counts = {}
+    for ev in prof.events():
+        if ev.name in names:
+            counts[ev.name] = counts.get(ev.name, 0) + 1
+    return counts
+
+
+def _top_ops(prof, k=12):
+    """The ``k`` aten ops with the most host time (self, ms) and their calls."""
+    rows = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                  key=lambda e: -e.self_cpu_time_total)[:k]
+    return {e.key: [e.count, round(e.self_cpu_time_total / 1e3, 3)] for e in rows}
+
+
+def scatter_costs(card, ga, reps=200):
+    """One sum of the chordal stage's (n, 2) row contributions (26,171 on
+    citygrid: every edge's tail and head, the prior) in its two forms: three
+    ``index_add_`` (the atomic form) and one ``SegmentPlan.add_`` (the
+    fixed-order form); per call, host microseconds (no sync) and the
+    microseconds between two CUDA events around ``reps`` calls, and the
+    host waits in a traced call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rome_tpu_torch.ops.segment_sum import SegmentPlan
+    from rome_tpu_torch.solvers import init2d as I
+
+    n = ga.counts["Pose2"]
+    parts = [(i, j) for i, j, *_ in I._pose2_edges(ga)]
+    idx = [p[0] for p in I._pose2_priors(ga)]
+    slots = torch.cat([v for i, j in parts for v in (i, j)] + idx)
+    vals = torch.randn(slots.numel(), 2, dtype=torch.float64, device="cuda")
+    plan = SegmentPlan(slots.cpu().numpy(), device="cuda")
+    bounds = [0]
+    for v in [v for i, j in parts for v in (i, j)] + idx:
+        bounds.append(bounds[-1] + v.numel())
+    pieces = [(slots[a:b], a, b) for a, b in zip(bounds[:-1], bounds[1:])]
+
+    def atomic():
+        y = torch.zeros((n, 2), dtype=torch.float64, device="cuda")
+        for s, a, b in pieces:
+            y.index_add_(0, s, vals[a:b])
+        return y
+
+    def fixed():
+        return plan.add_(torch.zeros((n, 2), dtype=torch.float64, device="cuda"), vals)
+
+    out = {}
+    for name, fn in (("index_add", atomic), ("segment_plan", fixed)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        e.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[name] = dict(host_us=round(host_us, 2),
+                         event_us=round(s.elapsed_time(e) / reps * 1e3, 2),
+                         host_waits=_host_waits(prof))
+    return out
+
+
+def fixedlag(card, poses):
+    """chip_smoke.py's fixed-lag stream through ``poses`` poses: per step
+    wall seconds and, where the checkout has ``DenseScatter``, the seconds
+    its plans took to build."""
+    import torch
+
+    import chip_smoke as cs
+    from rome_tpu_torch.solvers import linearize as L
+
+    plan_s = []
+    real = getattr(L, "DenseScatter", None)
+    if real is not None:
+        build = real.of.__func__
+
+        def timed_of(cls, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = build(cls, *a, **kw)
+            torch.cuda.synchronize()
+            plan_s.append(time.perf_counter() - t0)
+            return out
+
+        real.of = classmethod(timed_of)
+    step = cs.StepSolver("cuda", window=cs.FIXEDLAG_WINDOW)
+    t0 = time.time()
+    try:
+        cs.run_stream(cs.port_api(), cs.citygrid_stream(poses), step, window=cs.FIXEDLAG_WINDOW)
+    finally:
+        step.close()
+        if real is not None:
+            real.of = classmethod(build)
+    s = cs._summary(step.rows, time.time() - t0)
+    out = dict(solves=s["solves"], steady_median_ms=1e3 * s["steady_median_s"],
+               steady_p90_ms=1e3 * s["steady_p90_s"], linear=s["linear"],
+               iterations=sum(r["iterations"] for r in step.rows),
+               plan_builds=len(plan_s),
+               plan_ms_per_step=1e3 * sum(plan_s) / max(1, s["solves"]),
+               seconds=s["seconds"])
+    print(f"[{card}] fixedlag_citygrid_{poses}: {json.dumps(out)}", flush=True)
+    return out
 
 
 if __name__ == "__main__":

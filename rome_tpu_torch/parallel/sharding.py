@@ -5,9 +5,10 @@ Every rank owns a contiguous slice of each factor batch and computes its
 local residuals and Jacobians (a Pose2Pose2 slice through K1's ``lin``
 epilogue, as every linearize of the port); the global gradient, Hessian-
 vector products, block diagonal and cost are formed by local scatter-adds
-and one ``all_reduce`` each. Variable state is replicated: every rank holds
-all values and runs the same block-Jacobi PCG and LM decisions on the
-reduced (hence identical) quantities.
+(in the fixed order of ``TangentScatter``: one value per input) and one
+``all_reduce`` each. Variable state is replicated: every rank holds all
+values and runs the same block-Jacobi PCG and LM decisions on the reduced
+(hence identical) quantities.
 
 Every reduction is accumulated in float64 and summed across the ranks in
 float64, then cast to the graph dtype, as the JAX package does under x64
@@ -28,7 +29,7 @@ import torch
 from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays
 from rome_tpu_torch.parallel.distributed import Mesh, mesh_for
 from rome_tpu_torch.solvers.gauss_newton import ParametricSolver
-from rome_tpu_torch.solvers.linearize import linearize_all
+from rome_tpu_torch.solvers.linearize import TangentScatter, linearize_all
 from rome_tpu_torch.utils.math import einsum
 
 F64 = torch.float64
@@ -134,13 +135,11 @@ def make_sharded_gn_step(
     ga = pad_batches_for_mesh(ga, mesh.world)
     loc = _local_arrays(ga, mesh)
     dev, dtype = mesh.device, ga.dtype
-    tn, manifolds, counts = ga.type_names, ga.manifolds, ga.counts
+    tn, manifolds = ga.type_names, ga.manifolds
     free = loc.free
+    # this rank's sums into the variables' rows, in a fixed order
+    scatter = TangentScatter.of(loc, [b.vslots for b in loc.batches])
     ct = np.float32 if dtype == torch.float32 else np.float64
-
-    def zeros64(*tail):
-        return {t: torch.zeros((counts[t],) + tuple(d(t) for d in tail), dtype=F64, device=dev)
-                for t in tn}
 
     def dof(t):
         return manifolds[t].dof
@@ -154,13 +153,13 @@ def make_sharded_gn_step(
     def cost_grad_diag(lins):
         """The cost, the masked gradient and the JᵀJ block diagonal at the
         linearization point, with one all_reduce."""
-        g, D = zeros64(dof), zeros64(dof, dof)
         c = torch.zeros((1,), dtype=F64, device=dev)
-        for b, r0, Js, vs in lins:
+        for _b, r0, _Js, _vs in lins:
             c += 0.5 * torch.sum(r0.to(F64) * r0.to(F64))
-            for k, t in enumerate(b.vtypes):
-                g[t].index_add_(0, vs[:, k], einsum("nij,ni->nj", Js[k], r0).to(F64))
-                D[t].index_add_(0, vs[:, k], einsum("nij,nik->njk", Js[k], Js[k]).to(F64))
+        g = scatter.sum(loc, [[einsum("nij,ni->nj", J, r0) for J in Js]
+                              for _b, r0, Js, _vs in lins], dtype=F64)
+        D = scatter.sum(loc, [[einsum("nij,nik->njk", J, J) for J in Js]
+                              for _b, _r0, Js, _vs in lins], block=True, dtype=F64)
         red = mesh.all_reduce_dict({"c": c, **{("g", t): g[t] for t in tn},
                                     **{("D", t): D[t] for t in tn}})
         return (red["c"][0].to(dtype),
@@ -168,16 +167,15 @@ def make_sharded_gn_step(
                 {t: red[("D", t)].to(dtype) for t in tn})
 
     def hvp_of(lins, v):
-        out = zeros64(dof)
+        contribs = []
         for b, _r0, Js, vs in lins:
             u = None
             for k, t in enumerate(b.vtypes):
                 vk = v[t][vs[:, k]] * free[t][vs[:, k], None]
                 uk = einsum("nij,nj->ni", Js[k], vk)
                 u = uk if u is None else u + uk
-            for k, t in enumerate(b.vtypes):
-                out[t].index_add_(0, vs[:, k], einsum("nij,ni->nj", Js[k], u).to(F64))
-        out = mesh.all_reduce_dict(out)
+            contribs.append([einsum("nij,ni->nj", J, u) for J in Js])
+        out = mesh.all_reduce_dict(scatter.sum(loc, contribs, dtype=F64))
         return {t: out[t].to(dtype) * free[t][:, None] for t in tn}
 
     def boxplus_all(values, delta):

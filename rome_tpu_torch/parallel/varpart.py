@@ -35,7 +35,8 @@ from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays
 from rome_tpu_torch.parallel.distributed import Mesh, mesh_for
 from rome_tpu_torch.parallel.sharding import lm_loop
 from rome_tpu_torch.solvers.gauss_newton import ParametricSolver
-from rome_tpu_torch.solvers.linearize import batch_linearize
+from rome_tpu_torch.ops.segment_sum import SegmentPlan
+from rome_tpu_torch.solvers.linearize import DenseScatter, TangentScatter, batch_linearize
 
 F64 = torch.float64
 # added to the diagonal of the Jacobi-scaled interior and separator systems
@@ -316,17 +317,13 @@ def make_varpart_solver(ga: GraphArrays, mesh: Mesh = None, axis: str = "v",
         out = {}
         for t in tn:
             tail = mesh.all_reduce(gloc[t][n_loc[t]:].to(F64)).to(dtype)
-            own_part = gloc[t][: n_loc[t]].index_add(0, sep_src[t], tail * sep_own[t][:, None])
+            own_part = sep_sum[t].add_(gloc[t][: n_loc[t]].clone(), tail * sep_own[t][:, None])
             out[t] = own_part * free_own[t][:, None]
         return out
 
     def grad_of(lins):
-        g = {t: torch.zeros((n_loc[t] + n_sep[t], manifolds[t].dof), dtype=dtype, device=dev)
-             for t in tn}
-        for b, r0, Js, vsl in lins:
-            for k, t in enumerate(b.vtypes):
-                g[t].index_add_(0, vsl[:, k], torch.einsum("nij,ni->nj", Js[k], r0))
-        return reduce_to_own(g)
+        return reduce_to_own(scatter.sum(loc, [[torch.einsum("nij,ni->nj", J, r0) for J in Js]
+                                               for _b, r0, Js, _vsl in lins]))
 
     def boxplus_own(own, delta):
         out = {}
@@ -353,30 +350,20 @@ def make_varpart_solver(ga: GraphArrays, mesh: Mesh = None, axis: str = "v",
         return torch.where((act > 0)[:, None], o[:, None] + torch.arange(dof, device=dev),
                            torch.full_like(o[:, None], DT))
 
+    # the rank's sums in a fixed order, planned once: the gradient into the
+    # local rows, the owners' separator tails, and the local dense system
+    # [interior | separator | dump DT]
+    scatter = TangentScatter.of(loc, [b.vslots for b in batches])
+    sep_sum = {t: SegmentPlan(sep_src[t], device=dev) for t in tn}
+    dense = DenseScatter([[slot_offsets(b.vslots[:, k], t) for k, t in enumerate(b.vtypes)]
+                          for b in batches], [b.vslots for b in batches], DT + 1)
+
     def schur_solve(lins, lam, skip_psum=False, skip_sep=False):
         """EXACT damped-normal-equations step with ONE all_reduce: local
         elimination of the interiors (dense Cholesky), the Schur complement
         on the global separator set summed over the ranks, the replicated
         separator solve, local back-substitution. Float64 throughout."""
-        rows_all, cols_all, vals_all = [], [], []
-        g_idx_all, g_val_all = [], []
-        for b, r0, Js, vsl in lins:
-            r0 = r0.to(F64)
-            Js = tuple(J.to(F64) for J in Js)
-            offs = [slot_offsets(vsl[:, k], t) for k, t in enumerate(b.vtypes)]
-            for k in range(len(b.vtypes)):
-                g_idx_all.append(offs[k].reshape(-1))
-                g_val_all.append(torch.einsum("nij,ni->nj", Js[k], r0).reshape(-1))
-                for l in range(len(b.vtypes)):
-                    blk = torch.einsum("nij,nik->njk", Js[k], Js[l])
-                    rows_all.append(offs[k][:, :, None].expand(blk.shape).reshape(-1))
-                    cols_all.append(offs[l][:, None, :].expand(blk.shape).reshape(-1))
-                    vals_all.append(blk.reshape(-1))
-        M = torch.zeros((DT + 1, DT + 1), dtype=F64, device=dev)
-        M.index_put_((torch.cat(rows_all), torch.cat(cols_all)), torch.cat(vals_all),
-                     accumulate=True)
-        gl = torch.zeros((DT + 1,), dtype=F64, device=dev)
-        gl.index_add_(0, torch.cat(g_idx_all), torch.cat(g_val_all))
+        M, gl = dense.sum(lins, F64)
         M, gl = M[:DT, :DT], gl[:DT]
         # activity from the raw diagonal (inactive = dumped: frozen /
         # padding / not present on this rank)

@@ -50,6 +50,7 @@ import torch
 
 from rome_tpu_torch.graph.lower import GraphArrays
 from rome_tpu_torch.solvers.linearize import (
+    DenseScatter,
     NormalEqWorkspace,
     block_diag_from_lins,
     cost_at,
@@ -71,6 +72,8 @@ from rome_tpu_torch.utils.math import einsum
 
 F32, F64 = torch.float32, torch.float64
 _LINEAR = ("dense", "dense32", "ndchol", "pcg", "mixed")
+# the solvers that assemble the dense normal equations
+_DENSE_LINEAR = ("dense", "dense32", "mixed")
 
 
 def _tdot(a, b):
@@ -275,6 +278,7 @@ class ParametricSolver:
             self._dtol = opts.dtol
         self._rt0 = runtime_state(ga)
         self._scatter = TangentScatter.of(ga, self._rt0["vslots"])
+        self._dense = None
         self._sym, self._nd = (
             _symbolic_plan(ga, opts.nd_leaf) if linear == "ndchol" else (None, None)
         )
@@ -307,25 +311,38 @@ class ParametricSolver:
         return solver
 
     # -- building blocks ---------------------------------------------------------
+    def _is_own(self, rt):
+        """Whether ``rt`` holds this graph's own connectivity."""
+        vs, own = rt["vslots"], self._rt0["vslots"]
+        return len(vs) == len(own) and all(a is b for a, b in zip(vs, own))
+
     def _plan_for(self, rt):
         """The ndchol (plan, index tensors) of the connectivity ``rt`` holds:
         this graph's own, or one re-derived (and cached) for another's."""
-        vs, own = rt["vslots"], self._rt0["vslots"]
-        if len(vs) == len(own) and all(a is b for a, b in zip(vs, own)):
+        if self._is_own(rt):
             return self._sym, self._nd
-        return _symbolic_plan(self.ga, self.opts.nd_leaf, vs)
+        return _symbolic_plan(self.ga, self.opts.nd_leaf, rt["vslots"])
 
     def _scatter_for(self, rt):
         """The tangent sums' plan (``TangentScatter``) of ``rt``'s
         connectivity: this graph's own, or one made for another's."""
-        vs, own = rt["vslots"], self._rt0["vslots"]
-        if len(vs) == len(own) and all(a is b for a, b in zip(vs, own)):
+        if self._is_own(rt):
             return self._scatter
-        return TangentScatter.of(self.ga, vs)
+        return TangentScatter.of(self.ga, rt["vslots"])
+
+    def _dense_for(self, rt):
+        """The dense normal equations' plan (``DenseScatter``) of ``rt``'s
+        connectivity: this graph's own (made at its first use and kept), or
+        one made for another's."""
+        if not self._is_own(rt):
+            return DenseScatter.of(self.ga, rt["vslots"])
+        if self._dense is None:
+            self._dense = DenseScatter.of(self.ga, self._rt0["vslots"])
+        return self._dense
 
     def _start(self, values, rt):
-        """(values in the working dtype, rt with the ndchol plan and the
-        tangent sums' plan)."""
+        """(values in the working dtype, rt with the ndchol plan, the
+        tangent sums' plan and the dense solvers' plan)."""
         values = values or self.ga.values0
         if self._use64:
             values = {t: v.to(F64) for t, v in values.items()}
@@ -334,6 +351,8 @@ class ParametricSolver:
             rt = {**rt, "ndchol": self._plan_for(rt)}
         if "scatter" not in rt:
             rt = {**rt, "scatter": self._scatter_for(rt)}
+        if self.linear in _DENSE_LINEAR and "dense" not in rt:
+            rt = {**rt, "dense": self._dense_for(rt)}
         return values, rt
 
     def _pstate0(self):

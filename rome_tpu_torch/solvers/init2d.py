@@ -22,6 +22,8 @@ import numpy as np
 import torch
 
 from rome_tpu_torch.graph.lower import GraphArrays
+from rome_tpu_torch.ops.segment_sum import SegmentPlan
+from rome_tpu_torch.solvers.linearize import TangentScatter
 from rome_tpu_torch.utils.math import einsum, rot2
 
 _ODO_BATCHES = ("Pose2Pose2", "MutablePose2Pose2Gaussian")
@@ -113,9 +115,8 @@ def _ndchol_spd_delta(sym, nd, vals_vec, g, free2, matvec, out_dtype,
     rdt = g.dtype
     f = free2.to(F32)
     vals32 = vals_vec.to(F32)
-    diag_A = torch.zeros(sym.D, dtype=F32, device=g.device).index_add_(
-        0, nd["diag_dst"], vals32[nd["diag_src"]] * f[nd["diag_dst"]] ** 2
-    )
+    # f is 0/1: masking the sum is masking each entry
+    diag_A = nd["sum_diag"].add_(torch.zeros(sym.D, dtype=F32, device=g.device), vals32) * f
     df = torch.rsqrt(torch.clamp(diag_A, min=1e-12)) * f
     diag_add = f * ridge + (1.0 - f)
     Ws = ndchol_assemble(sym, nd, vals32, df, diag_add)
@@ -165,24 +166,50 @@ _CHORDAL_TOL_ROT = 1e-7
 _CHORDAL_TOL_TRANS = 1e-7
 
 
-def _chordal_symbolic(n, edges, priors, leaf=None):
-    """Symbolic ND factorization of the 2-dof chordal systems (both stages
-    share the pose graph's sparsity)."""
-    from rome_tpu_torch.solvers.sparse import symbolic_factor
+class _ChordalPlan:
+    """The chordal systems' plan for one pose-graph connectivity (both
+    stages share it): the 2-dof systems' batches (per edge batch its (i, j)
+    slots, per prior batch its slots) and, from ``_SPARSE_THRESHOLD`` poses
+    up, their ND symbolic factorization, whose assembly and diagonal sum
+    each position's entries by batch, then the factor's poses, then place.
+    :meth:`device_arrs` gives the stage's fixed-order sums on a device."""
 
-    specs = []
-    for i, j, _z, _S, _w in edges:
-        specs.append((("U", "U"), np.stack([i, j], axis=1).astype(np.int64)))
-    for idx, _z, _S, _w in priors:
-        specs.append((("U",), np.asarray(idx)[:, None].astype(np.int64)))
-    return symbolic_factor(
-        ["U"], {"U": n}, {"U": 2}, specs,
-        leaf=leaf if leaf is not None else _CHORDAL_LEAF,
-    )
+    def __init__(self, n, ei, pi):
+        from rome_tpu_torch.solvers.sparse import symbolic_factor
+        from rome_tpu_torch.solvers.sparse.symbolic import entry_keys
+
+        self.n = n
+        self.specs = ([(("U", "U"), np.stack([i, j], axis=1).astype(np.int64)) for i, j in ei]
+                      + [(("U",), np.asarray(idx, np.int64)[:, None]) for idx in pi])
+        self.sym = None
+        if n >= _SPARSE_THRESHOLD:
+            self.sym = symbolic_factor(["U"], {"U": n}, {"U": 2}, self.specs,
+                                       leaf=_CHORDAL_LEAF)
+            self.sym.entry_key = entry_keys({"U": 2}, self.specs)
+
+    def device_arrs(self, device):
+        """On ``device``: ``rows``, one plan of every contribution to the
+        (n, 2) pose rows (both stages' gradients and matvecs): per edge batch
+        its tails' contributions, then its heads', then per prior batch its
+        poses', a row's summed by batch, slot, then the factor's poses; and
+        either ``nd``, the ND plan's tensors (``sum_diag`` among them), or
+        ``dense``, the plan of the 2n x 2n matrix at the flat destination
+        row * 2n + col, its entries in the ND path's order."""
+        from rome_tpu_torch.solvers.sparse.symbolic import entry_coords, entry_keys
+
+        out = {"rows": TangentScatter(["U"], self.specs, device).plans["U"]}
+        if self.sym is not None:
+            out["nd"] = self.sym.device_arrs(device)
+        else:
+            r, c = entry_coords(["U"], {"U": self.n}, {"U": 2}, self.specs)
+            out["dense"] = SegmentPlan(r * (2 * self.n) + c,
+                                       keys=(entry_keys({"U": 2}, self.specs),), device=device)
+        return out
 
 
 def _chordal_plan(n, edges, priors, device):
-    """The chordal systems' symbolic plan, cached per pose-graph connectivity."""
+    """The chordal systems' plan and its tensors on ``device``, cached per
+    pose-graph connectivity (beside the LM's ND plans)."""
     from rome_tpu_torch.solvers.sparse import cached_symbolic
 
     ei = [(e[0].cpu().numpy(), e[1].cpu().numpy()) for e in edges]
@@ -193,14 +220,7 @@ def _chordal_plan(n, edges, priors, device):
         tuple(a.tobytes() + b.tobytes() for a, b in ei),
         tuple(a.tobytes() for a in pi),
     )
-    return cached_symbolic(
-        key,
-        lambda: _chordal_symbolic(
-            n, [(a, b, None, None, None) for a, b in ei],
-            [(a, None, None, None) for a in pi],
-        ),
-        device,
-    )
+    return cached_symbolic(key, lambda: _ChordalPlan(n, ei, pi), device)
 
 
 def chordal_init_pose2(ga: GraphArrays, values):
@@ -213,167 +233,133 @@ def chordal_init_pose2(ga: GraphArrays, values):
     if not edges:
         return values
     priors = _pose2_priors(ga)
-    if n >= _SPARSE_THRESHOLD:
-        sym, nd = _chordal_plan(n, edges, priors, ga.device)
-    else:
-        sym, nd = None, None
+    plan, arrs = _chordal_plan(n, edges, priors, ga.device)
     out = dict(values)
     out["Pose2"] = _chordal_body(
-        ga.dtype, n, values["Pose2"], edges, priors, ga.free["Pose2"], sym, nd
+        ga.dtype, n, values["Pose2"], edges, priors, ga.free["Pose2"], plan.sym, arrs
     )
     return out
 
 
-def _idx2(i):
-    """(m,) pose slots -> (m, 2) scalar indices of the 2-dof unknowns."""
-    return 2 * i[:, None] + torch.arange(2, device=i.device)[None, :]
+def _rot_terms(edges, priors):
+    """Stage 1's per-batch constants: per edge batch (i, j, wq, Rz), per
+    prior batch (idx, wq, the prior's (cos, sin))."""
+    et = [(i, j, (S[:, 2, 2] * w) ** 2, rot2(z[:, 2])) for i, j, z, S, w in edges]
+    pt = [(idx, (S[:, 2, 2] * w) ** 2, torch.stack([torch.cos(z[:, 2]), torch.sin(z[:, 2])], -1))
+          for idx, z, S, w in priors]
+    return et, pt
 
 
-def _scatter_block(A, ii, jj, blk):
-    """A[ii[:, a], jj[:, b]] += blk[:, a, b] (accumulating)."""
-    m = blk.shape[0]
-    rows = ii[:, :, None].expand(m, 2, 2).reshape(-1)
-    cols = jj[:, None, :].expand(m, 2, 2).reshape(-1)
-    A.index_put_((rows, cols), blk.reshape(-1), accumulate=True)
+def _rot_rows(et, pt, x, grad=False):
+    """Stage 1's row contributions at the (n, 2) point ``x``, in the rows
+    plan's order: the gradient with ``grad``, else the matvec A x."""
+    parts = []
+    for i, j, wq, Rz in et:
+        r = x[j] - einsum("nij,nj->ni", Rz, x[i])
+        parts += [-wq[:, None] * einsum("nji,nj->ni", Rz, r), wq[:, None] * r]
+    for idx, wq, ut in pt:
+        parts.append(wq[:, None] * (x[idx] - ut if grad else x[idx]))
+    return parts
 
 
-def _chordal_body(dtype, n, pose2_values, edges, priors, free, sym=None, nd=None):
+def _tr_terms(edges, priors, R):
+    """Stage 2's per-batch constants at the rotations ``R``: per edge batch
+    (i, j, R_i, R_i W, R_i W R_i^T, the edge's t), per prior batch (idx, W,
+    the prior's t)."""
+    et = []
+    for i, j, z, S, w in edges:
+        Ri = R[i]
+        RW = einsum("nij,njk->nik", Ri, _edge_info(S, w))
+        et.append((i, j, Ri, RW, einsum("nik,nlk->nil", RW, Ri), z[:, :2]))
+    pt = [(idx, _edge_info(S, w), z[:, :2]) for idx, z, S, w in priors]
+    return et, pt
+
+
+def _edge_info(S, w):
+    St = S[:, :2, :2]
+    return einsum("nij,nik->njk", St, St) * (w ** 2)[:, None, None]  # (m,2,2)
+
+
+def _tr_rows(et, pt, x, grad=False):
+    """Stage 2's row contributions at the (n, 2) point ``x``, in the rows
+    plan's order: the gradient with ``grad``, else the matvec A x."""
+    parts = []
+    for i, j, Ri, RW, RWRt, zt in et:
+        if grad:
+            # r = R_i^T (t_j - t_i) - dt;  J_tj = R_i^T, J_ti = -R_i^T
+            e = einsum("nij,nj->ni", RW, einsum("nji,nj->ni", Ri, x[j] - x[i]) - zt)
+        else:
+            e = einsum("nij,nj->ni", RWRt, x[j] - x[i])
+        parts += [-e, e]
+    for idx, W, zt in pt:
+        parts.append(einsum("njk,nk->nj", W, x[idx] - zt if grad else x[idx]))
+    return parts
+
+
+def _rot_entries(et, pt):
+    """Stage 1's f32 matrix entries in the ND plan's order (entry_coords for
+    vslots (i, j)): A[i,i] = wI, A[i,j] = -wRz^T, A[j,i] = -wRz, A[j,j] = wI
+    (Rz^T Rz = I); a prior's wI."""
+    vals = []
+    for _i, _j, wq, Rz in et:
+        wI = wq[:, None, None].to(F32) * torch.eye(2, dtype=F32, device=wq.device)
+        wRz = (wq[:, None, None] * Rz).to(F32)
+        vals += [wI, -wRz.transpose(-1, -2), -wRz, wI]
+    for _idx, wq, _ut in pt:
+        vals.append(wq[:, None, None].to(F32) * torch.eye(2, dtype=F32, device=wq.device))
+    return torch.cat([v.reshape(-1) for v in vals])
+
+
+def _tr_entries(et, pt):
+    """Stage 2's f32 matrix entries in the same order: R_i W R_i^T with its
+    signs, a prior's W."""
+    vals = []
+    for _i, _j, _Ri, _RW, RWRt, _zt in et:
+        b = RWRt.to(F32)
+        vals += [b, -b, -b, b]
+    vals += [W.to(F32) for _idx, W, _zt in pt]
+    return torch.cat([v.reshape(-1) for v in vals])
+
+
+def _chordal_body(dtype, n, pose2_values, edges, priors, free, sym, arrs):
     # assembly/refinement precision f64 (the Laplacian solves need it); the
-    # factorizations are f32
+    # factorizations are f32. Every sum of colliding contributions goes
+    # through one of the plan's fixed-order sums (``arrs``)
     dev = pose2_values.device
     adt = F64
     th0 = pose2_values[:, 2].to(adt)
     t0 = pose2_values[:, :2].to(adt)
     edges = [(i, j, z.to(adt), S.to(adt), w.to(adt)) for i, j, z, S, w in edges]
     priors = [(i, z.to(adt), S.to(adt), w.to(adt)) for i, z, S, w in priors]
-    out_dtype = dtype
-    sparse = sym is not None
     f2 = torch.repeat_interleave(free, 2)
+
+    def rows(parts):
+        return arrs["rows"].add_(torch.zeros((n, 2), dtype=adt, device=dev),
+                                 torch.cat(parts)).reshape(-1)
+
+    def solve(vals, g, matvec, tol):
+        if sym is not None:
+            return _ndchol_spd_delta(sym, arrs["nd"], vals, g, f2, matvec, adt,
+                                     tol=tol, ridge=_CHORDAL_RIDGE)
+        A = arrs["dense"].add_(torch.zeros(4 * n * n, dtype=F32, device=dev), vals)
+        return _solve_spd_delta(A.view(2 * n, 2 * n), g, f2, adt, matvec)
 
     # -------- stage 1: chordal rotation relaxation (linear in (c, s)) ------
     u0 = torch.stack([torch.cos(th0), torch.sin(th0)], dim=-1)  # (n, 2)
-    A = None if sparse else torch.zeros((2 * n, 2 * n), dtype=F32, device=dev)
-    vals1 = []  # sparse-path contribution blocks, entry_coords order
-    g = torch.zeros((n, 2), dtype=adt, device=dev)
-    for i, j, z, S, w in edges:
-        wq = (S[:, 2, 2] * w) ** 2  # info weight of the rotation row
-        Rz = rot2(z[:, 2])  # (m, 2, 2)
-        r = u0[j] - einsum("nij,nj->ni", Rz, u0[i])
-        g.index_add_(0, j, wq[:, None] * r)
-        g.index_add_(0, i, -wq[:, None] * einsum("nji,nj->ni", Rz, r))
-        eye2 = torch.eye(2, dtype=F32, device=dev).expand(Rz.shape)
-        wI = wq[:, None, None].to(F32) * eye2
-        wRz = (wq[:, None, None] * Rz).to(F32)
-        if sparse:
-            # (k,l) block order of sparse.symbolic.entry_coords for vslots
-            # (i, j): A[i,i]=wI  A[i,j]=-wRz^T  A[j,i]=-wRz  A[j,j]=wI
-            vals1 += [wI.reshape(-1), (-wRz.transpose(-1, -2)).reshape(-1),
-                      (-wRz).reshape(-1), wI.reshape(-1)]
-        else:
-            ii, jj = _idx2(i), _idx2(j)
-            _scatter_block(A, jj, jj, wI)
-            _scatter_block(A, ii, ii, wI)  # Rz^T Rz = I
-            _scatter_block(A, jj, ii, -wRz)
-            _scatter_block(A, ii, jj, -wRz.transpose(-1, -2))
-    for idx, z, S, w in priors:
-        wq = (S[:, 2, 2] * w) ** 2
-        ut = torch.stack([torch.cos(z[:, 2]), torch.sin(z[:, 2])], -1)
-        g.index_add_(0, idx, wq[:, None] * (u0[idx] - ut))
-        eye2 = torch.eye(2, dtype=F32, device=dev).expand(idx.shape[0], 2, 2)
-        wI = wq[:, None, None].to(F32) * eye2
-        if sparse:
-            vals1.append(wI.reshape(-1))
-        else:
-            ii = _idx2(idx)
-            _scatter_block(A, ii, ii, wI)
-
-    def mv_rot(xf):
-        # edge-based A@x, O(m)
-        x = xf.reshape(n, 2)
-        y = torch.zeros_like(x)
-        for i, j, z, S, w in edges:
-            wq = (S[:, 2, 2] * w) ** 2
-            Rz = rot2(z[:, 2])
-            e = x[j] - einsum("nij,nj->ni", Rz, x[i])
-            y.index_add_(0, j, wq[:, None] * e)
-            y.index_add_(0, i, -wq[:, None] * einsum("nji,nj->ni", Rz, e))
-        for idx, z, S, w in priors:
-            wq = (S[:, 2, 2] * w) ** 2
-            y.index_add_(0, idx, wq[:, None] * x[idx])
-        return y.reshape(-1)
-
-    if sparse:
-        du = _ndchol_spd_delta(
-            sym, nd, torch.cat(vals1), g.reshape(-1), f2, mv_rot, adt,
-            tol=_CHORDAL_TOL_ROT, ridge=_CHORDAL_RIDGE,
-        )
-    else:
-        du = _solve_spd_delta(A, g.reshape(-1), f2, adt, mv_rot)
+    et, pt = _rot_terms(edges, priors)
+    g = rows(_rot_rows(et, pt, u0, grad=True))
+    du = solve(_rot_entries(et, pt), g,
+               lambda xf: rows(_rot_rows(et, pt, xf.reshape(n, 2))), _CHORDAL_TOL_ROT)
     u = u0 + du.reshape(n, 2)
     th = torch.where(free > 0, torch.atan2(u[:, 1], u[:, 0]), th0)
 
     # -------- stage 2: translations (single linear solve) ------------------
     R = rot2(th)
-    A = None if sparse else torch.zeros((2 * n, 2 * n), dtype=F32, device=dev)
-    vals2 = []
-    g = torch.zeros((n, 2), dtype=adt, device=dev)
-
-    def edge_info(S, w):
-        St = S[:, :2, :2]
-        return einsum("nij,nik->njk", St, St) * (w ** 2)[:, None, None]  # (m,2,2)
-
-    for i, j, z, S, w in edges:
-        W = edge_info(S, w)
-        Ri = R[i]
-        # r = R_i^T (t_j - t_i) - dt;  J_tj = R_i^T, J_ti = -R_i^T
-        r = einsum("nji,nj->ni", Ri, t0[j] - t0[i]) - z[:, :2]
-        RW = einsum("nij,njk->nik", Ri, W)          # R_i W
-        RWRt = einsum("nik,nlk->nil", RW, Ri)       # R_i W R_i^T
-        RWr = einsum("nij,nj->ni", RW, r)
-        g.index_add_(0, j, RWr)
-        g.index_add_(0, i, -RWr)
-        RWRt32 = RWRt.to(F32)
-        if sparse:
-            vals2 += [RWRt32.reshape(-1), (-RWRt32).reshape(-1),
-                      (-RWRt32).reshape(-1), RWRt32.reshape(-1)]
-        else:
-            ii, jj = _idx2(i), _idx2(j)
-            _scatter_block(A, jj, jj, RWRt32)
-            _scatter_block(A, ii, ii, RWRt32)
-            _scatter_block(A, jj, ii, -RWRt32)
-            _scatter_block(A, ii, jj, -RWRt32)
-    for idx, z, S, w in priors:
-        W = edge_info(S, w)
-        r = t0[idx] - z[:, :2]
-        g.index_add_(0, idx, einsum("njk,nk->nj", W, r))
-        if sparse:
-            vals2.append(W.to(F32).reshape(-1))
-        else:
-            ii = _idx2(idx)
-            _scatter_block(A, ii, ii, W.to(F32))
-
-    def mv_tr(xf):
-        x = xf.reshape(n, 2)
-        y = torch.zeros_like(x)
-        for i, j, z, S, w in edges:
-            W = edge_info(S, w)
-            Ri = R[i]
-            RWRt = einsum("nik,nlk->nil", einsum("nij,njk->nik", Ri, W), Ri)
-            e = einsum("nij,nj->ni", RWRt, x[j] - x[i])
-            y.index_add_(0, j, e)
-            y.index_add_(0, i, -e)
-        for idx, z, S, w in priors:
-            y.index_add_(0, idx, einsum("nij,nj->ni", edge_info(S, w), x[idx]))
-        return y.reshape(-1)
-
-    if sparse:
-        dt = _ndchol_spd_delta(
-            sym, nd, torch.cat(vals2), g.reshape(-1), f2, mv_tr, adt,
-            tol=_CHORDAL_TOL_TRANS, ridge=_CHORDAL_RIDGE,
-        )
-    else:
-        dt = _solve_spd_delta(A, g.reshape(-1), f2, adt, mv_tr)
+    et, pt = _tr_terms(edges, priors, R)
+    g = rows(_tr_rows(et, pt, t0, grad=True))
+    dt = solve(_tr_entries(et, pt), g,
+               lambda xf: rows(_tr_rows(et, pt, xf.reshape(n, 2))), _CHORDAL_TOL_TRANS)
     t = t0 + dt.reshape(n, 2)
     # frozen poses stay bit-identical to the input (fixed-lag contract)
-    out = torch.cat([t, th[:, None]], dim=-1).to(out_dtype)
+    out = torch.cat([t, th[:, None]], dim=-1).to(dtype)
     return torch.where(free[:, None] > 0, out, pose2_values)

@@ -232,7 +232,7 @@ class TangentScatter:
     summed by batch, then slot, then the contributing factor's variable
     slots: the order follows the graph's structure, not its batches' row
     order (only factors on the same variables in the same batch keep their
-    row order). Made once per connectivity on the host."""
+    row order). Made once per connectivity."""
 
     def __init__(self, type_names, specs, device):
         """``specs``: per batch, (vtypes, vslots as an (n, arity) numpy
@@ -261,15 +261,15 @@ class TangentScatter:
         specs = [(b.vtypes, v.cpu().numpy()) for b, v in zip(ga.batches, vslots)]
         return cls(ga.type_names, specs, ga.device)
 
-    def sum(self, ga: GraphArrays, contribs, block=False):
+    def sum(self, ga: GraphArrays, contribs, block=False, dtype=None):
         """``contribs[i][k]``: batch i's (n, dof) contributions at slot k,
         (n, dof, dof) with ``block``. Returns type -> (count, dof) sums, or
-        (count, dof, dof), in ``ga.dtype``."""
+        (count, dof, dof), in ``dtype`` (default ``ga.dtype``)."""
         out = {}
         for t in ga.type_names:
             d = ga.manifolds[t].dof
             o = torch.zeros((ga.counts[t], d, d) if block else (ga.counts[t], d),
-                            dtype=ga.dtype, device=ga.device)
+                            dtype=dtype or ga.dtype, device=ga.device)
             if self.parts[t]:
                 self.plans[t].add_(o, torch.cat([contribs[i][k].to(o.dtype)
                                                  for i, k in self.parts[t]]))
@@ -381,42 +381,88 @@ def normal_eq_entry_values(ga: GraphArrays, lins, dtype=None, parts=None):
     return parts.vals
 
 
+class DenseScatter:
+    """The dense normal equations' two sums in a fixed order: every JᵀJ
+    entry contribution at the flat destination ``row * size + col`` of H,
+    every Jᵀr contribution at ``row`` of g. A destination's contributions
+    are summed by batch, then the contributing factor's variable slots, then
+    their place in its block (as ``TangentScatter`` and the ndchol plans
+    order theirs). Made on the device once per connectivity: a fixed-lag
+    step, whose connectivity changes every step, pays one device sort per
+    sum and no host sort."""
+
+    def __init__(self, offs, vslots, size):
+        """``offs``: per batch, per slot, the (n, dof) scalar offsets of the
+        slot's variables (tensors, on the device; an offset may repeat, such
+        as a dump row); ``vslots``: per batch, its (n, arity) slots; H is
+        ``size`` x ``size``."""
+        dev = vslots[0].device if vslots else "cpu"
+        width = max((v.shape[1] for v in vslots), default=0)
+        h_dst, h_key, g_dst, g_key = [], [], [], []
+        for i, (os_, vs) in enumerate(zip(offs, vslots)):
+            key = torch.full((vs.shape[0], 1 + width), -1, dtype=torch.int64, device=dev)
+            key[:, 0] = i
+            key[:, 1: 1 + vs.shape[1]] = vs
+            for ok in os_:
+                g_dst.append(ok.reshape(-1))
+                g_key.append(key.repeat_interleave(ok.shape[1], dim=0))
+                for ol in os_:
+                    h_dst.append((ok[:, :, None] * size + ol[:, None, :]).reshape(-1))
+                    h_key.append(key.repeat_interleave(ok.shape[1] * ol.shape[1], dim=0))
+        self.size = size
+        self.h = SegmentPlan(torch.cat(h_dst), keys=(torch.cat(h_key),), device=dev)
+        self.g = SegmentPlan(torch.cat(g_dst), keys=(torch.cat(g_key),), device=dev)
+
+    @classmethod
+    def of(cls, ga: GraphArrays, vslots):
+        """The plan of ``ga``'s global tangent over the per-batch ``vslots``."""
+        base, D = tangent_offsets(ga)
+        offs = []
+        for b, vs in zip(ga.batches, vslots):
+            offs.append([base[t] + vs[:, k, None] * ga.manifolds[t].dof
+                         + torch.arange(ga.manifolds[t].dof, device=vs.device)
+                         for k, t in enumerate(b.vtypes)])
+        return cls(offs, list(vslots), D)
+
+    @staticmethod
+    def terms(lins, dtype):
+        """Every JᵀJ and Jᵀr contribution of ``lins`` in ``dtype``, flat, in
+        the plans' entry order (per batch, per slot k: Jᵀr's (n, dk) block,
+        then JᵀJ's (n, dk, dl) block of every slot l, row-major)."""
+        hv, gv = [], []
+        for _batch, r0, Js, _vs in lins:
+            r0 = r0.to(dtype)
+            Js = tuple(J.to(dtype) for J in Js)
+            for Jk in Js:
+                gv.append(einsum("nij,ni->nj", Jk, r0).reshape(-1))
+                hv.extend(einsum("nij,nik->njk", Jk, Jl).reshape(-1) for Jl in Js)
+        return torch.cat(hv), torch.cat(gv)
+
+    def sum(self, lins, dtype):
+        """(H, g) of ``lins`` in ``dtype``: (size, size) and (size,)."""
+        hv, gv = self.terms(lins, dtype)
+        H = torch.zeros((self.size * self.size,), dtype=dtype, device=hv.device)
+        g = torch.zeros((self.size,), dtype=dtype, device=gv.device)
+        self.h.add_(H, hv)
+        self.g.add_(g, gv)
+        return H.view(self.size, self.size), g
+
+
 def dense_normal_eqs(ga: GraphArrays, lins, dtype=None, rt=None):
     """Dense H = J^T J and g = J^T r over the global tangent, in ``dtype``.
 
     Frozen (free=0) dims get an identity row/col so H stays invertible and
-    their update is exactly zero. All block contributions go into ONE
-    accumulating scatter per output; the free mask is applied to H in place
-    (a 0/1 mask, so the products are exact), so H is the only D x D buffer.
+    their update is exactly zero. Every block contribution goes into ONE
+    fixed-order sum per output (``rt["dense"]``, a ``DenseScatter``, where
+    the solver put one; else one made for ``lins``' slots); the free mask
+    is applied to H in place (a 0/1 mask, so the products are exact), so H
+    is the only D x D buffer.
     """
     dtype = dtype or ga.dtype
-    dev = ga.device
-    base, D = tangent_offsets(ga)
-    rows_all, cols_all, vals_all = [], [], []
-    g_idx_all, g_val_all = [], []
-    for batch, r0, Js, vslots in lins:
-        r0 = r0.to(dtype)
-        Js = tuple(J.to(dtype) for J in Js)
-        offs = []
-        for k, t in enumerate(batch.vtypes):
-            d = ga.manifolds[t].dof
-            o = base[t] + vslots[:, k] * d
-            offs.append(o[:, None] + torch.arange(d, device=dev)[None, :])
-        for k in range(len(batch.vtypes)):
-            g_idx_all.append(offs[k].reshape(-1))
-            g_val_all.append(einsum("nij,ni->nj", Js[k], r0).reshape(-1))
-            for l in range(len(batch.vtypes)):
-                blk = einsum("nij,nik->njk", Js[k], Js[l])
-                shp = blk.shape
-                rows_all.append(offs[k][:, :, None].expand(shp).reshape(-1))
-                cols_all.append(offs[l][:, None, :].expand(shp).reshape(-1))
-                vals_all.append(blk.reshape(-1))
-    H = torch.zeros((D, D), dtype=dtype, device=dev)
-    H.index_put_(
-        (torch.cat(rows_all), torch.cat(cols_all)), torch.cat(vals_all), accumulate=True
-    )
-    g = torch.zeros((D,), dtype=dtype, device=dev)
-    g.index_add_(0, torch.cat(g_idx_all), torch.cat(g_val_all))
+    plan = rt.get("dense") if rt is not None else None
+    if plan is None:
+        plan = DenseScatter.of(ga, [vs for _b, _r0, _Js, vs in lins])
+    H, g = plan.sum(lins, dtype)
     f = free_vector(ga, rt).to(dtype)
     H.mul_(f[:, None]).mul_(f[None, :])
     H.diagonal().add_(1.0 - f)
