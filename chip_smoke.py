@@ -47,7 +47,10 @@
    update as it was (scores, then ``categorical``) and as it is (uniforms,
    then the draw), and for K3 the one-call library form of its linear case
    (``torch.cdist``); the draw per host call (CUDA events); the bounds.
-5. Citygrid path: the batch SE(2) solve of data/citygrid.g2o (10,000 poses,
+5. bench_torch.py, the port of bench.py, in this process
+   (``main_path``): its rows for bench.py's reference datasets
+   (``absent`` where their files are missing, else matched), then the
+   citygrid path: the batch SE(2) solve of data/citygrid.g2o (10,000 poses,
    13,085 odometry/loop-closure edges, x0 prior) through the port's public
    entry points on device "cuda" — g2o load, chordal init, Levenberg-
    Marquardt with the nested-dissection Cholesky (``linear="ndchol"``) and
@@ -56,7 +59,13 @@
    reach an SE(2)-aligned ATE <= 1.0 m against the f64 optimum in
    data/citygrid_gt.npz, and a cost <= 1.002 * optimum + 1e-3; each run
    must launch K1's normal epilogue once per LM iteration plus once at the
-   start, and its lin epilogue never.
+   start, and its lin epilogue never; the four runs take one LM iteration
+   count. Then the script's covariance row (Takahashi at the g2o values,
+   within 1e-4 of ``splu`` on 32 poses), its K1 rows
+   (tools/torch/bench_kernels.py: lin, normal and the plain version at n =
+   1e4, 1e5 and 1e6, each no faster than its bound, each with its share of
+   the stream rate) and its metric line, non-zero, against
+   tools/cpu_reference.py timed on this host's CPU in the same run.
 5b. Parametric solvers on the same graph, each sub-path counting K1 from 0
    (``parametric_solvers_path``): one ``schedule="host"`` ndchol solve
    (gates; normal >= 1 per LM iteration); ``linear="auto"`` must pick
@@ -72,6 +81,8 @@
    every pose, relative to each block's largest entry; the dense method
    (1e-8 absolute ridge) within 1e-4 of ``splu`` on its own system, its gap
    to Takahashi (a different ridge) reported.
+6-10 and 13 run tools/torch/bench_multimodal.py's six rows (each phase
+   through its row function) and hold its roll-up: ``all_gates_pass``.
 6. Beehive path: the nonparametric solve of the beehive-100 graph (101
    Pose2, 74 Point2, 202 factors; seed 0) through
    ``solve_graph_nonparametric(..., sweeps=3, N=100, engine="batched",
@@ -96,8 +107,9 @@
    must recycle at least one clique, every recycled clique's frontal beliefs
    and points must be bit-identical across the re-solve, and the mean
    landmark error must be below 4.0 m.
-9. Hexagonal cross-check (bench_multimodal.py:74-95): ``engine="loop"`` and
-   ``engine="batched"``, ``init=True``, N = 100. Both must pass the band
+9. Hexagonal cross-check (bench_multimodal.py:74-95): ``engine="batched"``
+   twice (first, steady) and ``engine="loop"``, ``init=True``, N = 100.
+   Each must pass the band
    check (>= 35 of 100 particles within +-3 m and +-0.3 rad per pose,
    tests/test_multimodal.py:117-136) and their mean symmetric k-NN KL over
    the poses must be below 1.0.
@@ -139,7 +151,7 @@
    ``solve_graph_parametric(..., device="cuda")``: the dense LM in float64
    once (the reference optimum, position RMSE to the truth <= 0.1 m), then
    ndchol with the ``big`` options less the dtol stop (IMU_BIG) once cold
-   and twice warm, each converged, cost <= 1.002 * the optimum + 1e-3 and
+   and once warm, each converged, cost <= 1.002 * the optimum + 1e-3 and
    position RMSE to the optimum <= 0.01 m. Prints per solve the LM
    iterations, seconds, keyframes/s, peak device memory, the accelerometer
    bias estimates and the linearize's seconds per LM iteration (CUDA
@@ -165,28 +177,30 @@
    position error against the parametric optimum < 0.5 m) and a 6-pose
    mixture chain (K2's draw; its mixture messages take the per-factor
    fallback; < 1.0 m).
-16. fixedlag_citygrid_3500 (``fixedlag_path``): citygrid's poses 0-3,499
-   as a stream (each pose at its predecessor's estimate composed with the
-   odometry mean, then every EDGE_SE2 whose larger endpoint it is, through
-   ``parse_g2o_instruction``); every 10 poses and after the last,
+16. fixedlag_citygrid_3500 (``fixedlag_path``), tools/torch/incremental_bench.py's
+   ``run`` in this process: citygrid's poses 0-3,499 as its time-ordered
+   g2o stream (each VERTEX_SE2 line, then every EDGE_SE2 whose larger
+   endpoint it is, through ``add_instruction``: the odometry edge starts
+   the pose at its predecessor's estimate composed with the edge's mean,
+   as a front end sends it); every 10 poses and after the last,
    ``fifo_freeze`` with window 25 and tools/incremental_bench.py's solve
    (``max_iters=30``, no chordal init, ``pad=True``, default dtype, "cuda"):
    350 solves, ``auto`` picking dense, then dense32. Gates: every frozen
-   pose keeps its float64 value bit for bit through every later solve; on
-   every 25th solve and the last, a save_dfg -> load_dfg copy solved in
+   pose keeps its float64 value bit for bit through every later solve (the
+   script's ``frozen_drift`` 0.0 on every row, ``max_frozen_drift`` 0.0);
+   on every 25th solve and the last, a save_dfg -> load_dfg copy solved in
    float64 (dense, 100 iterations, ftol 1e-12) on the card: the step's cost
    <= 1.002 x that cost + 1e-3 and every free pose within 0.1 m of it. K1
-   padded lin launched. Per step: poses, frozen, free, LM iterations and
-   reason, seconds (and lowering's), the linear solver, whether
-   ``ParametricSolver.cached`` handed back a solver it held (the cache's
-   keys before and after), K1 launches; then the steady-step median and
-   p90, the max_iters count (reported) and the end state's distance to the
-   batch optimum of the same prefix (ndchol, BIG; reported). The
-   incremental tier: the stream through x1,000, every pose free (100
-   solves), the last under citygrid's gates against the dense f64 optimum.
-   Before the batch optimum the stream's first FIXEDLAG_REPEAT_STEPS = 50
-   steps run again: every step the same LM iterations and poses, bit for
-   bit.
+   padded lin launched. Per step: poses, frozen, LM iterations and reason,
+   seconds (and lowering's), the linear solver, ``new_solvers`` (the
+   solvers ``ParametricSolver.cached`` built in the step), K1 launches;
+   then the steady-step median and p90, the max_iters count (reported).
+   The script's incremental tier: the stream's first 301 poses, every
+   pose free, the last step under citygrid's gates against the dense f64
+   optimum. Then the stream's first FIXEDLAG_REPEAT_STEPS = 25 steps run
+   again (every step the same LM iterations and poses, bit for bit) and the
+   end state's distance to the batch optimum of the same prefix (ndchol,
+   BIG; reported).
 17. live_slam_checkpoint (``live_slam_path``): examples/live_slam.py's loop
    on the stream's poses 1-300: each odometry edge accumulated in ten ticks
    on a MutablePose2Pose2Gaussian tether, duplicated into a solvable-0
@@ -221,7 +235,14 @@
    and as the last line {"ok": true, "device": {...}}; writes
    chiprun_out/chip_smoke.json. The kernel table's K1 and K2/K3 rows also
    carry the distributed paths' launches, summed in ``launches_by_path``
-   and per world and rank in ``launches_by_rank``.
+   and per world and rank in ``launches_by_rank``. The measuring entry
+   points (phases 5, 6-10, 13 and 16) record their own kernel inputs
+   (``PathInputs`` in this process: K1 lin and normal, the K2/K3 draws),
+   each kernel held to its plain version on them (``entry_point_inputs``):
+   K1 lin f32 within 2e-5 + 1e-6 x the row scale, f64 within 1e-10 +
+   1e-13 x it; normal's f64 residual, f32 Jacobians and entries by the
+   same bounds; the draws' labels equal to the plain draw's on >= 99.9 % of
+   the rows pooled.
 
 20-22. The distributed solves (slice D, ``distributed_path``), each at
    world 1 (one rank, NCCL) and world 4 (four ranks on the one card, gloo
@@ -276,7 +297,7 @@
    it. Phase 14 then gates that its cold and warm ndchol runs take the
    same LM iterations to the same final cost, bit for bit.
 5c. One answer per input (``citygrid_repeat_check``, right after phase 5):
-   citygrid from the g2o CITYGRID_REPEATS = 8 more times, warm; over these
+   citygrid from the g2o CITYGRID_REPEATS = 4 more times, warm; over these
    and phase 5's four solves one LM iteration count, one final-cost bit
    pattern and one chordal start (SHA-256 of its float32 poses), all three
    printed.
@@ -332,17 +353,23 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+# the port's measuring entry points (bench_torch.py, tools/torch/); the
+# phases that solve their workloads go through their row functions
+import bench_torch as BT
+from bench_torch import BIG, ate_rmse, ate_values, build_graph, covariance_crosscheck
+from tools.torch import bench_kernels as BK
+from tools.torch import bench_multimodal as BM
+from tools.torch import incremental_bench as IB
+from tools.torch.bench_kernels import (
+    K1_FLOPS, K1_VALUES, K1N_BYTES, K1N_FP32, K1N_FP64, POSE_BYTES, bound, card_line, cuda_ms,
+    stream_bandwidth,
+)
+from tools.torch.incremental_bench import write_stream_g2o
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 CITYGRID = os.path.join(HERE, "data", "citygrid.g2o")
 CITYGRID_GT = os.path.join(HERE, "data", "citygrid_gt.npz")
-ATE_GATE_M = 1.0
-# the benchmark's "big" solve options (bench.py:72-77)
-BIG = dict(
-    max_iters=40, linear="ndchol", polish_tol=5e-2, nd_leaf=32,
-    polish_iters=60, lam0=1e-6, lam_down=0.1, lam_min=1e-12,
-    chol_jitter=1e-7, dtol=0.0025, dtol_auto=True, ftol=1e-9,
-    gtol=1e-8, fused_chordal=True,
-)
+ATE_GATE_M = BT.CITYGRID_ATE_GATE_M
 # 499: the MixtureFluxPose2Pose2 chain's factors (phase 15)
 K1_SIZES = (1, 499, 1000, 8192, 10000, 13085, 1 << 20)
 K1_TIMED = (13085, 1 << 20)
@@ -362,17 +389,6 @@ LABEL_AGREE, NEAR_TIE = 0.999, 1e-4
 # (kernel, V, dof) timed at N = Nj = 100: the beehive-100 Pose2 and Point2
 # products, and one variable's product (Gauss-Seidel passes, loop engine)
 TIMED = (("K2", 101, 3), ("K3", 74, 2), ("K2", 1, 3), ("K3", 1, 2))
-# H100 SXM published peaks (NVIDIA's data sheet, dense, no sparsity): HBM
-# bytes/s, non-tensor fp32 and fp64
-HBM_BYTES_PER_S, FP32_FLOPS_PER_S, FP64_FLOPS_PER_S = 3.35e12, 67e12, 34e12
-# K1 lin per factor: 19 values read, 21 written (4 or 8 B each); ~60 flops
-# + 2 sincos
-K1_VALUES, K1_FLOPS = 40, 80
-# K1 normal per factor: slots 16 B, z 12, S 36, w 4 read; r 24, J 72,
-# entries 144, Jtr 48 written; ~130 fp64 operations (the residual with two
-# sincos, whitening, Jtr) and ~300 fp32 (the closed form with two sincosf,
-# four 3x3 products); plus the pose table, 24 B a pose, read once
-K1N_BYTES, K1N_FP64, K1N_FP32, POSE_BYTES = 356, 130, 300, 24
 # (V, N, Nj): one pair, off every tile, the beehive-100 shapes, one variable's
 # product (the Gauss-Seidel passes, the loop engine), the honeycomb-21 Pose2
 # and Point2 sweeps, the Jacobi sweeps of phase 15's DynPoint2 chain (10) and
@@ -383,25 +399,28 @@ PAIRWISE_SHAPES = ((1, 1, 1), (1, 37, 101), (101, 100, 100), (74, 100, 100), (1,
                    (1, 50, 50), (101, 512, 512))
 K3_DOFS = (1, 2, 3, 4, 8)  # 4: DynPoint2 (phase 15)
 BEEHIVE_POSES, BEEHIVE_N, BEEHIVE_SWEEPS = 100, 100, 3
-BEEHIVE_GATE_M = 0.5
+# the nonparametric gates: tools/torch/bench_multimodal.py's (beehive, and
+# testBeehiveGrow.jl:44-46's landmark atol band for the grows)
+BEEHIVE_GATE_M, GROW_GATE_M = BM.BEEHIVE_GATE_M, BM.GROW_GATE_M
 GIBBS_SWEEPS = 3
 NP_N = 100                    # particles of the default-engine phases
 HONEYCOMB_STEPS = (7, 14, 21)
 TREE_STEPS = (7, 14)
-GROW_GATE_M = 4.0             # testBeehiveGrow.jl:44-46's landmark atol band
 BAND_M, BAND_RAD, BAND_MIN = 3.0, 0.3, 35  # per 100 particles
-KL_GATE = 1.0
 MULTIHYPO_N = 400
 # the Gibbs label updates (one draw launch each: K2, K3) each nonparametric
 # path makes at these sizes; they depend on the graphs' structure alone
 PATH_DRAWS = {"beehive_points": (81, 81), "honeycomb_grow_default": (1269, 279),
-              "bayes_tree_grow": (216, 144), "hexagonal_7pose": (297, 54),
+              # hexagonal: two batched solves (162, 36 each) and the loop's (135, 18)
+              "bayes_tree_grow": (216, 144), "hexagonal_7pose": (459, 90),
               "multihypo_range_bearing": (27, 27),
               # the Pose3 hexagon's products take the generic score; the
               # Polar chain's take K3: three Gauss-Seidel passes of 3 x 3
               # Gibbs label updates on each of p0..p2 (K = 2; p3 has one
               # message) and three Jacobi sweeps of 3 x K_max = 6
               "se3_hexagon": (0, 0), "polar_chain": (0, 3 * 3 * 2 * 3 + 3 * 6),
+              # the Pose3 nullhypo convolution: no Gibbs product
+              "pose3_nullhypo": (0, 0),
               # phase 15: the DynPoint2 chain (T(4), K3): three Gauss-Seidel
               # passes of 3 Gibbs sweeps over its ten variables' messages
               # (K = 3 on x3 and x6, K = 2 elsewhere: 22) and three Jacobi
@@ -460,7 +479,7 @@ IMU_BIAS_SIGMAS = [0.1] * 3 + [1.9393e-5 * 10 ** 0.5] * 3
 IMU_BIG = dict(BIG, dtol_auto=False, dtol=0.0)
 IMU_TRUTH_GATE_M = 0.1                     # twice the fix sigma
 IMU_OPT_GATE_M = 0.01
-IMU_WARM = 2
+IMU_WARM = 1                               # warm ndchol solves after the cold one
 # phase 15, factor_library_rest
 REST_SECONDS = 30                          # the first 30 s of the same stream
 ODE_ORDER = [6, 7, 8, 3, 4, 5, 0, 1, 2]    # IMU [rho, nu, theta] -> ODE [theta, v, p]
@@ -475,12 +494,11 @@ FLUXMIX_POSES, FLUXMIX_NP_POSES = 500, 6
 # mode (tools/incremental_bench.py:66-99, INCREMENTAL_r05.json "fixedlag_full")
 # on citygrid's first 3,500 poses: solve every 10 poses, window 25
 FIXEDLAG_POSES, FIXEDLAG_STRIDE, FIXEDLAG_WINDOW = 3500, 10, 25
-FIXEDLAG_MAX_ITERS = 30
 FIXEDLAG_CHECK_EVERY = 25                  # solves between same-problem f64 checks
 FIXEDLAG_REF = dict(max_iters=100, linear="dense", ftol=1e-12)
 FIXEDLAG_WINDOW_GATE_M = 0.1               # 1 % of citygrid's 10 m edge
-FIXEDLAG_REPEAT_STEPS = 50                 # steps run again: the same iterations and poses
-INCREMENTAL_POSES = 1001                   # x0..x1000, every pose free: 100 solves
+FIXEDLAG_REPEAT_STEPS = 25                 # steps run again: the same iterations and poses
+FIXEDLAG_INCREMENTAL = 301                 # the incremental tier's poses (the script's: 600)
 # phase 17, live_slam_checkpoint: examples/live_slam.py's loop on the stream
 LIVE_POSES, LIVE_TICKS, LIVE_DISENGAGE = 301, 10, 25
 LIVE_RESOLVE_GATE_M = 1e-6
@@ -543,14 +561,6 @@ class PhaseTimer:
         self._restore.clear()
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def k1_inputs(n, dtype, device, seed=0, offset=0):
     """Random Pose2Pose2 batch as tests/test_linearize_pallas.py makes it;
     with ``offset``, each tensor a view ``offset`` elements into its buffer."""
@@ -600,21 +610,6 @@ def normal_plan(args, offset):
                      device=values.device)
     return K.Pose2Pose2Normal(vslots, z, S, w, values.shape[0],
                               vec[offset: offset + 36 * n]), vec
-
-
-def cuda_ms(fn, reps=200):
-    import torch
-
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def _f32_err(got, want, scale=None):
@@ -794,95 +789,121 @@ def kernel_phase(card, bytes_per_s):
     return out
 
 
-def build_graph(path):
-    from rome_tpu_torch import MvNormal, PriorPose2, load_g2o
-
-    fg = load_g2o(None, path)
-    fg.add_factor(
-        ["x0"], PriorPose2(MvNormal([0, 0, 0], [0.1, 0.1, 0.05])), graphinit=False
-    )
-    fg.init_all()
-    return fg
-
-
-def ate_rmse(fg, gt_poses):
-    """ATE RMSE after SE(2) alignment (Kabsch on the 2-D positions), as
-    bench.py computes it. Returns (aligned, raw)."""
-    E, G = [], []
-    for lbl in fg.ls(r"^x\d+$"):
-        E.append(fg.get_coords(lbl, "parametric")[:2])
-        G.append(gt_poses[int(lbl[1:])][:2])
-    E, G = np.asarray(E), np.asarray(G)
-    return ate_values(E, G), float(np.sqrt(np.mean(np.sum((E - G) ** 2, axis=1))))
-
-
-def ate_values(poses, gt_poses):
-    """ATE RMSE of (n, >= 2) positions after SE(2) alignment to the truth's."""
-    E, G = np.asarray(poses)[:, :2], np.asarray(gt_poses)[:, :2]
-    Ec, Gc = E - E.mean(0), G - G.mean(0)
-    U, _s, Vt = np.linalg.svd(Gc.T @ Ec)
-    R = U @ np.diag([1.0, np.sign(np.linalg.det(U @ Vt))]) @ Vt
-    return float(np.sqrt(np.mean(np.sum((Ec @ R.T + G.mean(0) - G) ** 2, axis=1))))
-
-
-def main_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT):
-    import torch
-
-    from rome_tpu_torch import GNOptions, solve_graph_parametric
-    from rome_tpu_torch.ops import linearize_cuda as K
-
+def _citygrid_runs(card, gt_file, device):
+    """(an ``on_run`` hook for ``bench_torch.solve_dataset``, the run rows it
+    fills): every solve, cold and warm, held to bench.py's gates (converged,
+    SE(2)-aligned ATE <= 1.0 m, cost <= 1.002 * optimum + 1e-3) and its
+    poses finite."""
     gt = np.load(gt_file)
     ref_cost = float(gt["final_cost"])
     runs = []
-    total_iters = 0
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
-    for label in ("cold", "warm", "warm", "warm"):
-        t_load = time.time()
-        fg = build_graph(g2o)
-        t_load = time.time() - t_load
-        before = dict(K.LAUNCHES)
-        t0 = time.time()
-        res = solve_graph_parametric(
-            fg, init=False, options=GNOptions(**BIG), chordal_init=True, device=device,
-        )
-        if device == "cuda":
-            torch.cuda.synchronize()
-        wall = time.time() - t0
+
+    def on_run(label, fg, res):
         st = res["stats"]
-        launches = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
-        total_iters += st.iterations
         pts = np.stack([fg.get_point(l) for l in fg.ls(r"^x\d+$")])
         ate, ate_raw = ate_rmse(fg, gt["poses"])
-        n_poses = pts.shape[0]
-        row = dict(
-            run=label, iterations=st.iterations, converged=st.converged,
-            reason=st.reason, final_cost=st.final_cost, ref_cost=ref_cost,
-            ate_rmse_m=ate, ate_raw_m=ate_raw, solve_time_s=res["solve_time_s"],
-            wall_s=wall, load_s=t_load, poses_per_s=n_poses / res["solve_time_s"],
-            k1_launches=launches, cg_iters=[h["cg"] for h in st.history],
-        )
+        row = dict(run=label, iterations=st.iterations, converged=st.converged,
+                   reason=st.reason, final_cost=st.final_cost, ref_cost=ref_cost,
+                   ate_rmse_m=ate, ate_raw_m=ate_raw, solve_time_s=res["solve_time_s"],
+                   poses_per_s=pts.shape[0] / res["solve_time_s"],
+                   cg_iters=[h["cg"] for h in st.history])
         runs.append(row)
-        print(f"[{card}] citygrid_10k {label}: " + json.dumps(row))
         check(pts.shape == (len(gt["poses"]), 3) and np.isfinite(pts).all(),
               "poses missing or not finite")
         check(st.converged, f"{label} run did not converge ({st.reason})")
         check(ate <= ATE_GATE_M, f"{label} run ATE {ate} > {ATE_GATE_M}")
         check(st.final_cost <= ref_cost * 1.002 + 1e-3,
               f"{label} run cost {st.final_cost} > 1.002 * {ref_cost}")
-        # the speculative loop: one normal-epilogue launch at the start and
-        # one per LM iteration at the trial point, no lin launch (a CPU
-        # rehearsal takes the plain path and launches nothing)
-        check(device != "cuda" or (launches["normal"] == st.iterations + 1
-                                   and launches["lin"] == 0),
-              f"{label} run: K1 launches {launches} for {st.iterations} iterations")
-    total_launches = dict(K.LAUNCHES)
-    check(device != "cuda" or total_launches["normal"] >= total_iters,
-          "K1 normal launches do not cover the LM iterations")
-    return runs, total_launches
+
+    return on_run, runs
 
 
-CITYGRID_REPEATS = 8          # warm solves of the repeat check after the citygrid path
+def _citygrid_launches(card, row, runs, device):
+    """K1's launches per run, from the row's ``launches_by_run``: the
+    speculative loop launches the normal epilogue once at the start and once
+    per LM iteration at the trial point, the lin epilogue never (a CPU
+    rehearsal takes the plain path and launches nothing). One LM iteration
+    count over the runs. Returns K1's launches summed over them."""
+    for r, n in zip(runs, row["launches_by_run"]):
+        r["k1_launches"] = {"lin": n["k1_lin"], "normal": n["k1_normal"]}
+        print(f"[{card}] citygrid_10k {r['run']}: " + json.dumps(r))
+        check(device != "cuda" or (n["k1_normal"] == r["iterations"] + 1 and n["k1_lin"] == 0),
+              f"{r['run']} run: K1 launches {r['k1_launches']} for {r['iterations']} iterations")
+    check(len(runs) == len(row["iterations_by_run"]) == 1 + BT.WARM_RUNS,
+          f"citygrid: {len(runs)} runs")
+    check(len(set(row["iterations_by_run"])) == 1,
+          f"citygrid: LM iterations {row['iterations_by_run']} across its runs")
+    return {epi: sum(r["k1_launches"][epi] for r in runs) for epi in ("lin", "normal")}
+
+
+def main_path(card, device="cuda"):
+    """Phase 5, bench_torch.py's ``run`` in this process (citygrid's solves
+    through its ``solve_dataset``): its dataset rows
+    (the reference files' rows ``absent`` where this tree lacks them, no row
+    in error), the citygrid row's four solves each gated (``_citygrid_runs``)
+    and ``matched_ate``, one LM iteration count over them; the covariance
+    row within 1e-4 of ``splu``; the K1 rows (bench_kernels) at 1e4, 1e5 and
+    1e6 for both epilogues and the plain version, each no faster than its
+    bound and with its share of the stream rate; a non-zero metric against
+    the CPU baseline measured in the same run. Every count is set to 0
+    first: read at citygrid's last run, the counts are the dataset rows'
+    ``launches_by_run`` summed, and K1's normal launches cover their LM
+    iterations. Returns (citygrid run rows, K1 launches of those solves,
+    {"detail", "metric"})."""
+    _reset_launches()
+    on_run, runs = _citygrid_runs(card, CITYGRID_GT, device)
+    totals = []
+
+    def hook(name, label, fg, res):
+        if name == "citygrid_10k":
+            on_run(label, fg, res)
+            totals.append(_launches())
+
+    detail, out = BT.run(device, card, on_run=hook)
+    for name, *_ in BT.datasets():
+        check("error" not in detail[name], f"bench_torch {name}: {detail[name]}")
+        check("absent" in detail[name] or detail[name]["matched_ate"],
+              f"bench_torch {name} not matched: {detail[name]}")
+    row = detail["citygrid_10k"]
+    launches = _citygrid_launches(card, row, runs, device)
+    solved = [detail[name] for name, *_ in BT.datasets() if "launches_by_run" in detail[name]]
+    by_run = [n for r in solved for n in r["launches_by_run"]]
+    summed = {k: sum(n[k] for n in by_run) for k in totals[-1]}
+    check(totals[-1] == summed,
+          f"bench_torch datasets: launches {totals[-1]} from 0, their runs' {summed}")
+    iterations = sum(sum(r["iterations_by_run"]) for r in solved)
+    check(device != "cuda" or totals[-1]["k1_normal"] >= iterations,
+          f"K1 normal launches {totals[-1]['k1_normal']} do not cover the {iterations} LM "
+          f"iterations")
+    cov, kern, base = (detail[k] for k in ("covariance_recovery", "kernel_speed_of_light",
+                                           "cpu_baseline"))
+    print(f"[{card}] bench_torch covariance_recovery: " + json.dumps(cov))
+    check("error" not in cov and cov["finite"] and cov["accuracy_ok"],
+          f"bench_torch covariances: {cov}")
+    check("error" not in kern, f"bench_kernels: {kern}")
+    for variant, rows in kern["variants"].items():
+        check([r["n"] for r in rows] == list(BK.SIZES), f"bench_kernels {variant}: sizes")
+        for r in rows if device == "cuda" else ():  # a CPU rehearsal times nothing
+            print(f"[{card}] bench_kernels {variant} n={r['n']}: {r['us']:.3f} us device "
+                  f"({r['input_copies']} input copies), {r['host_us_per_call']:.2f} us per host "
+                  f"call; bound {r['bound_us']:.3f} us ({r['bound_by']}, {r['bytes']} B), "
+                  f"{r['pct_of_hbm_roofline']:.1f} % of it, "
+                  f"{r['pct_of_measured_stream']:.1f} % of the stream rate")
+            check(math.isfinite(r["us"]) and r["us"] >= r["bound_us"]
+                  and r["pct_of_measured_stream"] > 0,
+                  f"bench_kernels {variant} n={r['n']}: {r['us']} us against its bound "
+                  f"{r['bound_us']} us")
+    print(f"[{card}] bench_torch cpu_baseline: " + json.dumps(base))
+    print(f"[{card}] bench_torch metric: " + json.dumps(out))
+    check(base["converged"], f"CPU baseline did not converge: {base}")
+    check(out["metric"] == "citygrid_10k_parametric_poses_per_sec_at_matched_ate"
+          or "absent" not in detail["manhattan3500"], f"bench_torch headline {out['metric']}")
+    check(out["value"] > 0 and math.isfinite(out["vs_baseline"]) and out["vs_baseline"] > 0,
+          f"bench_torch metric {out}")
+    return runs, launches, dict(detail=detail, metric=out)
+
+
+CITYGRID_REPEATS = 4          # warm solves of the repeat check after the citygrid path
 
 
 class ChordalStarts:
@@ -978,75 +999,6 @@ class CholeskyTimer:
         out = [s.elapsed_time(e) for s, e in self.spans]
         self.spans.clear()
         return out
-
-
-def _information_f64(ga):
-    """(scipy CSC H = JᵀJ from an f64 linearize at ``ga.values0``, the free
-    vector, the tangent base offsets, D): the system both covariance
-    methods invert, assembled on the host."""
-    import scipy.sparse as sp
-    import torch
-
-    from rome_tpu_torch.solvers.linearize import (
-        free_vector, linearize_all, runtime_state, tangent_offsets,
-    )
-
-    ga64 = copy.copy(ga)
-    ga64.dtype = torch.float64
-    rt = runtime_state(ga)
-    v64 = {t: v.to(torch.float64) for t, v in ga.values0.items()}
-    lins = linearize_all(ga64, v64, rt)
-    base, nD = tangent_offsets(ga)
-    fvec = free_vector(ga, rt).to(torch.float64).cpu().numpy()
-    rows, cols, vals = [], [], []
-    for b, _r0, Js, vs in lins:
-        vs = vs.cpu().numpy()
-        offs = [base[t] + vs[:, kk, None] * ga.manifolds[t].dof
-                + np.arange(ga.manifolds[t].dof)[None, :] for kk, t in enumerate(b.vtypes)]
-        Jh = [J.to(torch.float64).cpu().numpy() for J in Js]
-        for a in range(len(Jh)):
-            for c in range(len(Jh)):
-                blk = np.einsum("nij,nik->njk", Jh[a], Jh[c])
-                rows.append(np.broadcast_to(offs[a][:, :, None], blk.shape).ravel())
-                cols.append(np.broadcast_to(offs[c][:, None, :], blk.shape).ravel())
-                vals.append(blk.ravel())
-    H = sp.coo_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
-                      shape=(nD, nD)).tocsc()
-    return H, fvec, base, nD
-
-
-def covariance_crosscheck(ga, covs, system, k=32, seed=11):
-    """bench.py:178-255 on the port: an f64 reference for ``k`` sampled
-    per-pose covariances, solved exactly with scipy's ``splu`` in f64, and
-    the largest deviation of a 3 x 3 block relative to its largest entry.
-
-    ``system``: "takahashi", the Jacobi-scaled, 1e-8-ridged system the
-    Takahashi path factors (bench.py's check), or "dense", H + 1e-8 I, the
-    dense path's."""
-    import scipy.sparse as sp
-    import scipy.sparse.linalg as spla
-
-    H, fvec, base, nD = _information_f64(ga)
-    if system == "takahashi":
-        dv = 1.0 / np.sqrt(np.maximum(H.diagonal() * fvec ** 2, 1e-12))
-        Ddf = sp.diags(dv * fvec)
-        A = Ddf @ H @ Ddf + sp.diags(fvec * 1e-8 + (1.0 - fvec))
-    else:
-        f = sp.diags(fvec)
-        dv = np.ones(nD)
-        A = f @ H @ f + sp.diags(1.0 - fvec) + 1e-8 * sp.identity(nD)
-    lu = spla.splu(A.tocsc())
-    sample = np.random.default_rng(seed).choice(ga.counts["Pose2"],
-                                                size=min(k, ga.counts["Pose2"]), replace=False)
-    got = covs["Pose2"].double().cpu().numpy()
-    worst = 0.0
-    for i in sample:
-        sl = base["Pose2"] + 3 * int(i) + np.arange(3)
-        e = np.zeros((nD, 3))
-        e[sl, np.arange(3)] = 1.0
-        ref = dv[sl][:, None] * lu.solve(e)[sl] * dv[sl][None, :]
-        worst = max(worst, float(np.abs(got[i] - ref).max() / max(np.abs(ref).max(), 1e-12)))
-    return len(sample), worst
 
 
 def takahashi_system_inverse(ga):
@@ -1290,31 +1242,6 @@ def gibbs_work(kernel, V, N, Nj, d, draw):
     return read + 4 * pairs, flops
 
 
-def bound(nbytes, flops, bytes_per_s=HBM_BYTES_PER_S, fp64_flops=0):
-    """The least time (ms) the card could take, and what bounds it: the
-    bytes over ``bytes_per_s``, or the fp32 ``flops`` and ``fp64_flops``
-    over their peaks."""
-    t_bytes = nbytes / bytes_per_s
-    t_ops = flops / FP32_FLOPS_PER_S + fp64_flops / FP64_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def stream_bandwidth(card, n=1 << 28, reps=20):
-    """Device-to-device copy rate of a 1 GiB float32 buffer (bytes/s; read
-    + write), CUDA events over ``reps`` copies."""
-    import torch
-
-    x = torch.empty(n, dtype=torch.float32, device="cuda").uniform_()
-    y = torch.empty_like(x)
-    ms = cuda_ms(lambda: y.copy_(x), reps=reps)
-    rate = 2 * 4 * n / (ms / 1e3)
-    print(f"[{card}] stream copy of {4 * n / 2**30:.0f} GiB: {ms:.4f} ms, "
-          f"{rate / 1e12:.4f} TB/s (read + write)")
-    del x, y
-    torch.cuda.empty_cache()
-    return rate
-
-
 def device_ms(fns, reps=100, windows=4):
     """Device time per call (ms) of each labelled function: the device
     operations it launched under torch.profiler over ``reps`` calls, their
@@ -1509,55 +1436,37 @@ def beehive_graph(poses=BEEHIVE_POSES):
 
 
 def beehive_path(card, device="cuda", poses=BEEHIVE_POSES, N=BEEHIVE_N, keep=None):
-    """Three nonparametric solves (cold, warm, warm) of fresh beehive graphs,
-    each gated against the parametric optimum; returns the run rows and the
-    K2/K3 launch counts of the path. ``keep``: a list that gets the last
-    solved graph and the optimum's graph (phase 25 reads them)."""
-    import torch
-
-    from rome_tpu_torch import solve_graph_nonparametric, solve_graph_parametric
-    from rome_tpu_torch.ops import pairwise_cuda as P
-
+    """Phase 6 through tools/torch/bench_multimodal's ``beehive_100pose``
+    row: three nonparametric solves (cold, warm, warm) of fresh beehive
+    graphs, each gated against the parametric optimum, each launching K2's
+    and K3's draws 27 times and no logw; the optimum (the dense solver)
+    launching K1's lin epilogue only. ``keep``: a list that gets the last
+    solved graph and the optimum's graph (phase 25 reads them). Returns the
+    row (its runs under ``runs``) and the path's launch counts."""
     _reset_launches()
-    fp = beehive_graph(poses)
-    fp.init_all()
-    solve_graph_parametric(fp, init=False, device=device)
-    _check_truth_launches(device, "the beehive optimum")
-    truth = {l: fp.get_coords(l, "parametric") for l in fp.ls(r"^x\d+$")}
+    since = _LaunchesSince()
     per_solve = BEEHIVE_SWEEPS * GIBBS_SWEEPS * 3  # K = 3 messages per variable
     runs = []
-    for label in ("cold", "warm", "warm"):
-        fg = beehive_graph(poses)
-        before = dict(P.LAUNCHES)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.time()
-        solve_graph_nonparametric(fg, sweeps=BEEHIVE_SWEEPS, N=N, engine="batched",
-                                  init="points", device=device)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = {k: P.LAUNCHES[k] - before[k] for k in P.LAUNCHES}
-        errs = []
-        for l in fg._var_order:
-            bel = np.asarray(fg.variables[l].beliefs["default"])
-            check(bel.shape == (N, fg.variables[l].vtype.point_dim) and np.isfinite(bel).all(),
-                  f"belief of {l} missing, misshapen or not finite")
-            if l in truth:
-                errs.append(float(np.linalg.norm(bel[:, :2].mean(0) - truth[l][:2])))
-        err = float(np.mean(errs))
-        row = dict(run=label, solve_time_s=wall, mean_pose_err_m=err, max_pose_err_m=max(errs),
-                   poses=len(errs), landmarks=len(fg.ls(r"^l\d+$")), launches=launches)
-        runs.append(row)
-        print(f"[{card}] beehive_{poses} {label}: " + json.dumps(row))
-        check(err < BEEHIVE_GATE_M, f"{label} run: mean pose error {err} >= {BEEHIVE_GATE_M} m")
-        check(device != "cuda" or launches == dict(
+
+    def on_solve(label, fg):
+        n = since()  # the first also holds the optimum's K1 launches
+        _check_beliefs(fg, N)
+        runs.append(dict(run=label, launches={k: n[k] for k in PAIRWISE_KEYS}))
+
+    row = BM.bench_beehive(device, poses, N, warm=2, on_solve=on_solve, keep=keep)
+    pi = row["points_init"]
+    for r, secs, err in zip(runs, pi["solve_s_by_run"], pi["err_by_run_m"]):
+        r.update(solve_time_s=secs, mean_pose_err_m=err)
+        print(f"[{card}] beehive_{poses} {r['run']}: " + json.dumps(r))
+        check(err < BEEHIVE_GATE_M, f"{r['run']} run: mean pose error {err} >= {BEEHIVE_GATE_M} m")
+        check(device != "cuda" or r["launches"] == dict(
             se2_pairwise_logw=0, euclid_pairwise_logw=0, se2_gibbs_draw=per_solve,
             euclid_gibbs_draw=per_solve),
-              f"{label} run: K2/K3 launches {launches}, expected {per_solve} draws each")
-    if keep is not None:
-        keep[:] = [fg, fp]
-    return runs, _launches()
+              f"{r['run']} run: K2/K3 launches {r['launches']}, expected {per_solve} draws each")
+    _check_truth_launches(device, row["truth_launches"], "the beehive optimum")
+    check(pi["accuracy_ok"], f"beehive row: {pi}")
+    row["runs"] = runs
+    return row, _launches()
 
 
 def _sync(device):
@@ -1576,12 +1485,8 @@ def _reset_launches():
             counts[k] = 0
 
 
-def _launches():
-    """K2/K3's launches by epilogue, and K1's as k1_lin / k1_normal."""
-    from rome_tpu_torch.ops import linearize_cuda as K
-    from rome_tpu_torch.ops import pairwise_cuda as P
-
-    return dict(P.LAUNCHES, **{f"k1_{k}": v for k, v in K.LAUNCHES.items()})
+# K2/K3's launches by epilogue, and K1's as k1_lin / k1_normal
+_launches = BK.launches
 
 
 def _restore_launches(saved):
@@ -1595,13 +1500,28 @@ def _restore_launches(saved):
         K.LAUNCHES[k] = saved[f"k1_{k}"]
 
 
-def _check_truth_launches(device, what):
+def _check_truth_launches(device, launches, what):
     """A parametric optimum (the dense solver) goes through K1's lin
-    epilogue, never its normal one (the ndchol path's)."""
-    from rome_tpu_torch.ops import linearize_cuda as K
+    epilogue, never its normal one (the ndchol path's): ``launches`` are
+    its solve's (``_launches``' keys)."""
+    check(device != "cuda" or (launches["k1_lin"] > 0 and launches["k1_normal"] == 0),
+          f"{what}: K1 launches {launches}, expected lin > 0 and no normal")
 
-    check(device != "cuda" or (K.LAUNCHES["lin"] > 0 and K.LAUNCHES["normal"] == 0),
-          f"{what}: K1 launches {K.LAUNCHES}, expected lin > 0 and no normal")
+
+PAIRWISE_KEYS = ("se2_pairwise_logw", "euclid_pairwise_logw", "se2_gibbs_draw",
+                 "euclid_gibbs_draw")
+
+
+class _LaunchesSince:
+    """Each call: the launches (``_launches``' keys) made since the last."""
+
+    def __init__(self):
+        self.last = _launches()
+
+    def __call__(self):
+        now = _launches()
+        out, self.last = {k: v - self.last[k] for k, v in now.items()}, now
+        return out
 
 
 def _parametric_truth(fg, device, pose2=True):
@@ -1612,9 +1532,11 @@ def _parametric_truth(fg, device, pose2=True):
 
     fp = copy.deepcopy(fg)
     fp.init_all()
+    before = _launches()
     solve_graph_parametric(fp, init=False, device=device)
     if pose2:
-        _check_truth_launches(device, "a parametric optimum")
+        _check_truth_launches(device, {k: v - before[k] for k, v in _launches().items()},
+                              "a parametric optimum")
     return {l: fp.get_coords(l, "parametric") for l in fp._var_order}
 
 
@@ -1641,91 +1563,75 @@ def _check_launched(device, launches, what):
 
 
 def honeycomb_path(card, device="cuda", steps=HONEYCOMB_STEPS, N=NP_N):
-    """The default engine over the honeycomb grow; returns the step rows and
-    the path's K2/K3 launch counts. Each Gauss-Seidel pass is timed with CUDA
-    events (``PhaseTimer``)."""
+    """Phase 7 through bench_multimodal's ``honeycomb_grow_default`` row: the
+    default engine over the honeycomb grow, each Gauss-Seidel pass timed
+    with CUDA events (``PhaseTimer``), both draws launched (and no logw) in
+    every step, the errors against the optimum under 4 m. Returns the row
+    (its steps under ``steps``) and the path's launch counts."""
     import torch
 
-    from rome_tpu_torch import generate_graph_honeycomb, solve_graph_nonparametric
     from rome_tpu_torch.solvers.multimodal.batched import BatchedNonparametricSolver
 
-    rows, fg = [], None
     timer = PhaseTimer(torch) if device == "cuda" else None
+    seen = []
     _reset_launches()
     if timer:
         timer.wrap(BatchedNonparametricSolver, "gs_pass", "gs_pass")
+
+    def on_step(target, fg):
+        _sync(device)
+        if timer:
+            timer.take()
+        seen.append((timer.each.get("gs_pass", []) if timer else [None] * 3, fg.num_variables,
+                     fg.num_factors, fg))
+
     try:
-        for target in steps:
-            fg = generate_graph_honeycomb(pose_count_target=target, fg=fg, graphinit=True)
-            before = _launches()
-            _sync(device)
-            t0 = time.time()
-            solve_graph_nonparametric(fg, sweeps=3, N=N, engine="batched", init=True,
-                                      device=device)
-            _sync(device)
-            wall = time.time() - t0
-            if timer:
-                timer.take()
-            gs_seconds = timer.each.get("gs_pass", []) if timer else [None] * 3
-            launches = {k: v - before[k] for k, v in _launches().items()}
-            row = dict(poses=target, variables=fg.num_variables, factors=fg.num_factors,
-                       solve_time_s=wall, gs_pass_s=gs_seconds, launches=launches)
-            rows.append(row)
-            print(f"[{card}] honeycomb_grow_default {target} poses: " + json.dumps(row))
-            check(len(gs_seconds) == 3, f"{len(gs_seconds)} Gauss-Seidel passes, expected 3")
-            _check_launched(device, launches, f"honeycomb step {target}")
+        row = BM.bench_honeycomb_grow(device, steps, N, on_step=on_step)
     finally:
         if timer:
             timer.unwrap()
-    _check_beliefs(fg, N)
-    truth = _parametric_truth(fg, device)
-    (l_mean, l_max), (x_mean, x_max) = (_mean_err(fg, truth, r"^l\d+$"),
-                                        _mean_err(fg, truth, r"^x\d+$"))
-    res = dict(steps=rows, landmark_err_m=dict(mean=l_mean, max=l_max),
-               pose_err_m=dict(mean=x_mean, max=x_max))
+    rows = []
+    for target, secs, (gs_seconds, n_vars, n_factors, _fg), n in zip(
+            steps, row["solve_s"], seen, row["launches_by_step"]):
+        rows.append(dict(poses=target, variables=n_vars, factors=n_factors,
+                         solve_time_s=secs, gs_pass_s=gs_seconds, launches=n))
+        print(f"[{card}] honeycomb_grow_default {target} poses: " + json.dumps(rows[-1]))
+        check(len(gs_seconds) == 3, f"{len(gs_seconds)} Gauss-Seidel passes, expected 3")
+        _check_launched(device, n, f"honeycomb step {target}")
+    _check_beliefs(seen[-1][-1], N)
+    _check_truth_launches(device, row["truth_launches"], "the honeycomb optimum")
+    l_err, x_err = row["landmark_err_m"], row["pose_err_m"]
     print(f"[{card}] honeycomb_grow_default errors vs the parametric optimum: landmarks "
-          f"{l_mean:.4f} m (max {l_max:.4f}), poses {x_mean:.4f} m (max {x_max:.4f})")
-    check(l_mean < GROW_GATE_M and x_mean < GROW_GATE_M,
-          f"honeycomb grow errors {l_mean}, {x_mean} not below {GROW_GATE_M} m")
-    return res, _launches()
+          f"{l_err['mean']:.4f} m (max {l_err['max']:.4f}), poses {x_err['mean']:.4f} m "
+          f"(max {x_err['max']:.4f})")
+    check(row["accuracy_ok"], f"honeycomb grow errors {l_err}, {x_err} not below {GROW_GATE_M} m")
+    row["steps"] = rows
+    return row, _launches()
 
 
 def bayes_tree_path(card, device="cuda", steps=TREE_STEPS, N=NP_N):
-    """solve_tree with clique recycling over the honeycomb grow."""
-    from rome_tpu_torch import calc_cliques_recycled, generate_graph_honeycomb, solve_tree
-
-    rows, fg, tree = [], None, None
+    """Phase 8 through bench_multimodal's ``bayes_tree_grow`` row: solve_tree
+    with clique recycling over the honeycomb grow; the regrow recycles at
+    least one clique, every recycled clique's frontal beliefs and points
+    keep their bits, the landmark error is under 4 m."""
+    last = []
     _reset_launches()
-    for target in steps:
-        fg = generate_graph_honeycomb(pose_count_target=target, fg=fg, graphinit=True)
-        before = {l: (np.array(r.beliefs["default"]), np.array(r.points["default"]))
-                  for l, r in fg.variables.items()
-                  if "default" in r.beliefs and "default" in r.points}
-        _sync(device)
-        t0 = time.time()
-        tree = solve_tree(fg, old_tree=tree, N=N, device=device)
-        _sync(device)
-        total, recycled = calc_cliques_recycled(tree)
-        kept = [v for c in tree.cliques if c.index not in tree.dirty for v in c.frontals
-                if v in before]
-        for v in kept:
-            check(np.array_equal(fg.variables[v].beliefs["default"], before[v][0])
-                  and np.array_equal(fg.variables[v].points["default"], before[v][1]),
-                  f"recycled clique variable {v} changed across the re-solve")
-        row = dict(poses=target, solve_time_s=time.time() - t0, cliques=total,
-                   recycled=recycled, recycled_variables=len(kept), levels=len(tree.levels))
-        rows.append(row)
-        print(f"[{card}] bayes_tree_grow {target} poses: " + json.dumps(row))
-    check(rows[-1]["recycled"] >= 1 and rows[-1]["recycled_variables"] >= 1,
+    row = BM.bench_tree_grow(device, steps, N, on_step=lambda target, fg: last.append(fg))
+    for r in row["steps"]:
+        print(f"[{card}] bayes_tree_grow {r['poses']} poses: " + json.dumps(r))
+        check(r["recycled_bit_identical"],
+              f"a recycled clique's variable changed across the re-solve at {r['poses']} poses")
+    check(row["steps"][-1]["recycled"] >= 1 and row["steps"][-1]["recycled_variables"] >= 1,
           "the regrow recycled no clique")
-    _check_beliefs(fg, N)
-    l_mean, l_max = _mean_err(fg, _parametric_truth(fg, device), r"^l\d+$")
+    _check_beliefs(last[-1], N)
+    _check_truth_launches(device, row["truth_launches"], "the tree's optimum")
     print(f"[{card}] bayes_tree_grow landmark error vs the parametric optimum: "
-          f"{l_mean:.4f} m (max {l_max:.4f})")
-    check(l_mean < GROW_GATE_M, f"tree landmark error {l_mean} not below {GROW_GATE_M} m")
+          f"{row['landmark_err_mean_m']:.4f} m (max {row['landmark_err_max_m']:.4f})")
+    check(row["accuracy_ok"], f"tree landmark error {row['landmark_err_mean_m']} not below "
+          f"{GROW_GATE_M} m")
     launches = _launches()
     _check_launched(device, launches, "bayes_tree_grow")
-    return dict(steps=rows, landmark_err_m=dict(mean=l_mean, max=l_max)), launches
+    return row, launches
 
 
 def _in_band(fg, N):
@@ -1742,84 +1648,44 @@ def _in_band(fg, N):
 
 
 def hexagonal_path(card, device="cuda", N=NP_N):
-    """engine="loop" against engine="batched" on the hexagonal graph."""
-    import torch
-
-    from rome_tpu_torch import generate_graph_hexagonal, solve_graph_nonparametric
-    from rome_tpu_torch.manifolds.base import SE2_
-    from rome_tpu_torch.solvers.multimodal.metrics import symmetric_kl_knn
-
-    graphs, rows = {}, {}
+    """Phase 9 through bench_multimodal's ``hexagonal_7pose`` row: the
+    batched engine twice (first, steady) and the loop engine on the
+    hexagonal graph, each in the band and launching both draws (no logw);
+    their mean symmetric KL below 1.0."""
     _reset_launches()
-    for engine in ("batched", "loop"):
-        fg = generate_graph_hexagonal(N=N)
-        before = _launches()
-        _sync(device)
-        t0 = time.time()
-        solve_graph_nonparametric(fg, sweeps=3, N=N, engine=engine, init=True, device=device)
-        _sync(device)
-        launches = {k: v - before[k] for k, v in _launches().items()}
+    since, solves = _LaunchesSince(), []
+
+    def on_solve(engine, fg):
+        n = since()
         _check_beliefs(fg, N)
         band = _in_band(fg, N)
-        rows[engine] = dict(solve_time_s=time.time() - t0, min_in_band=band, launches=launches)
-        graphs[engine] = fg
-        print(f"[{card}] hexagonal_7pose {engine}: " + json.dumps(rows[engine]))
+        solves.append(dict(engine=engine, min_in_band=band, launches=n))
+        print(f"[{card}] hexagonal_7pose {engine}: " + json.dumps(solves[-1]))
         check(min(band) >= BAND_MIN * N // 100, f"{engine} engine misses the band: {band}")
-        _check_launched(device, launches, f"hexagonal {engine}")
-    kl = float(np.mean([
-        symmetric_kl_knn(SE2_, torch.as_tensor(graphs["loop"].variables[l].beliefs["default"]),
-                         torch.as_tensor(graphs["batched"].variables[l].beliefs["default"]))
-        for l in graphs["loop"].ls(r"^x\d+$")
-    ]))
-    rows["mean_sym_kl_loop_vs_batched"] = kl
-    print(f"[{card}] hexagonal_7pose mean symmetric KL loop vs batched: {kl:.4f}")
-    check(kl < KL_GATE, f"loop and batched engines disagree: KL {kl}")
-    return rows, _launches()
+        _check_launched(device, n, f"hexagonal {engine}")
 
-
-def multihypo_graph():
-    """testMultimodalRangeBearing.jl's configuration (bench_multimodal.py:254-271)."""
-    from rome_tpu_torch import (FactorGraph, MvNormal, Normal, Point2, Pose2,
-                                Pose2Point2BearingRange, PriorPoint2, PriorPose2)
-
-    fg = FactorGraph()
-    fg.params.graphinit = False
-    fg.add_variable("x0", Pose2)
-    fg.add_factor(["x0"], PriorPose2(MvNormal([0, 0, 0], [4.0, 4.0, 4.0])), graphinit=True)
-    fg.add_variable("l1", Point2)
-    fg.add_variable("l2", Point2)
-    fg.add_factor(["l1"], PriorPoint2(MvNormal([20.0, 5.0], [0.01, 0.01])))
-    fg.add_factor(["l2"], PriorPoint2(MvNormal([20.0, -5.0], [0.01, 0.01])))
-    f = fg.add_factor(["x0", "l1", "l2"],
-                      Pose2Point2BearingRange(Normal(0.0, 0.01), Normal(20.0, 0.05)),
-                      multihypo=[1.0, 0.5, 0.5])
-    return fg, f.label
+    row = BM.bench_hexagonal(device, N, on_solve=on_solve)
+    row["solves"] = solves
+    kl = row["mean_sym_kl_vs_loop"]
+    print(f"[{card}] hexagonal_7pose mean symmetric KL batched vs loop: {kl:.4f}; batched "
+          f"{row['batched_first_s']:.2f} / {row['batched_steady_s']:.2f} s, loop "
+          f"{row['loop_engine_s']:.2f} s")
+    check(row["accuracy_ok"], f"loop and batched engines disagree: KL {kl}")
+    return row, _launches()
 
 
 def multihypo_path(card, device="cuda", N=MULTIHYPO_N, solve_N=NP_N):
-    """approx_conv's mode masses, then a default solve through the fallback."""
+    """Phase 10: bench_multimodal's ``multihypo_range_bearing`` row
+    (approx_conv's mode masses), then a default solve through the
+    fallback."""
     from rome_tpu_torch import (MvNormal, Normal, Point2, Pose2Point2BearingRange, PriorPoint2,
-                                approx_conv, generate_graph_hexagonal, init_all_beliefs,
-                                solve_graph_nonparametric)
+                                generate_graph_hexagonal, solve_graph_nonparametric)
     from rome_tpu_torch.solvers.multimodal.batched import BatchedNonparametricSolver
 
     _reset_launches()
-    fg, flabel = multihypo_graph()
-    init_all_beliefs(fg, N=N, device=device)
-    times = []
-    for seed in (0, 3):
-        _sync(device)
-        t0 = time.time()
-        pts = approx_conv(fg, flabel, "x0", N=N, device=device, seed=seed).cpu().numpy()
-        times.append(time.time() - t0)
-    r1 = np.abs(np.linalg.norm(pts[:, :2] - np.array([20.0, 5.0]), axis=1) - 20.0)
-    r2 = np.abs(np.linalg.norm(pts[:, :2] - np.array([20.0, -5.0]), axis=1) - 20.0)
-    m1 = float(np.mean((r1 < 1.0) & (r2 >= 1.0)))
-    m2 = float(np.mean((r2 < 1.0) & (r1 >= 1.0)))
-    res = dict(conv_s=times, mode_mass=[m1, m2])
-    check(pts.shape == (N, 3) and np.isfinite(pts).all(), "multihypo conv not finite")
-    check(m1 > 0.15 and m2 > 0.15 and 0.25 < m1 / (m1 + m2 + 1e-12) < 0.75,
-          f"multihypo mode masses unbalanced: {m1}, {m2}")
+    res = BM.bench_multihypo(device, N)
+    check(res["finite"], "multihypo conv not finite")
+    check(res["accuracy_ok"], f"multihypo mode masses unbalanced: {res['mode_mass']}")
 
     fh = generate_graph_hexagonal(N=solve_N)
     fh.add_variable("l2", Point2)
@@ -1836,7 +1702,7 @@ def multihypo_path(card, device="cuda", N=MULTIHYPO_N, solve_N=NP_N):
     res.update(solve_time_s=time.time() - t0, fallback_messages=len(fallback))
     _check_beliefs(fh, solve_N)
     launches = _launches()
-    res["launches"] = launches
+    res["path_launches"] = launches
     print(f"[{card}] multihypo_range_bearing: " + json.dumps(res))
     _check_launched(device, launches, "multihypo")
     return res, launches
@@ -2030,29 +1896,8 @@ def sphere_path(card, device="cuda", laps=SPHERE_LAPS, per_lap=SPHERE_PER_LAP,
                 generate_s=gen_s, load_s=load_s, dense=dense, runs=runs), launches
 
 
-def nullhypo_pose3_graph():
-    """testPose3Pose3NH.jl:118's fixture (tools/bench_multimodal.py:297-345):
-    x0 anchored, a 10 m Pose3Pose3 to x1 with nullhypo = 0.5, and a wide
-    belief on x1."""
-    from rome_tpu_torch import FactorGraph, MvNormal, Pose3, Pose3Pose3, PriorPose3
-
-    fg = FactorGraph()
-    fg.add_variable("x0", Pose3)
-    fg.add_factor(["x0"], PriorPose3(MvNormal(np.zeros(6), np.full(6, 1e-4))))
-    fg.add_variable("x1", Pose3)
-    f = fg.add_factor(["x0", "x1"], Pose3Pose3(MvNormal([10.0, 0, 0, 0, 0, 0], np.full(6, 1e-3))),
-                      nullhypo=0.5, graphinit=False)
-    rng = np.random.default_rng(5)
-    wide = np.concatenate([rng.normal(0, 8.0, size=(400, 3)), np.tile([1.0, 0, 0, 0], (400, 1))],
-                          axis=1)
-    fg.variables["x1"].beliefs["default"] = wide.astype(np.float32)
-    fg.variables["x1"].initialized["default"] = True
-    return fg, f.label
-
-
-def nullhypo_masses(pts):
-    d = np.linalg.norm(np.asarray(pts)[:, :3] - np.array([10.0, 0, 0]), axis=1)
-    return float(np.mean(d < 1.0)), float(np.mean(d > 3.0))
+# testPose3Pose3NH.jl:118's fixture and its masses (bench_multimodal.py:297-345)
+nullhypo_pose3_graph, nullhypo_masses = BM.nullhypo_graph, BM.nullhypo_masses
 
 
 def se3_hexagon_graph():
@@ -2092,27 +1937,14 @@ def se3_nonparametric_path(card, device="cuda", N=NP_N, nullhypo_N=NULLHYPO_N):
     products take the generic score (no K2/K3 launch); (c) the same solve of
     the Polar chain, whose products take K3's draw. Returns (result,
     launches of (b) + (c))."""
-    from rome_tpu_torch import approx_conv, init_all_beliefs, solve_graph_nonparametric
+    from rome_tpu_torch import solve_graph_nonparametric
 
-    out = {}
-    fg, flabel = nullhypo_pose3_graph()
-    init_all_beliefs(fg, N=nullhypo_N, device=device)
-    times, masses = [], []
-    for seed in (0, 4):
-        _sync(device)
-        t0 = time.time()
-        pts = approx_conv(fg, flabel, "x1", N=nullhypo_N, device=device, seed=seed).cpu().numpy()
-        _sync(device)
-        times.append(time.time() - t0)
-        check(pts.shape == (nullhypo_N, 7) and np.isfinite(pts).all(), "nullhypo conv not finite")
-        masses.append(nullhypo_masses(pts))
-    out["nullhypo"] = dict(first_s=times[0], steady_s=times[1],
-                           mass_at_measurement=[m[0] for m in masses],
-                           mass_spread=[m[1] for m in masses])
+    out = {"nullhypo": BM.bench_nullhypo(device, nullhypo_N)}
     print(f"[{card}] se3_nonparametric nullhypo: " + json.dumps(out["nullhypo"]))
-    for at_meas, far in masses:
-        check(0.25 < at_meas < 0.75 and far > 0.15,
-              f"nullhypo masses {at_meas} at the measurement, {far} spread")
+    check(out["nullhypo"]["finite"], "nullhypo conv not finite")
+    check(out["nullhypo"]["accuracy_ok"],
+          f"nullhypo masses {out['nullhypo']['mass_at_measurement_by_call']} at the measurement, "
+          f"{out['nullhypo']['mass_spread_by_call']} spread")
 
     launches = {}
     for name, build, cols, gate in (("se3_hexagon", se3_hexagon_graph, (slice(0, 3),), 1.0),
@@ -2683,13 +2515,6 @@ def factor_library_rest_path(card, device="cuda", seconds=REST_SECONDS, N=NP_N,
 
 # ------------------------- phases 16-18: the front end -------------------------
 
-def se2_compose(a, b):
-    """a ∘ b of two (x, y, theta) poses in float64, theta wrapped to [-pi, pi)."""
-    c, s = math.cos(a[2]), math.sin(a[2])
-    th = (a[2] + b[2] + math.pi) % (2 * math.pi) - math.pi
-    return np.array([a[0] + c * b[0] - s * b[1], a[1] + s * b[0] + c * b[1], th])
-
-
 def se2_root(z, n):
     """The pose whose n-fold composition is z (the group exponential of
     log(z) / n)."""
@@ -2711,108 +2536,6 @@ def edge_cov(tokens):
     i11, i12, i13, i22, i23, i33 = (float(v) for v in tokens[6:12])
     info = np.array([[i11, i12, i13], [i12, i22, i23], [i13, i23, i33]])
     return np.linalg.inv(info)
-
-
-def citygrid_stream(poses, path=CITYGRID):
-    """Citygrid's first ``poses`` poses as a stream: for k = 1 .. poses - 1,
-    (k, the EDGE_SE2 tokens of edge (k - 1, k), the EDGE_SE2 token lists whose
-    larger endpoint is k, in file order)."""
-    edges, odo = defaultdict(list), {}
-    with open(path) as fh:
-        for line in fh:
-            t = line.split()
-            if not t or t[0] != "EDGE_SE2":
-                continue
-            a, b = int(t[1]), int(t[2])
-            k = max(a, b)
-            if k >= poses:
-                continue
-            edges[k].append(t)
-            if (a, b) == (k - 1, k):
-                odo.setdefault(k, t)
-    check(all(k in odo for k in range(1, poses)), "citygrid stream: a pose without its odometry")
-    return [(k, odo[k], edges[k]) for k in range(1, poses)]
-
-
-def write_stream_g2o(path, poses, src=CITYGRID):
-    """Citygrid's first ``poses`` poses as a g2o stream in time order: each
-    VERTEX_SE2 line followed by the EDGE_SE2 lines whose larger endpoint it
-    is (file order), the order an incremental or fixed-lag example reads.
-    Returns the number of lines written."""
-    vertex, edges = {}, defaultdict(list)
-    with open(src) as fh:
-        for line in fh:
-            t = line.split()
-            if t and t[0] == "VERTEX_SE2" and int(t[1]) < poses:
-                vertex[int(t[1])] = line.strip()
-            elif t and t[0] == "EDGE_SE2" and max(int(t[1]), int(t[2])) < poses:
-                edges[max(int(t[1]), int(t[2]))].append(line.strip())
-    lines = [ln for k in range(poses) for ln in [vertex[k]] + edges[k]]
-    with open(path, "w") as fh:
-        fh.write("\n".join(lines) + "\n")
-    return len(lines)
-
-
-def port_api():
-    """The names the stream functions need, from the port."""
-    from types import SimpleNamespace
-
-    import rome_tpu_torch as T
-    from rome_tpu_torch.frontend.robot_utils import fifo_freeze
-    from rome_tpu_torch.io import parse_g2o_instruction
-
-    return SimpleNamespace(FactorGraph=T.FactorGraph, Pose2=T.Pose2, PriorPose2=T.PriorPose2,
-                           MvNormal=T.MvNormal, parse_g2o_instruction=parse_g2o_instruction,
-                           fifo_freeze=fifo_freeze)
-
-
-def stream_graph(api):
-    """x0 with tools/incremental_bench.py:55-62's PriorPose2, graphinit off."""
-    fg = api.FactorGraph()
-    fg.params.graphinit = False
-    fg.add_variable("x0", api.Pose2)
-    fg.add_factor(["x0"], api.PriorPose2(api.MvNormal([0, 0, 0], [0.1, 0.1, 0.05])))
-    fg.init_variable("x0", [0.0, 0.0, 0.0])
-    return fg
-
-
-def stream_add_pose(api, fg, k, odo, edges):
-    """Add x{k} at x{k-1}'s current estimate composed with the odometry mean
-    (dead reckoning from the filtered estimate), then its edges."""
-    fg.add_variable(f"x{k}", api.Pose2)
-    mean = np.array([float(v) for v in odo[3:6]])
-    fg.init_variable(f"x{k}", se2_compose(fg.get_coords(f"x{k - 1}"), mean))
-    for toks in edges:
-        api.parse_g2o_instruction(fg, toks)
-
-
-def run_stream(api, stream, solve, stride=FIXEDLAG_STRIDE, window=None, on_step=None):
-    """The stream through a graph: a solve every ``stride`` poses and after
-    the last; with ``window``, ``fifo_freeze`` with qfl = window before each
-    solve. ``solve(fg)`` returns the solve's result, ``on_step(k, fg, res)``
-    sees it. Returns the graph."""
-    fg = stream_graph(api)
-    if window is not None:
-        fg.params.qfl = window
-    last = stream[-1][0]
-    for k, odo, edges in stream:
-        stream_add_pose(api, fg, k, odo, edges)
-        if k % stride == 0 or k == last:
-            if window is not None:
-                api.fifo_freeze(fg)
-            res = solve(fg)
-            if on_step is not None:
-                on_step(k, fg, res)
-    return fg
-
-
-def fixedlag_solve(fg, device, dtype=None):
-    """The fixed-lag step's solve (tools/incremental_bench.py:75-86)."""
-    from rome_tpu_torch import GNOptions, solve_graph_parametric
-
-    return solve_graph_parametric(
-        fg, init=False, options=GNOptions(max_iters=FIXEDLAG_MAX_ITERS), chordal_init=False,
-        pad=True, dtype=dtype, device=device)
 
 
 class HostTimer:
@@ -2841,81 +2564,6 @@ class HostTimer:
     def unwrap(self):
         for name, fn in self._orig.items():
             setattr(self.owner, name, fn)
-
-
-class StepSolver:
-    """The fixed-lag step's solve with what the smoke run reads around it:
-    wall seconds (host clock, ending in a sync), the host seconds of lowering
-    and write-back, whether ``ParametricSolver.cached`` handed back a solver
-    it held (the cache's keys before and after), K1's launches, and the
-    frozen poses' points, bit for bit, before and after."""
-
-    def __init__(self, device, window=None, dtype=None):
-        from rome_tpu_torch.solvers import parametric as SP
-
-        self.device, self.window, self.dtype = device, window, dtype
-        self.host = HostTimer(SP, ("lower", "write_back"))
-        self.rows = []
-        self.frozen_labels, self.frozen_pts, self._known = [], [], set()
-        self.drift = 0.0
-
-    def frozen_drift(self, fg):
-        """Largest |change| of a frozen pose's point since it froze; 0.0
-        exactly when every one kept its float64 value bit for bit."""
-        if not self.frozen_labels:
-            return 0.0
-        cur = np.stack([fg.variables[l].points["parametric"] for l in self.frozen_labels])
-        ref = np.stack(self.frozen_pts)
-        if np.array_equal(cur.view(np.uint64), ref.view(np.uint64)):
-            return 0.0
-        return max(float(np.abs(cur - ref).max()), np.finfo(float).tiny)
-
-    def __call__(self, fg):
-        from rome_tpu_torch.ops import linearize_cuda as K
-        from rome_tpu_torch.solvers import gauss_newton as GN
-
-        if self.window:  # the poses the freeze has taken: all but the newest `window`
-            xs = sorted(fg.ls(r"^x\d+$"), key=lambda l: int(l[1:]))
-            for l in xs[:-self.window]:
-                if l not in self._known:
-                    rec = fg.variables[l]
-                    check(rec.solvable == 0, f"{l} is outside the window but not frozen")
-                    self._known.add(l)
-                    self.frozen_labels.append(l)
-                    self.frozen_pts.append(rec.points["parametric"].copy())
-        before_keys, k1 = set(GN._SOLVER_CACHE), dict(K.LAUNCHES)
-        self.host.take()
-        _sync(self.device)
-        t0 = time.time()
-        res = fixedlag_solve(fg, self.device, self.dtype)
-        _sync(self.device)
-        wall = time.time() - t0
-        host = self.host.take()
-        drift = self.frozen_drift(fg)
-        self.drift = max(self.drift, drift)
-        st = res["stats"]
-        frozen = len(self.frozen_labels)
-        row = dict(poses=fg.num_variables, frozen=frozen, free=fg.num_variables - frozen,
-                   iterations=int(st.iterations), reason=st.reason, converged=bool(st.converged),
-                   final_cost=float(st.final_cost), wall_s=wall,
-                   solve_time_s=float(res["solve_time_s"]), lower_s=host.get("lower", 0.0),
-                   write_back_s=host.get("write_back", 0.0), linear=res["linear_solver"],
-                   cached=bool(before_keys) and set(GN._SOLVER_CACHE) <= before_keys,
-                   k1_lin=K.LAUNCHES["lin"] - k1["lin"],
-                   k1_normal=K.LAUNCHES["normal"] - k1["normal"], frozen_drift=drift)
-        self.rows.append(row)
-        return res
-
-    def close(self):
-        self.host.unwrap()
-
-
-def step_line(card, tag, row):
-    return (f"[{card}] {tag}: poses {row['poses']} frozen {row['frozen']} free "
-            f"{row['free']}; LM {row['iterations']} {row['reason']} {row['wall_s']:.4f} s "
-            f"(lower {row['lower_s']:.4f}); {row['linear']}"
-            f"{' cached' if row['cached'] else ' built'}; K1 lin {row['k1_lin']}"
-            f"{'' if row['frozen_drift'] == 0.0 else ' DRIFT ' + repr(row['frozen_drift'])}")
 
 
 def window_check(fg, res, device, workdir, name):
@@ -2956,91 +2604,112 @@ def _coords(fg, n):
     return np.stack([fg.get_coords(f"x{i}") for i in range(n)])
 
 
-def _summary(rows, seconds):
-    steady = [r["wall_s"] for r in rows if r["cached"]]
-    return dict(solves=len(rows),
-                steady_median_s=float(np.median(steady)) if steady else None,
-                steady_p90_s=float(np.percentile(steady, 90)) if steady else None,
-                cached=len(steady), max_iters_steps=sum(r["reason"] == "max_iters" for r in rows),
-                linear={k: sum(r["linear"] == k for r in rows) for k in ("dense", "dense32")},
-                lower_s=sum(r["lower_s"] for r in rows), wall_s=sum(r["wall_s"] for r in rows),
-                k1_lin=sum(r["k1_lin"] for r in rows), seconds=seconds)
+def ib_step_line(card, tag, row):
+    """One tools/torch/incremental_bench.py row as a line."""
+    lower = f" (lower {row['lower_s']:.4f})" if "lower_s" in row else ""
+    return (f"[{card}] {tag}: poses {row['n_vars']} frozen {row['frozen']}; LM "
+            f"{row['iters']} {row['reason']} {row['solve_s']:.4f} s{lower}; {row['linear']}"
+            f"{' built' if row['new_solvers'] else ' cached'}; K1 lin {row['k1_lin']}"
+            f"{'' if row['frozen_drift'] == 0.0 else ' DRIFT ' + repr(row['frozen_drift'])}")
 
 
-def fixedlag_path(card, device="cuda", poses=FIXEDLAG_POSES, incremental=INCREMENTAL_POSES,
+def fixedlag_path(card, device="cuda", poses=FIXEDLAG_POSES, incremental=FIXEDLAG_INCREMENTAL,
                   workdir=None):
-    """Phase 16, ``fixedlag_citygrid_3500``: citygrid's first ``poses`` poses
-    as a stream (``citygrid_stream``), a fixed-lag solve every 10 poses and
-    after the last (``fifo_freeze``, window 25, then tools/incremental_bench.py's
-    solve on ``device`` in the default dtype), with the frozen-drift gate on
-    every step and the active-window gate (``window_check``) on every 25th
-    solve and the last; then the end state against the batch optimum of the
-    same prefix (ndchol, BIG), reported; then the incremental tier: the
-    stream through x{incremental - 1}, every pose free, under citygrid's
-    gates against the dense float64 optimum. K1 counted from 0 per tier."""
+    """Phase 16, ``fixedlag_citygrid_3500``, through tools/torch/incremental_bench.py's
+    ``run``: citygrid's first ``poses`` poses as its time-ordered stream
+    (each pose dead-reckoned from its predecessor's estimate, then its
+    edges), a fixed-lag solve every 10 poses and after the last
+    (``fifo_freeze``, window 25, then the JAX script's solve on ``device``
+    in the default dtype), with the frozen-drift gate and every pose outside
+    the window frozen on every step and the active-window gate
+    (``window_check``) on every 25th solve and the last; the script's own
+    gates (one solve per 10 poses, ``max_frozen_drift`` 0.0); then the
+    incremental tier (the stream's first ``incremental`` poses, every pose
+    free) under citygrid's gates
+    against the dense float64 optimum; then the first FIXEDLAG_REPEAT_STEPS
+    fixed-lag steps again (the same iterations and poses, bit for bit) and
+    the end state against the batch optimum of the same prefix (ndchol,
+    BIG), reported. K1 counted per tier from the rows."""
     import torch
 
     from rome_tpu_torch import GNOptions, solve_graph_parametric
+    from rome_tpu_torch.io.g2o import parse_g2o_instruction
+    from rome_tpu_torch.solvers import parametric as SP
 
     workdir = workdir or os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
-    incremental = min(incremental, poses)
-    api = port_api()
-    out, launches = {}, {}
+    out, launches, checks, fl_rows = {}, {}, [], []
     t_phase = time.time()
+    host = HostTimer(SP, ("lower", "write_back"))
 
-    _reset_launches()
-    stream = citygrid_stream(poses)
-    step = StepSolver(device, window=FIXEDLAG_WINDOW)
-    checks = []
-
-    def on_step(k, fg, res):
-        row = step.rows[-1]
-        row["k"] = k
-        if len(step.rows) <= FIXEDLAG_REPEAT_STEPS:
-            row["poses_sha256"] = _poses_sha256(fg, k + 1)
-        print(step_line(card, f"fixedlag x{k}", row))
-        check(row["frozen_drift"] == 0.0, f"fixedlag x{k}: a frozen pose moved ({row['frozen_drift']})")
-        if len(step.rows) % FIXEDLAG_CHECK_EVERY == 0 or k == stream[-1][0]:
-            c = window_check(fg, res, device, workdir, f"fixedlag_{k}")
-            c["k"] = k
+    def on_step(tier, row, fg, res):
+        row.update({f"{k}_s": v for k, v in host.take().items()})
+        print(ib_step_line(card, f"{tier} x{row['pose']}", row))
+        if tier != "fixedlag":
+            return
+        fl_rows.append(row)
+        if len(fl_rows) <= FIXEDLAG_REPEAT_STEPS:
+            row["poses_sha256"] = _poses_sha256(fg, row["pose"] + 1)
+        check(row["frozen_drift"] == 0.0,
+              f"fixedlag x{row['pose']}: a frozen pose moved ({row['frozen_drift']})")
+        check(row["frozen"] >= row["pose"] + 1 - FIXEDLAG_WINDOW,
+              f"fixedlag x{row['pose']}: {row['frozen']} poses frozen outside the window")
+        if len(fl_rows) % FIXEDLAG_CHECK_EVERY == 0 or row["pose"] == poses - 1:
+            c = window_check(fg, res, device, workdir, f"fixedlag_{row['pose']}")
+            c["pose"] = row["pose"]
             checks.append(c)
-            print(f"[{card}] fixedlag x{k} window check: cost {c['cost']:.6f}, f64 "
+            print(f"[{card}] fixedlag x{row['pose']} window check: cost {c['cost']:.6f}, f64 "
                   f"{c['ref_cost']:.6f} ({c['ref_iterations']} it), {c['free']} free poses "
                   f"within {c['window_err_m']:.3e} m")
+            host.take()
 
-    t0 = time.time()
+    _reset_launches()
     try:
-        fg = run_stream(api, stream, step, window=FIXEDLAG_WINDOW, on_step=on_step)
+        doc, fg, fg_inc = IB.run(device, card, poses=poses, stride=FIXEDLAG_STRIDE,
+                                 qfl=FIXEDLAG_WINDOW, incremental=incremental, on_step=on_step,
+                                 echo=lambda line: print(f"[{card}] incremental_bench {line}"))
     finally:
-        step.close()
-    seconds = time.time() - t0
-    launches["fixedlag"] = _launches()
+        host.unwrap()
+    fl, inc = doc["fixedlag_full"], doc["incremental"]
+    launches["fixedlag"] = dict(_launches(), k1_lin=fl["k1_lin"], k1_normal=fl["k1_normal"])
+    launches["incremental"] = dict(_launches(), k1_lin=inc["k1_lin"], k1_normal=inc["k1_normal"])
     launches["fixedlag_checks"] = {k: sum(c["launches"][k] for c in checks)
                                    for k in launches["fixedlag"]}
-    check(device != "cuda" or launches["fixedlag"]["k1_lin"] > 0,
-          f"fixedlag: K1 launches {launches['fixedlag']}, expected lin > 0")
-    check(launches["fixedlag"]["k1_lin"] == sum(r["k1_lin"] for r in step.rows),
-          f"fixedlag: K1 lin {launches['fixedlag']['k1_lin']} launches, the steps' "
-          f"{sum(r['k1_lin'] for r in step.rows)}")
+    steps = -(-(poses - 1) // FIXEDLAG_STRIDE)
+    check(fl["steps"] == len(fl_rows) == steps, f"fixedlag: {fl['steps']} solves, expected {steps}")
+    check(fl["max_frozen_drift"] == 0.0 and fl["bit_stable"],
+          f"fixedlag: frozen drift {fl['max_frozen_drift']}")
+    check(device != "cuda" or fl["k1_lin"] > 0, f"fixedlag: K1 {fl['k1_lin']} lin launches")
+    check(_launches()["k1_lin"] == fl["k1_lin"] + inc["k1_lin"],
+          f"incremental_bench: K1 lin {_launches()['k1_lin']} launches, its rows' "
+          f"{fl['k1_lin'] + inc['k1_lin']}")
+
+    # the incremental tier's last step against the dense float64 optimum
+    opt_fg = copy.deepcopy(fg_inc)
+    opt = solve_graph_parametric(opt_fg, init=False, options=GNOptions(**FIXEDLAG_REF),
+                                 chordal_init=False, dtype=torch.float64, device=device)
+    n_inc = len(fg_inc.ls(r"^x\d+$"))
+    cost, opt_cost = inc["rows"][-1]["final_cost"], float(opt["stats"].final_cost)
+    ate, _raw = ate_rmse(fg_inc, _coords(opt_fg, n_inc))
+    lat = inc["steady_step_latency_s"]
+    print(f"[{card}] incremental_{incremental}: {inc['steps']} solves in "
+          f"{inc['wall_s']:.1f} s, {n_inc} poses; steady median {lat['median']} s, p90 "
+          f"{lat['p90']} s; last cost {cost:.6f} against the f64 optimum {opt_cost:.6f}, ATE "
+          f"{ate:.4f} m; K1 lin {inc['k1_lin']}")
+    check(cost <= 1.002 * opt_cost + 1e-3 and ate <= ATE_GATE_M,
+          f"incremental: cost {cost} against {opt_cost}, ATE {ate} m")
+    check(device != "cuda" or inc["k1_lin"] > 0, f"incremental: K1 {inc['k1_lin']} lin launches")
 
     # one answer per input: the first steps again, the same iterations and
     # poses bit for bit
-    _reset_launches()
-    rep = StepSolver(device, window=FIXEDLAG_WINDOW)
+    instructions = IB.stream_instructions(poses)
+    first = fl_rows[:FIXEDLAG_REPEAT_STEPS]
     again = []
-
-    def on_rep(k, fg, res):
-        again.append((k, rep.rows[-1]["iterations"], _poses_sha256(fg, k + 1)))
-
-    try:
-        run_stream(api, stream[: FIXEDLAG_REPEAT_STEPS * FIXEDLAG_STRIDE], rep,
-                   window=FIXEDLAG_WINDOW, on_step=on_rep)
-    finally:
-        rep.close()
-    first = [(r["k"], r["iterations"], r["poses_sha256"])
-             for r in step.rows[:FIXEDLAG_REPEAT_STEPS]]
-    same = sum(a == b for a, b in zip(first, again))
+    IB.run_incremental(instructions[: first[-1]["step"]], FIXEDLAG_STRIDE, True,
+                       FIXEDLAG_WINDOW, device,
+                       on_step=lambda row, g, res: again.append(
+                           (row["pose"], row["iters"], _poses_sha256(g, row["pose"] + 1))))
+    same = sum(a == (r["pose"], r["iters"], r["poses_sha256"]) for a, r in zip(again, first))
     out["fixedlag_repeat"] = dict(steps=len(again), same_steps=same,
                                   iterations=[it for _k, it, _h in again])
     print(f"[{card}] fixedlag first {len(again)} steps again: {same} of {len(first)} with the "
@@ -3050,9 +2719,9 @@ def fixedlag_path(card, device="cuda", poses=FIXEDLAG_POSES, incremental=INCREME
 
     # the end state against the batch optimum of the same prefix
     _reset_launches()
-    batch = stream_graph(api)
-    for k, odo, edges in stream:
-        stream_add_pose(api, batch, k, odo, edges)
+    batch = IB._mk_fg()
+    for ins in instructions:
+        parse_g2o_instruction(batch, ins, initialize=True)
     t0 = time.time()
     bres = solve_graph_parametric(batch, init=False, options=GNOptions(**BIG), chordal_init=True,
                                   device=device)
@@ -3061,54 +2730,26 @@ def fixedlag_path(card, device="cuda", poses=FIXEDLAG_POSES, incremental=INCREME
     launches["fixedlag_batch"] = _launches()
     check(device != "cuda" or launches["fixedlag_batch"]["k1_normal"] > 0,
           f"fixedlag batch optimum: K1 launches {launches['fixedlag_batch']}, expected normal")
-    ref = _coords(batch, poses)
-    end_ate, end_raw = ate_rmse(fg, ref)
-    out["fixedlag"] = dict(rows=step.rows, checks=checks, summary=_summary(step.rows, seconds),
-                           end_state_ate_vs_batch_m=end_ate, end_state_rmse_vs_batch_m=end_raw,
+    end_ate, end_raw = ate_rmse(fg, _coords(batch, poses))
+    lat = fl["steady_step_latency_s"]
+    out["incremental_bench"] = doc
+    out["fixedlag"] = dict(checks=checks, end_state_ate_vs_batch_m=end_ate,
+                           end_state_rmse_vs_batch_m=end_raw,
                            batch=dict(iterations=int(bres["stats"].iterations),
                                       reason=bres["stats"].reason, seconds=batch_s,
-                                      final_cost=float(bres["stats"].final_cost)))
-    s = out["fixedlag"]["summary"]
-    print(f"[{card}] fixedlag_citygrid_{poses}: {s['solves']} solves in {seconds:.1f} s "
-          f"(solve calls {s['wall_s']:.1f} s, lowering {s['lower_s']:.1f} s); steady step "
-          f"median {s['steady_median_s']} s, p90 {s['steady_p90_s']} s over {s['cached']} "
-          f"cached solvers; {s['max_iters_steps']} steps at max_iters; linear {s['linear']}; "
-          f"{len(checks)} window checks, worst {max(c['window_err_m'] for c in checks):.3e} m; "
-          f"end state {end_ate:.4f} m aligned / {end_raw:.4f} m raw from the batch optimum "
-          f"(ndchol {bres['stats'].iterations} it, {batch_s:.2f} s); K1 {launches['fixedlag']}")
-
-    # the incremental tier: every pose free
-    _reset_launches()
-    inc = StepSolver(device)
-
-    def on_inc(k, fg, res):
-        row = inc.rows[-1]
-        row["k"] = k
-        print(step_line(card, f"incremental x{k}", row))
-
-    t0 = time.time()
-    try:
-        fg_inc = run_stream(api, stream[: incremental - 1], inc, on_step=on_inc)
-    finally:
-        inc.close()
-    seconds = time.time() - t0
-    launches["incremental"] = _launches()
-    opt_fg = copy.deepcopy(fg_inc)
-    opt = solve_graph_parametric(opt_fg, init=False, options=GNOptions(**FIXEDLAG_REF),
-                                 chordal_init=False, dtype=torch.float64, device=device)
-    cost, opt_cost = inc.rows[-1]["final_cost"], float(opt["stats"].final_cost)
-    ate, _raw = ate_rmse(fg_inc, _coords(opt_fg, incremental))
-    out["incremental"] = dict(rows=inc.rows, summary=_summary(inc.rows, seconds), cost=cost,
-                              opt_cost=opt_cost, ate_m=ate)
-    s = out["incremental"]["summary"]
-    print(f"[{card}] incremental_{incremental - 1}: {s['solves']} solves in {seconds:.1f} s; "
-          f"steady median {s['steady_median_s']} s, p90 {s['steady_p90_s']} s; "
-          f"{s['max_iters_steps']} at max_iters; last cost {cost:.6f} against the f64 optimum "
-          f"{opt_cost:.6f}, ATE {ate:.4f} m; K1 {launches['incremental']}")
-    check(cost <= 1.002 * opt_cost + 1e-3 and ate <= ATE_GATE_M,
-          f"incremental: cost {cost} against {opt_cost}, ATE {ate} m")
-    check(device != "cuda" or launches["incremental"]["k1_lin"] > 0,
-          f"incremental: K1 launches {launches['incremental']}, expected lin > 0")
+                                      final_cost=float(bres["stats"].final_cost)),
+                           lower_s=sum(r.get("lower_s", 0.0) for r in fl_rows))
+    out["incremental"] = dict(cost=cost, opt_cost=opt_cost, ate_m=ate)
+    linear = {k: sum(r["linear"] == k for r in fl_rows) for k in ("dense", "dense32")}
+    print(f"[{card}] fixedlag_citygrid_{poses}: {fl['steps']} solves in {fl['wall_s']:.1f} s "
+          f"(lowering {out['fixedlag']['lower_s']:.3f} s); steady step median {lat['median']} s, "
+          f"p90 {lat['p90']} s over {fl['steps_recycled_solver']} steps on a cached solver; "
+          f"{sum(r['reason'] == 'max_iters' for r in fl_rows)} steps at max_iters; linear "
+          f"{linear}; {len(checks)} window checks, worst "
+          f"{max(c['window_err_m'] for c in checks):.3e} m; end state {end_ate:.4f} m aligned / "
+          f"{end_raw:.4f} m raw from the batch optimum (ndchol {bres['stats'].iterations} it, "
+          f"{batch_s:.2f} s), {fl['end_state_ate_vs_batch_gt_m']:.4f} m from the whole graph's "
+          f"optimum; K1 lin {fl['k1_lin']}")
     out["seconds"] = time.time() - t_phase
     return out, launches
 
@@ -3192,20 +2833,21 @@ def live_slam_path(card, device="cuda", poses=LIVE_POSES, workdir=None):
             os.remove(os.path.join(blobs, f))
     _reset_launches()
     t_phase = time.time()
-    api = port_api()
-    stream = citygrid_stream(poses)
+    edges = defaultdict(list)  # the stream's EDGE_SE2 tokens by their larger endpoint
+    for toks in IB.stream_instructions(poses):
+        if toks[0] == "EDGE_SE2":
+            edges[max(int(toks[1]), int(toks[2]))].append(toks)
     slam = SLAMWrapperLocal()
-    slam.dfg = fg = stream_graph(api)
+    slam.dfg = fg = IB._mk_fg()
     store = add_blob_store(fg, FolderStore("live_ticks", blobs))
-    step = StepSolver(device, window=LIVE_DISENGAGE)
+    step = IB.StepSolver(device, window=LIVE_DISENGAGE)
     errors = []
 
     def solve_fn(g):
         try:
-            drift = step.frozen_drift(g)
+            drift = step.frozen.drift(g)
             check(drift == 0.0, f"live: a frozen pose moved between cycles ({drift})")
-            step(g)
-            row = step.rows[-1]
+            row, _res = step(g)
             check(row["frozen_drift"] == 0.0, f"live: a frozen pose moved ({row['frozen_drift']})")
         except BaseException as e:
             errors.append(e)
@@ -3216,7 +2858,8 @@ def live_slam_path(card, device="cuda", poses=LIVE_POSES, workdir=None):
     drt = MutablePose2Pose2Gaussian()
     reset_factor(drt)
     try:
-        for k, odo, edges in stream:
+        for k in range(1, poses):
+            odo = next(t for t in edges[k] if (int(t[1]), int(t[2])) == (k - 1, k))
             mean = np.array([float(v) for v in odo[3:6]])
             cov = edge_cov(odo)
             tick = se2_root(mean, LIVE_TICKS)
@@ -3226,7 +2869,7 @@ def live_slam_path(card, device="cuda", poses=LIVE_POSES, workdir=None):
                 flbl = duplicate_to_standard_factor_variable(
                     drt, fg, f"x{k - 1}", f"x{k}", solvable=0, graphinit=False, cov=cov)
                 add_data(fg, f"x{k}", "odo_ticks", np.tile(tick, (LIVE_TICKS, 1)).tobytes())
-                for toks in edges:
+                for toks in edges[k]:
                     if toks is not odo:
                         parse_g2o_instruction(fg, toks)
             reset_factor(drt)
@@ -3246,7 +2889,7 @@ def live_slam_path(card, device="cuda", poses=LIVE_POSES, workdir=None):
           f"{len(step.rows)} recorded")
     loop_s = time.time() - t_phase
     for i, row in enumerate(step.rows):
-        print(step_line(card, f"live solve {i + 1}", row))
+        print(ib_step_line(card, f"live solve {i + 1}", row))
     launches = {"live_loop": _launches()}
     check(device != "cuda" or launches["live_loop"]["k1_lin"] > 0,
           f"live: K1 launches {launches['live_loop']}, expected lin > 0")
@@ -3259,12 +2902,10 @@ def live_slam_path(card, device="cuda", poses=LIVE_POSES, workdir=None):
             fg.set_solvable(lbl, 1)
     fg.init_all()
     set_solvable_old_poses(fg, youngest=LIVE_DISENGAGE)
-    res = step(fg)
-    step.close()
-    sync_row = step.rows[-1]
+    sync_row, res = step(fg)
     check(sync_row["frozen_drift"] == 0.0, "live: the synchronous solve moved a frozen pose")
     wc = window_check(fg, res, device, workdir, "live_window")
-    print(f"{step_line(card, 'live synchronous solve', sync_row)}; window "
+    print(f"{ib_step_line(card, 'live synchronous solve', sync_row)}; window "
           f"cost {wc['cost']:.6f} against f64 {wc['ref_cost']:.6f}, within "
           f"{wc['window_err_m']:.3e} m")
 
@@ -3278,12 +2919,12 @@ def live_slam_path(card, device="cuda", poses=LIVE_POSES, workdir=None):
     diff = graphs_equal(fg, fg2)
     check(diff is None, f"live: the loaded checkpoint differs ({diff})")
     add_blob_store(fg2, store)
-    for k, _odo, _e in stream:
+    for k in range(1, poses):
         _e1, a = get_data(fg, f"x{k}", "odo_ticks")
         _e2, b = get_data(fg2, f"x{k}", "odo_ticks")
         check(a == b, f"live: blob of x{k} differs after the reload")
-    r1 = fixedlag_solve(fg, device)
-    r2 = fixedlag_solve(fg2, device)
+    _row1, r1 = IB.StepSolver(device)(fg)
+    _row2, r2 = IB.StepSolver(device)(fg2)
     resolve = float(np.abs(_coords(fg, poses)[:, :2] - _coords(fg2, poses)[:, :2]).max())
     launches["live_resolve"] = _launches()
     launches["live_window_check"] = wc["launches"]
@@ -3544,24 +3185,29 @@ def distributed_inputs(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT,
 
 
 class PathInputs:
-    """The inputs each kernel wrapper is given on the distributed paths of
-    one rank: the first call at each layout (shapes, dtypes, storage
-    offsets) of each path, copied with its whole storage, so that a row
+    """The inputs each kernel wrapper is given on the paths of one process
+    (a rank of the distributed paths, or the measuring entry points in the
+    main process): the first calls at each layout (shapes, dtypes, storage
+    offsets) of each path, copied with their whole storage, so that a row
     slice keeps its offset (``_masked_gibbs(rows=...)``'s uniforms, a
-    rank's block of a batch). Installed in front of the wrappers before the
-    paths build anything; it calls them unchanged, so the launch counts are
-    theirs. ``check`` then holds each recorded call's kernel to its plain
-    version on those inputs: the per-rank shapes and the mesh padding
-    (weight-0 rows: slots 0, z = 0, S = I) that no synthetic case has."""
+    rank's block of a batch). Installed in front of the wrappers (K1's lin
+    function, its normal plan's call, the K2/K3 draws) before the paths
+    build anything; it calls them unchanged, so the launch counts are
+    theirs, and records only while ``path`` is set. ``check`` then holds
+    each recorded call's kernel to its plain version on those inputs: the
+    paths' own shapes and magnitudes, and the mesh padding (weight-0 rows:
+    slots 0, z = 0, S = I) that no synthetic case has."""
 
-    KERNELS = ("lin", "se2_gibbs_draw", "euclid_gibbs_draw")
+    KERNELS = ("lin", "normal", "se2_gibbs_draw", "euclid_gibbs_draw")
 
     def __init__(self, limit=8):
         from rome_tpu_torch.ops import linearize_cuda as K
         from rome_tpu_torch.ops import pairwise_cuda as P
 
         self.path, self.calls, self.limit = None, {}, limit
-        self.kernels = {"lin": K.pose2pose2_linearize, "se2_gibbs_draw": P.se2_gibbs_draw,
+        self.seen = defaultdict(int)  # calls per (path, kernel)
+        self.kernels = {"lin": K.pose2pose2_linearize, "normal": K.Pose2Pose2Normal.__call__,
+                        "se2_gibbs_draw": P.se2_gibbs_draw,
                         "euclid_gibbs_draw": P.euclid_gibbs_draw}
         lin = self._recording("lin")
         for ftype, fn in K.FUSED_LINEARIZE.items():
@@ -3569,6 +3215,13 @@ class PathInputs:
                 K.FUSED_LINEARIZE[ftype] = lin
         for name in ("se2_gibbs_draw", "euclid_gibbs_draw"):
             setattr(P, name, self._recording(name))
+        normal, record = self.kernels["normal"], self._record
+
+        def recording_normal(plan, values):
+            record("normal", (values, *plan.inputs, plan.count))
+            return normal(plan, values)
+
+        K.Pose2Pose2Normal.__call__ = recording_normal
 
     @staticmethod
     def _copy(a):
@@ -3579,21 +3232,77 @@ class PathInputs:
         return torch.empty(0, dtype=a.dtype, device=a.device).set_(
             a.untyped_storage().clone(), a.storage_offset(), a.size(), a.stride())
 
-    def _recording(self, name):
+    def _record(self, name, args):
         import torch
 
+        if self.path is None:
+            return
+        self.seen[(self.path, name)] += 1
+        key = (self.path, name) + tuple(
+            (tuple(a.shape), str(a.dtype), a.storage_offset())
+            if isinstance(a, torch.Tensor) else a for a in args)
+        if key not in self.calls and sum(
+                k[:2] == key[:2] for k in self.calls) < self.limit:
+            self.calls[key] = [self._copy(a) for a in args]
+
+    def _recording(self, name):
         fn = self.kernels[name]
 
         def recording(*args):
-            key = (self.path, name) + tuple(
-                (tuple(a.shape), str(a.dtype), a.storage_offset())
-                if isinstance(a, torch.Tensor) else a for a in args)
-            if self.path is not None and key not in self.calls and sum(
-                    k[:2] == key[:2] for k in self.calls) < self.limit:
-                self.calls[key] = [self._copy(a) for a in args]
+            self._record(name, args)
             return fn(*args)
 
         return recording
+
+    @staticmethod
+    def _row_scale(p, q, z, S, w):
+        """Per row: |S| w (|p| + |q| + |z| + 1), the size of the row's terms."""
+        return (S.abs().amax(dim=(1, 2)) * w.abs() * (
+            p.abs().amax(1) + q.abs().amax(1) + z.abs().amax(1) + 1.0))
+
+    def _check_normal(self, args):
+        """K1's normal epilogue on a recorded call (a fresh plan on the same
+        inputs) against its plain version: the float64 residual within
+        1e-10 + 1e-13 of the row scale, the float32 Jacobians within 2e-5 +
+        1e-6 of it (the lin epilogue's bounds), the JᵀJ entries within 1e-5
+        of their products' summed magnitudes plus what those Jacobian bounds
+        allow a product, the float64 Jᵀr within 1e-9 of the plain
+        contraction of the kernel's own J and r. Returns the row fields."""
+        import torch
+
+        from rome_tpu_torch.ops import linearize_cuda as K
+        from rome_tpu_torch.ops.fused_linearize import pose2pose2_normal_plain
+        from rome_tpu_torch.utils.math import einsum
+
+        values, vslots, z, S, w, count = args
+        n = vslots.shape[0]
+        entries = torch.empty(36 * n, dtype=torch.float32, device=values.device)
+        plan = K.Pose2Pose2Normal(vslots, z, S, w, count, entries)
+        r, Js, jtr = self.kernels["normal"](plan, values)
+        _sync(values.device.type)
+        rp, Jps, ep, _jp = pose2pose2_normal_plain(values, vslots, z, S, w)
+        p, q = values[vslots[:, 0]], values[vslots[:, 1]]
+        scale = self._row_scale(p, q, z.double(), S.double(), w.double())
+        tol_J = (2e-5 + 1e-6 * scale).float()
+        J_max = torch.stack([J.abs().amax(dim=(1, 2)) for J in Jps]).amax(0)
+        terms = torch.stack([einsum("nij,nik->njk", Jps[k].abs(), Jps[l].abs())
+                             for k in (0, 1) for l in (0, 1)])
+        err = {}
+        ok = True
+        for key, got, want, tol in (
+                ("r", r, rp, (1e-10 + 1e-13 * scale)[:, None]),
+                ("J", torch.stack(Js), torch.stack(Jps), tol_J[None, :, None, None]),
+                ("entries", entries.view(4, n, 3, 3), ep,
+                 1e-5 * terms + 6 * (J_max * tol_J)[None, :, None, None])):
+            d = (got - want).abs()
+            err[key] = float(d.max()) if d.numel() else 0.0
+            ok = ok and bool(torch.isfinite(got).all()) and bool((d <= tol).all())
+        own = torch.stack([einsum("nij,ni->nj", J, r) for J in Js])
+        err["jtr_rel"] = float((jtr - own).abs().max() / own.abs().max().clamp_min(1e-300)) \
+            if n else 0.0
+        ok = ok and bool(torch.isfinite(jtr).all()) and err["jtr_rel"] <= 1e-9
+        return dict(errors=err, max_abs_err=max(err["J"], err["entries"]),
+                    max_row_scale=float(scale.max()) if n else 0.0), ok
 
     def check(self, card):
         """Every recorded call: K1 lin within the float32 / float64 bound
@@ -3611,18 +3320,27 @@ class PathInputs:
         out = []
         for key, args in self.calls.items():
             path, name = key[:2]
+            row = dict(path=path, kernel=name,
+                       shapes=[list(k[0]) for k in key[2:] if isinstance(k, tuple)],
+                       offsets=[k[2] for k in key[2:] if isinstance(k, tuple)])
+            if name == "normal":
+                fields, ok = self._check_normal(args)
+                row.update(fields)
+                print(f"[{card}] {path} K1 normal n={args[1].shape[0]} table {args[5]} poses: "
+                      + json.dumps(fields))
+                check(ok, f"{path}: K1 normal disagrees with its plain version on the path's "
+                          f"inputs ({row})")
+                out.append(row)
+                continue
             got = self.kernels[name](*args)
             _sync(args[0].device.type)
-            row = dict(path=path, kernel=name, shapes=[list(k[0]) for k in key[2:]],
-                       offsets=[k[2] for k in key[2:]])
             if name == "lin":
                 p, q, z, S, w = args
                 want = pose2pose2_linearize_plain(*args)
                 # float32 keeps eps |pose| in a pose difference, times |S|
                 # and w: 2e-5 absolute or 1e-6 of that row scale (float64:
                 # 1e-10 or 1e-13)
-                scale = (S.abs().amax(dim=(1, 2)) * w.abs() * (
-                    p.abs().amax(1) + q.abs().amax(1) + z.abs().amax(1) + 1.0))
+                scale = self._row_scale(p, q, z, S, w)
                 atol, rtol = (2e-5, 1e-6) if p.dtype == torch.float32 else (1e-10, 1e-13)
                 pad = w == 0
                 err, ok, zero = 0.0, True, True
@@ -3956,6 +3674,34 @@ def distributed_path(card, inputs, device="cuda", worlds=DIST_WORLDS, dryrun_wor
         by_rank[path] = {f"world{w}": [r[key]["launches"] for r in runs[w]]
                          for w in worlds if key in runs[w][0]}
     return result, by_rank
+
+
+def _check_entry_inputs(card, inputs):
+    """The main process's ``PathInputs`` over the measuring entry points:
+    every recorded call's kernel held to its plain version (``check``), and
+    per draw kernel the labels equal to the plain draw's on >= LABEL_AGREE
+    of the rows pooled over the paths. Returns per kernel the calls seen and
+    checked per path, the worst errors and the label agreement."""
+    rows = inputs.check(card)
+    out = {}
+    for name in PathInputs.KERNELS:
+        mine = [r for r in rows if r["kernel"] == name]
+        o = out[name] = dict(
+            calls={p: n for (p, k), n in inputs.seen.items() if k == name},
+            checked={p: sum(r["path"] == p for r in mine) for p in {r["path"] for r in mine}},
+            max_abs_err=max((r.get("max_abs_err", 0.0) for r in mine), default=0.0),
+            shapes=sorted({f"{r['path']} {r['shapes'][0]}" for r in mine}))
+        for p in o["calls"]:
+            check(o["checked"].get(p, 0) > 0, f"{p}: {name} called but no call checked")
+        n_rows = sum(r.get("rows", 0) for r in mine)
+        if n_rows:
+            o["label_agreement"] = 1.0 - sum(r["rows_differ"] for r in mine) / n_rows
+            o["max_gap"] = max(r["max_gap"] for r in mine)
+            check(o["label_agreement"] >= LABEL_AGREE,
+                  f"{name} on the entry points' inputs: labels equal on "
+                  f"{o['label_agreement']} < {LABEL_AGREE} of rows")
+    print(f"[{card}] kernels on the measuring entry points' inputs: " + json.dumps(out))
+    return out
 
 
 def _check_path_inputs(card, runs, device):
@@ -4714,7 +4460,7 @@ def periphery_path(card, bundle_phases, bee_keep, device="cuda", out_dir=None,
 
 
 def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path, dist_by_rank,
-                 path_inputs):
+                 path_inputs, entry_inputs):
     """The kernels JSON line: K1 by its two epilogues (normal launched by the
     speculative citygrid path, the host-scheduled solve and the NN-mixture
     chain of phase 15, lin by the
@@ -4725,8 +4471,10 @@ def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path, 
     logw epilogues nested. The distributed paths' launches are summed over
     their ranks and world sizes in ``launches_by_path`` and listed per world
     and rank in ``launches_by_rank``; ``path_inputs``: the checks of each
-    kernel on the inputs those paths gave it (``PathInputs``). Times and
-    bounds at n = 13,085, with 1,048,576 nested."""
+    kernel on the inputs those paths gave it (``PathInputs``), and
+    ``entry_point_inputs`` the same on the measuring entry points' inputs
+    (bench_torch, bench_multimodal, incremental_bench). Times and bounds at
+    n = 13,085, with 1,048,576 nested."""
     def dist_sum(key):
         return {p: sum(r[key] for ranks in w.values() for r in ranks)
                 for p, w in dist_by_rank.items() if w}
@@ -4750,6 +4498,7 @@ def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path, 
             launches_by_rank={p: r for p, r in dist_ranks(f"k1_{epi}").items()
                               if not p.startswith("sharded_beehive")},
             **({"path_inputs": path_inputs["lin"]} if epi == "lin" else {}),
+            entry_point_inputs=entry_inputs[epi],
             max_abs_err=k1[epi]["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
             shape=[K1_TIMED[0]],
@@ -4767,7 +4516,7 @@ def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path, 
             launches=np_launches[key] + sum(sharded.values()),
             launches_by_path={**{p: l[key] for p, l in np_by_path.items()}, **sharded},
             launches_by_rank={p: r for p, r in dist_ranks(key).items() if p in sharded},
-            path_inputs=path_inputs[key],
+            path_inputs=path_inputs[key], entry_point_inputs=entry_inputs[key],
             max_abs_err=k23[k]["draw_max_gap"],
             ms=t["draw"], plain_ms=t["plain_draw"], bound_ms=t["draw_bound_ms"],
             bound_by=t["draw_bound_by"], library_ms=None, shape=[V, BEEHIVE_N, BEEHIVE_N],
@@ -4818,20 +4567,27 @@ def main():
     k1 = kernel_phase(card, bytes_per_s)
     k23 = pairwise_phase(card, bytes_per_s)
     fixed_order = fixed_order_check(card)
+    # the measuring entry points' own kernel inputs, recorded per path
+    entry = PathInputs()
+    entry.path = "bench_torch"
+    t0 = time.time()
     with ChordalStarts() as starts:
-        runs, launches = main_path(card)
+        runs, launches, bench = main_path(card)
+        entry.path = None
         repeats = citygrid_repeat_check(card, runs, starts)
     warm = [r["solve_time_s"] for r in runs[1:]]
-    print(f"[{card}] citygrid_10k: cold {runs[0]['solve_time_s']:.3f} s, warm "
+    print(f"[{card}] citygrid_10k (bench_torch, {time.time() - t0:.1f} s with its other rows): "
+          f"cold {runs[0]['solve_time_s']:.3f} s, warm "
           f"{', '.join(f'{w:.3f}' for w in warm)} s, best {10000 / min(warm):.1f} poses/s, "
           f"{[r['iterations'] for r in runs]} LM iterations, K1 launches {launches}")
     t0 = time.time()
     params, param_launches = parametric_solvers_path(card)
     print(parametric_summary(card, params, param_launches, time.time() - t0))
     bee_keep = []
+    entry.path = "beehive_100pose"
     bee, bee_launches = beehive_path(card, keep=bee_keep)
-    secs = ", ".join(f"{r['solve_time_s']:.3f}" for r in bee)
-    errs = ", ".join(f"{r['mean_pose_err_m']:.4f}" for r in bee)
+    secs = ", ".join(f"{r['solve_time_s']:.3f}" for r in bee["runs"])
+    errs = ", ".join(f"{r['mean_pose_err_m']:.4f}" for r in bee["runs"])
     print(f"[{card}] beehive_{BEEHIVE_POSES} N={BEEHIVE_N}: solves (cold, warm, warm) "
           f"{secs} s, mean pose error {errs} m, K2/K3 launches {bee_launches}")
     np_paths = {"beehive_points": (bee, bee_launches)}
@@ -4840,8 +4596,10 @@ def main():
                        ("hexagonal_7pose", hexagonal_path),
                        ("multihypo_range_bearing", multihypo_path)):
         t0 = time.time()
+        entry.path = name
         np_paths[name] = path(card)
         print(f"[{card}] {name}: {time.time() - t0:.1f} s, launches {np_paths[name][1]}")
+    entry.path = None
     t0 = time.time()
     sphere, sphere_launches = sphere_path(card)
     warm = [r["solve_time_s"] for r in sphere["runs"][1:]]
@@ -4855,6 +4613,17 @@ def main():
     print(f"[{card}] se3_nonparametric: {time.time() - t0:.1f} s, launches {se3_np_launches}")
     for name, l in se3_np_launches.items():
         np_paths[name] = (se3_np[name], l)
+    np_paths["pose3_nullhypo"] = (se3_np["nullhypo"], se3_np["nullhypo"]["launches"])
+    # tools/torch/bench_multimodal.py's six rows and its roll-up
+    multimodal = BM.summarize({"hexagonal_7pose": np_paths["hexagonal_7pose"][0],
+                               "honeycomb_grow_default": np_paths["honeycomb_grow_default"][0],
+                               "beehive_100pose": bee,
+                               "bayes_tree_grow": np_paths["bayes_tree_grow"][0],
+                               "multihypo_range_bearing": np_paths["multihypo_range_bearing"][0],
+                               "pose3_nullhypo": se3_np["nullhypo"]}, card)
+    print(f"[{card}] bench_multimodal gates: {json.dumps(multimodal['gates'])}, all_gates_pass "
+          f"{multimodal['all_gates_pass']}")
+    check(multimodal["all_gates_pass"], f"bench_multimodal gates {multimodal['gates']}")
     t0 = time.time()
     imu, imu_launches = imu_path(card)
     warm = [r["solve_time_s"] for r in imu["runs"][1:]]
@@ -4871,9 +4640,12 @@ def main():
     param_launches["fluxmix_chain_500"] = {
         epi: rest_launches["fluxmix_chain"][f"k1_{epi}"] for epi in ("lin", "normal")}
     t0 = time.time()
+    entry.path = "incremental_bench"
     fixedlag, fixedlag_launches = fixedlag_path(card)
-    print(f"[{card}] fixedlag_citygrid_{FIXEDLAG_POSES}: {time.time() - t0:.1f} s, "
-          f"launches {fixedlag_launches}")
+    entry.path = None
+    print(f"[{card}] fixedlag_citygrid_{FIXEDLAG_POSES} (incremental_bench): "
+          f"{time.time() - t0:.1f} s, launches {fixedlag_launches}")
+    entry_inputs = _check_entry_inputs(card, entry)
     t0 = time.time()
     live, live_launches = live_slam_path(card)
     print(f"[{card}] live_slam_checkpoint: {time.time() - t0:.1f} s, launches {live_launches}")
@@ -4898,9 +4670,14 @@ def main():
     t0 = time.time()
     periphery = periphery_path(card, bundle["phases"], bee_keep)
     print(f"[{card}] periphery: {time.time() - t0:.1f} s")
+    detail = bench["detail"]
+    param_launches["bench_torch_covariance_recovery"] = {
+        epi: detail["covariance_recovery"]["launches"][f"k1_{epi}"] for epi in ("lin", "normal")}
+    param_launches["bench_kernels"] = {
+        epi: detail["kernel_speed_of_light"]["launches"][f"k1_{epi}"] for epi in ("lin", "normal")}
     for name, key in (("fixedlag_citygrid_3500", "fixedlag"),
                       ("fixedlag_batch_optimum", "fixedlag_batch"),
-                      ("incremental_1000", "incremental"),
+                      (f"incremental_{FIXEDLAG_INCREMENTAL}", "incremental"),
                       ("fixedlag_window_checks", "fixedlag_checks")):
         param_launches[name] = {epi: fixedlag_launches[key][f"k1_{epi}"]
                                 for epi in ("lin", "normal")}
@@ -4931,12 +4708,15 @@ def main():
                    "fixed_order": fixed_order, "citygrid_repeats": repeats,
                    "vision_bundle_ladybug49": bundle,
                    "tcp_citygrid_10k": tcp, "periphery": periphery,
+                   "bench_torch": bench, "bench_multimodal": multimodal,
+                   "entry_point_inputs": entry_inputs,
                    "distributed_launches_by_rank": dist_by_rank,
                    "seconds": time.time() - t_start}, fh, indent=1, default=float)
 
     print(json.dumps({"kernels": kernel_table(k1, k23, launches, np_launches, param_launches,
                                               {k: l for k, (_r, l) in np_paths.items()},
-                                              dist_by_rank, dist["path_inputs"])}))
+                                              dist_by_rank, dist["path_inputs"],
+                                              entry_inputs)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

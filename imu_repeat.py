@@ -16,13 +16,17 @@ fixed-lag stream of chip_smoke.py's phase 16 through FIXEDLAG_POSES poses
 (stride 10, window 25): each step's wall seconds (host clock, ending in a
 sync), the steady median and p90, and where the checkout has one, the
 seconds spent building the dense solvers' sum plans (``DenseScatter.of``,
-between syncs) per step. The last line is a JSON summary: per path the
-iteration counts, whether the final costs are bit-identical, and the median
-ms per LM iteration; the chordal stage's ms and kernels; the fixed-lag
-summary.
+between syncs) per step. Then PHASE5 calls of the checkout's phase 5,
+``chip_smoke.main_path`` (its four citygrid solves; bench_torch.py's
+``run`` where the checkout has it), each solve's ``solve_time_s`` (the
+solver's own timer: chordal init + LM) beside its LM loop's seconds. The
+last line is a JSON summary: per path the iteration counts, whether the
+final costs are bit-identical, the solves' seconds and the median ms per
+LM iteration; the chordal stage's ms and kernels; the fixed-lag summary.
 
     python3 imu_repeat.py [IMU_SOLVES] [DET_SOLVES] [CITY_SOLVES] [CITY_LM_SOLVES]
-                          [CHORDAL_REPS] [FIXEDLAG_POSES]    (defaults 6, 0, 6, 0, 0, 0)
+                          [CHORDAL_REPS] [FIXEDLAG_POSES] [PHASE5]
+                          (defaults 6, 0, 6, 0, 0, 0, 0)
 
 Run it from the root of a checkout: it reads that checkout's chip_smoke.py
 and package (a copy of this file in an older checkout times that one).
@@ -46,8 +50,8 @@ def main():
     import rome_tpu_torch
     from rome_tpu_torch.solvers import gauss_newton as GN
 
-    args = [int(a) for a in sys.argv[1:]] + [6, 0, 6, 0, 0, 0][len(sys.argv) - 1:]
-    solves, det, city, city_lm, chordal_reps, fixedlag_poses = args[:6]
+    args = [int(a) for a in sys.argv[1:]] + [6, 0, 6, 0, 0, 0, 0][len(sys.argv) - 1:]
+    solves, det, city, city_lm, chordal_reps, fixedlag_poses, phase5 = args[:7]
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
     print(card)
@@ -64,7 +68,8 @@ def main():
         return out
 
     GN.ParametricSolver.solve = timed_solve
-    rows = {"imu": [], "imu_deterministic": [], "citygrid": [], "citygrid_lm_one_start": []}
+    rows = {"imu": [], "imu_deterministic": [], "citygrid": [], "citygrid_lm_one_start": [],
+            "phase5": []}
     try:
         if solves or det:
             fg0, _build_s = cs.imu_graph(rome_tpu_torch, cs.IMU_KEYFRAMES, cs.IMU_WINDOW)
@@ -114,10 +119,20 @@ def main():
                 lm_s=lm[-1], ms_per_iter=1e3 * lm[-1] / st.iterations))
             print(f"[{card}] citygrid LM from one chordal start: {st.iterations} iterations, "
                   f"{st.reason}, cost {st.final_cost!r}, LM {lm[-1]:.3f} s", flush=True)
+        for _ in range(phase5):
+            n0 = len(lm)
+            runs = cs.main_path(card)[0]
+            for r, lm_s in zip(runs, lm[n0:n0 + len(runs)]):
+                rows["phase5"].append(dict(run=r["run"], iterations=r["iterations"],
+                                           cost=r["final_cost"], wall_s=r["solve_time_s"],
+                                           lm_s=lm_s, ms_per_iter=1e3 * lm_s / r["iterations"]))
+                print(f"[{card}] phase 5 citygrid {r['run']}: {r['iterations']} iterations, "
+                      f"solve_time_s {r['solve_time_s']:.4f}, LM {lm_s:.4f} s", flush=True)
     finally:
         GN.ParametricSolver.solve = solve
     summary = {k: dict(iterations=[r["iterations"] for r in v],
                        costs_bit_identical=len({r["cost"] for r in v}) == 1,
+                       solve_s=[round(r["wall_s"], 4) for r in v],
                        ms_per_iter_median=float(np.median([r["ms_per_iter"] for r in v])),
                        ms_per_iter=[round(r["ms_per_iter"], 3) for r in v])
                for k, v in rows.items() if v}
@@ -263,13 +278,15 @@ def scatter_costs(card, ga, reps=200):
 
 
 def fixedlag(card, poses):
-    """chip_smoke.py's fixed-lag stream through ``poses`` poses: per step
-    wall seconds and, where the checkout has ``DenseScatter``, the seconds
-    its plans took to build."""
+    """chip_smoke.py's fixed-lag stream (tools/torch/incremental_bench.py's
+    ``run_incremental``) through ``poses`` poses: the steady step and,
+    where the checkout has ``DenseScatter``, the seconds its plans took to
+    build."""
     import torch
 
     import chip_smoke as cs
     from rome_tpu_torch.solvers import linearize as L
+    from tools.torch import incremental_bench as IB
 
     plan_s = []
     real = getattr(L, "DenseScatter", None)
@@ -285,21 +302,19 @@ def fixedlag(card, poses):
             return out
 
         real.of = classmethod(timed_of)
-    step = cs.StepSolver("cuda", window=cs.FIXEDLAG_WINDOW)
     t0 = time.time()
     try:
-        cs.run_stream(cs.port_api(), cs.citygrid_stream(poses), step, window=cs.FIXEDLAG_WINDOW)
+        _fg, rows, _drift = IB.run_incremental(IB.stream_instructions(poses), cs.FIXEDLAG_STRIDE,
+                                               True, cs.FIXEDLAG_WINDOW, "cuda")
     finally:
-        step.close()
         if real is not None:
             real.of = classmethod(build)
-    s = cs._summary(step.rows, time.time() - t0)
-    out = dict(solves=s["solves"], steady_median_ms=1e3 * s["steady_median_s"],
-               steady_p90_ms=1e3 * s["steady_p90_s"], linear=s["linear"],
-               iterations=sum(r["iterations"] for r in step.rows),
-               plan_builds=len(plan_s),
-               plan_ms_per_step=1e3 * sum(plan_s) / max(1, s["solves"]),
-               seconds=s["seconds"])
+    s = IB._summary(rows)
+    lat = s["steady_step_latency_s"]
+    out = dict(solves=s["steps"], steady_median_ms=1e3 * lat["median"],
+               steady_p90_ms=1e3 * lat["p90"], linear=s["linear"], iterations=s["iterations"],
+               plan_builds=len(plan_s), plan_ms_per_step=1e3 * sum(plan_s) / max(1, s["steps"]),
+               seconds=time.time() - t0)
     print(f"[{card}] fixedlag_citygrid_{poses}: {json.dumps(out)}", flush=True)
     return out
 

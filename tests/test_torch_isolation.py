@@ -15,6 +15,9 @@ pytest.importorskip("torch")
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 PKG = os.path.join(REPO, "rome_tpu_torch")
+MEASURING_SCRIPTS = [os.path.join(REPO, "bench_torch.py")] + sorted(
+    os.path.join(REPO, "tools", "torch", f) for f in os.listdir(os.path.join(REPO, "tools", "torch"))
+    if f.endswith(".py"))
 
 
 def _run(code, cwd=REPO, timeout=240):
@@ -96,10 +99,11 @@ def test_every_submodule_imports_without_jax():
 
 
 def test_port_sources_name_no_jax_import():
-    """No import line of the package or chip_smoke.py names jax or the JAX
-    package, and none imports by a name built at run time (importlib,
-    __import__), which such a search cannot see."""
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    """No import line of the package, chip_smoke.py or the measuring scripts
+    (bench_torch.py, tools/torch/) names jax or the JAX package, and none
+    imports by a name built at run time (importlib, __import__), which such a
+    search cannot see."""
+    paths = [os.path.join(REPO, "chip_smoke.py")] + MEASURING_SCRIPTS
     for root, _dirs, files in os.walk(PKG):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     offenders = []
@@ -112,6 +116,27 @@ def test_port_sources_name_no_jax_import():
             if s == "import rome_tpu" or "importlib" in s or "__import__" in s:
                 offenders.append((path, s))
     assert not offenders
+
+
+def test_measuring_scripts_import_without_jax():
+    """bench_torch.py and tools/torch/*.py, and chip_smoke.py which imports
+    them, load with jax and the JAX package blocked."""
+    assert len(MEASURING_SCRIPTS) == 4
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['rome_tpu'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"for path in {MEASURING_SCRIPTS + [os.path.join(REPO, 'chip_smoke.py')]!r}:\n"
+        "    runpy.run_path(path, run_name='not_main')\n"
+        "bad = [k for k, v in sys.modules.items() if v is not None and "
+        "(k == 'jax' or k.startswith(('jax.', 'jaxlib', 'rome_tpu.')))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    p = _run(code)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "ok"
 
 
 def test_chip_smoke_fails_without_cuda():
