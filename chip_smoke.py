@@ -55,12 +55,15 @@
    entry points on device "cuda" — g2o load, chordal init, Levenberg-
    Marquardt with the nested-dissection Cholesky (``linear="ndchol"``) and
    the benchmark's ``big`` options — once cold and three times warm, on the
-   default schedule (the speculative-accept loop). Each run must converge,
+   default schedule: the speculative-accept loop, with ``fused_chordal``
+   the chordal stages inside it, as one device program captured by the
+   cold run and replayed. Each run must converge,
    reach an SE(2)-aligned ATE <= 1.0 m against the f64 optimum in
    data/citygrid_gt.npz, and a cost <= 1.002 * optimum + 1e-3; each run
    must launch K1's normal epilogue once per LM iteration plus once at the
-   start, and its lin epilogue never; the four runs take one LM iteration
-   count. Then the script's covariance row (Takahashi at the g2o values,
+   start (counted on the device inside the program; the cold run adds its
+   eager warm-up's launches), and its lin epilogue never; the four runs
+   take one LM iteration count. Then the script's covariance row (Takahashi at the g2o values,
    within 1e-4 of ``splu`` on 32 poses), its K1 rows
    (tools/torch/bench_kernels.py: lin, normal and the plain version at n =
    1e4, 1e5 and 1e6, each no faster than its bound, each with its share of
@@ -299,8 +302,22 @@
 5c. One answer per input (``citygrid_repeat_check``, right after phase 5):
    citygrid from the g2o CITYGRID_REPEATS = 4 more times, warm; over these
    and phase 5's four solves one LM iteration count, one final-cost bit
-   pattern and one chordal start (SHA-256 of its float32 poses), all three
-   printed.
+   pattern and one chordal start (SHA-256 of the program's float64 chordal
+   start), all three printed.
+5d. fused_program (``fused_program_path``): citygrid under ``big`` on phase
+   5's cached solver and its own graph, ``ParametricSolver.solve`` in turns
+   as the captured program and as its eager runner (captured, eager,
+   captured, eager). Gates: every solve under bench.py's gates; the same
+   chordal start, poses and final cost bit for bit and the same LM
+   iterations; K1 normal launches = iterations + 1 in each; a warm captured
+   solve makes exactly one synchronizing call (torch.cuda.set_sync_debug_
+   mode), and torch.profiler sees iterations + 1 K1 normal kernels in it.
+   Printed: seconds per solve, the capture (warm-up, capture, instantiate
+   seconds, graph nodes), the program's device time by phase (CUDA events
+   between its replays) and each mode's busy share, the host launch calls per solve
+   under torch.profiler and the synchronizing calls (also of the cached
+   solver serving another graph object, whose slots it reads to find the
+   connectivity's plan).
 
 23. vision_bundle_ladybug49 (``vision_bundle_path``): a bundle synthesized
    at the counts of BAL's Ladybug problem-49-7776-pre: 49 Pose3 cameras 4 m
@@ -523,7 +540,9 @@ def check(cond, msg):
 
 
 class PhaseTimer:
-    """CUDA-event spans around wrapped functions, summed per label."""
+    """CUDA-event spans around wrapped functions, summed per label. A call
+    made while a device program is captured is not timed (its work runs at
+    the program's replays, which make no Python call)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -535,6 +554,8 @@ class PhaseTimer:
         torch, spans = self.torch, self.spans
 
         def timed(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kwargs)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -794,19 +815,26 @@ def _citygrid_runs(card, gt_file, device):
     fills): every solve, cold and warm, held to bench.py's gates (converged,
     SE(2)-aligned ATE <= 1.0 m, cost <= 1.002 * optimum + 1e-3) and its
     poses finite."""
+    from rome_tpu_torch.utils import device_loop
+
     gt = np.load(gt_file)
     ref_cost = float(gt["final_cost"])
     runs = []
+    since = [len(device_loop.CAPTURES)]
 
     def on_run(label, fg, res):
         st = res["stats"]
+        caps = device_loop.CAPTURES[since[0]:]
+        since[0] = len(device_loop.CAPTURES)
         pts = np.stack([fg.get_point(l) for l in fg.ls(r"^x\d+$")])
         ate, ate_raw = ate_rmse(fg, gt["poses"])
         row = dict(run=label, iterations=st.iterations, converged=st.converged,
                    reason=st.reason, final_cost=st.final_cost, ref_cost=ref_cost,
                    ate_rmse_m=ate, ate_raw_m=ate_raw, solve_time_s=res["solve_time_s"],
                    poses_per_s=pts.shape[0] / res["solve_time_s"],
-                   cg_iters=[h["cg"] for h in st.history])
+                   cg_iters=[h["cg"] for h in st.history],
+                   captures=[c["name"] for c in caps],
+                   warmup_k1_normal=sum(c["warmup_launches"].get("normal", 0) for c in caps))
         runs.append(row)
         check(pts.shape == (len(gt["poses"]), 3) and np.isfinite(pts).all(),
               "poses missing or not finite")
@@ -821,14 +849,18 @@ def _citygrid_runs(card, gt_file, device):
 def _citygrid_launches(card, row, runs, device):
     """K1's launches per run, from the row's ``launches_by_run``: the
     speculative loop launches the normal epilogue once at the start and once
-    per LM iteration at the trial point, the lin epilogue never (a CPU
-    rehearsal takes the plain path and launches nothing). One LM iteration
-    count over the runs. Returns K1's launches summed over them."""
+    per LM iteration at the trial point (counted on the device inside the
+    captured program), plus, in the run that captured the program, its
+    eager warm-up's; the lin epilogue never (a CPU rehearsal takes the plain
+    path and launches nothing). One LM iteration count over the runs.
+    Returns K1's launches summed over them."""
     for r, n in zip(runs, row["launches_by_run"]):
         r["k1_launches"] = {"lin": n["k1_lin"], "normal": n["k1_normal"]}
         print(f"[{card}] citygrid_10k {r['run']}: " + json.dumps(r))
-        check(device != "cuda" or (n["k1_normal"] == r["iterations"] + 1 and n["k1_lin"] == 0),
-              f"{r['run']} run: K1 launches {r['k1_launches']} for {r['iterations']} iterations")
+        check(device != "cuda" or (n["k1_normal"] == r["iterations"] + 1 + r["warmup_k1_normal"]
+                                   and n["k1_lin"] == 0),
+              f"{r['run']} run: K1 launches {r['k1_launches']} for {r['iterations']} iterations "
+              f"(warm-up {r['warmup_k1_normal']})")
     check(len(runs) == len(row["iterations_by_run"]) == 1 + BT.WARM_RUNS,
           f"citygrid: {len(runs)} runs")
     check(len(set(row["iterations_by_run"])) == 1,
@@ -907,30 +939,44 @@ CITYGRID_REPEATS = 4          # warm solves of the repeat check after the citygr
 
 
 class ChordalStarts:
-    """The SHA-256 of every chordal start (the Pose2 values
-    ``init2d.chordal_init_pose2`` returns, as float32 bytes on the host)
-    made in a ``with`` block, in order."""
+    """The SHA-256 of every chordal start made in a ``with`` block, in
+    order: the Pose2 values ``init2d.chordal_init_pose2`` returns (float32
+    bytes on the host), or, where the solve runs the chordal stages inside
+    its program (``fused_chordal``), the program's chordal start after the
+    solve (float64 bytes)."""
 
     def __enter__(self):
         import hashlib
 
         from rome_tpu_torch.solvers import init2d
+        from rome_tpu_torch.solvers.gauss_newton import ParametricSolver
 
-        self.digests, self._real = [], init2d.chordal_init_pose2
-        real, digests = self._real, self.digests
+        self.digests = digests = []
+        self._real = real_init, real_solve = init2d.chordal_init_pose2, ParametricSolver.solve
 
-        def recorded(ga, values):
-            out = real(ga, values)
-            digests.append(hashlib.sha256(out["Pose2"].cpu().numpy().tobytes()).hexdigest())
+        def digest(t):
+            digests.append(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest())
+
+        def recorded(ga, values, **kw):
+            out = real_init(ga, values, **kw)
+            digest(out["Pose2"])
+            return out
+
+        def solve(solver, *args, **kw):
+            out = real_solve(solver, *args, **kw)
+            if solver.fuses_chordal:
+                digest(solver.last_program.chordal_start)
             return out
 
         init2d.chordal_init_pose2 = recorded
+        ParametricSolver.solve = solve
         return self
 
     def __exit__(self, *exc):
         from rome_tpu_torch.solvers import init2d
+        from rome_tpu_torch.solvers.gauss_newton import ParametricSolver
 
-        init2d.chordal_init_pose2 = self._real
+        init2d.chordal_init_pose2, ParametricSolver.solve = self._real
 
 
 def citygrid_repeat_check(card, runs, starts, device="cuda", g2o=CITYGRID, reps=CITYGRID_REPEATS):
@@ -964,6 +1010,187 @@ def citygrid_repeat_check(card, runs, starts, device="cuda", g2o=CITYGRID, reps=
         check(len(out[key]) == 1, f"citygrid repeats: {len(out[key])} distinct {key}: {out[key]}")
     return out
 
+
+# phase 5d, fused_program: the LM program's solves in turns, captured and eager
+FUSED_TURNS = ("captured", "eager", "captured", "eager")
+# the CUDA runtime calls the host makes to launch work, as torch.profiler names them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
+
+
+def _profiled_solve(solver, rt, eager):
+    """One warm ``solver.solve`` under torch.profiler: the host's launch
+    calls by runtime call, the kernels the device ran (K1 normal's among
+    them) and the profiled span. The profiler's kernel times are not used:
+    on this card it lengthens every kernel (its kernel time exceeds the
+    unprofiled solve)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("fused_program_solve"):
+            solver.solve(None, rt, eager=eager)
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = next(e for e in events if e.name == "fused_program_solve").time_range
+    launches = defaultdict(int)
+    for e in events:
+        if e.device_type.name == "CPU" and e.name in HOST_LAUNCH_CALLS:
+            launches[e.name] += 1
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    k1 = sum(1 for e in kernels if "pose2pose2_kernel" in e.name and "Normal" in e.name)
+    return dict(host_launch_calls=dict(launches), host_launches=sum(launches.values()),
+                device_kernels=len(kernels), k1_normal_kernels=k1,
+                profiled_span_ms=(span.end - span.start) / 1e3,
+                profiled_kernel_ms=sum(e.time_range.end - e.time_range.start
+                                       for e in kernels) / 1e3)
+
+
+def _sync_calls(solver, rt, eager):
+    """The synchronizing calls (torch.cuda.set_sync_debug_mode's warnings)
+    one warm ``solver.solve`` makes: (count, the innermost repo frames of
+    each call's Python stack, at most 8)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = []
+
+    def record(message, *_a, **_k):
+        if "synchronizing" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1] if HERE in f.filename]
+            sites.append(" < ".join(f"{os.path.relpath(f.filename, HERE)}:{f.lineno}"
+                                    for f in reversed(frames[-3:])))
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            solver.solve(None, rt, eager=eager)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return len(sites), sites[:8]
+
+
+def _program_device_ms(program, reps=3):
+    """Device milliseconds of each phase of a captured program (CUDA events
+    between its phases' replays, from its current static inputs; the host
+    enqueues the few graph launches in well under their device time, so the
+    device is never starved in between), in the run of ``reps`` whose total
+    is least."""
+    runs = []
+    for _ in range(reps):
+        runs.append(program.run(timed=True))
+        program.read([])  # this run's launch counters, as a solve's read takes them
+    return min(runs, key=sum)
+
+
+def fused_program_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT, turns=FUSED_TURNS):
+    """Phase 5d, fused_program: citygrid under ``big`` on the cached solver
+    phase 5 used and its own graph (its LM program, chordal stages inside,
+    captured by phase 5's cold solve), ``ParametricSolver.solve`` in turns
+    as the captured program and as its eager runner (the plain version: the
+    same bodies, each guard read on the host). Gates: every solve converged
+    under bench.py's gates (ATE <= 1.0 m, cost <= 1.002 x optimum + 1e-3);
+    the captured and the eager solves give the same chordal start, poses
+    and final cost bit for bit and the same LM iterations; each solve's K1
+    normal launches are its iterations + 1 (counted on the device inside
+    the captured program); on the card a warm captured solve makes exactly
+    one synchronizing call (``torch.cuda.set_sync_debug_mode``) and
+    torch.profiler sees its K1 normal kernels, iterations + 1. Reported:
+    seconds per solve, the program's capture (warm-up, capture and
+    instantiate seconds, graph nodes: ``device_loop.CAPTURES``), the
+    program's device time (CUDA events between its replays: the start phase,
+    chordal stages and first linearize, and the LM iterations) and each
+    mode's device busy share (that time over the mode's solve seconds), per mode
+    the host launch calls and device kernels under torch.profiler and the
+    synchronizing calls, and those of the cached solver serving another
+    graph object of the same connectivity (its slots read to the host to
+    find the connectivity's plan, as the JAX package's ``_sym_for_rt``)."""
+    import torch
+
+    from rome_tpu_torch import GNOptions
+    from rome_tpu_torch.graph.lower import lower
+    from rome_tpu_torch.solvers.gauss_newton import ParametricSolver
+    from rome_tpu_torch.solvers.linearize import runtime_state
+    from rome_tpu_torch.utils import device_loop
+
+    gt = np.load(gt_file)
+    ref_cost = float(gt["final_cost"])
+    ga = lower(build_graph(g2o), "parametric", dtype=torch.float32, device=device)
+    solver = ParametricSolver.cached(ga, GNOptions(**BIG))
+    check(solver.fuses_chordal, "citygrid under big: the solver does not fuse the chordal init")
+    solver.solve()  # the solver's own graph: captured now unless phase 5 did
+    rows, outs = [], {}
+    for mode in turns:
+        before = _launches()["k1_normal"]
+        _sync(device)
+        t0 = time.perf_counter()
+        values, st = solver.solve(eager=mode == "eager")
+        _sync(device)
+        dt = time.perf_counter() - t0
+        prog = solver.last_program
+        pts = values["Pose2"].cpu().numpy()
+        ate = ate_values(pts, gt["poses"])
+        row = dict(mode=mode, seconds=dt, iterations=st.iterations, reason=st.reason,
+                   final_cost=st.final_cost, ate_m=ate,
+                   k1_normal=_launches()["k1_normal"] - before)
+        rows.append(row)
+        outs.setdefault(mode, (prog.chordal_start.clone(), values["Pose2"].clone(), st))
+        check(np.isfinite(pts).all() and st.converged, f"fused_program {mode}: {row}")
+        check(ate <= ATE_GATE_M, f"fused_program {mode}: ATE {ate} > {ATE_GATE_M}")
+        check(st.final_cost <= ref_cost * 1.002 + 1e-3,
+              f"fused_program {mode}: cost {st.final_cost} > 1.002 * {ref_cost}")
+        check(device != "cuda" or row["k1_normal"] == st.iterations + 1,
+              f"fused_program {mode}: K1 normal launches {row['k1_normal']} for "
+              f"{st.iterations} iterations")
+        print(f"[{card}] fused_program {mode}: " + json.dumps(row))
+    (sc, vc, stc), (se, ve, ste) = outs["captured"], outs["eager"]
+    same = dict(chordal_start=bool(torch.equal(sc, se)), poses=bool(torch.equal(vc, ve)),
+                final_cost=float(stc.final_cost).hex() == float(ste.final_cost).hex(),
+                iterations=stc.iterations == ste.iterations)
+    print(f"[{card}] fused_program captured vs eager, bit for bit: {json.dumps(same)}; "
+          f"LM iterations {stc.iterations}, final cost {float(stc.final_cost).hex()}")
+    check(all(same.values()), f"fused_program: captured and eager differ: {same}")
+    out = dict(rows=rows, same=same, iterations=stc.iterations,
+               final_cost_hex=float(stc.final_cost).hex())
+    if device != "cuda":
+        return out
+    prog = solver.last_program.program
+    caps = [c for c in device_loop.CAPTURES if c["name"] == prog.name]
+    out["capture"] = caps[0] if caps else None
+    out["phase_device_ms"] = dict(zip(("start", "iterate"), _program_device_ms(prog)))
+    out["device_ms"] = sum(out["phase_device_ms"].values())
+    secs = {m: min(r["seconds"] for r in rows if r["mode"] == m) for m in ("captured", "eager")}
+    out["busy_share"] = {m: out["device_ms"] / 1e3 / secs[m] for m in secs}
+    out["profile"] = {m: _profiled_solve(solver, None, m == "eager") for m in secs}
+    syncs = {m: _sync_calls(solver, None, m == "eager") for m in secs}
+    syncs["captured_other_graph"] = _sync_calls(solver, runtime_state(ga), False)
+    out["sync_calls"] = {m: n for m, (n, _sites) in syncs.items()}
+    out["sync_sites"] = {m: sites for m, (_n, sites) in syncs.items()}
+    print(f"[{card}] fused_program capture: {json.dumps(out['capture'])}; the program's "
+          f"device time {out['device_ms']:.3f} ms (CUDA events; by phase "
+          f"{json.dumps(out['phase_device_ms'])}: the start is the chordal stages and the "
+          f"first linearize), busy share {json.dumps(out['busy_share'])} of the fastest "
+          f"solve of each mode")
+    for m in secs:
+        print(f"[{card}] fused_program {m} warm solve under torch.profiler: "
+              f"{json.dumps(out['profile'][m])}")
+    print(f"[{card}] fused_program synchronizing calls a warm solve: "
+          f"{json.dumps(out['sync_calls'])}; where: {json.dumps(out['sync_sites'])}")
+    check(out["sync_calls"]["captured"] == 1,
+          f"fused_program: a warm captured solve made {out['sync_calls']['captured']} "
+          f"synchronizing calls, not 1")
+    recorded = out["profile"]["captured"]["k1_normal_kernels"]
+    check(recorded == stc.iterations + 1,
+          f"fused_program: the profiler saw {recorded} K1 normal kernels in a captured "
+          f"solve of {stc.iterations} iterations")
+    return out
 
 class CholeskyTimer:
     """CUDA-event spans of the 2-D ``torch.linalg.cholesky_ex`` calls (the
@@ -2123,7 +2350,9 @@ class LinearizeTimer(PhaseTimer):
     """CUDA-event spans of the solver's linearize passes (the generic
     ``vmap(jacfwd)`` linearize of every batch, K1's normal epilogue where a
     Pose2Pose2 batch is served): ``linearize_all_mixed_j`` (ndchol) and
-    ``linearize_all`` (the dense solver)."""
+    ``linearize_all`` (the dense solver). The ndchol LM program's replays
+    make no Python call: its solves time only the eager calls (a cold
+    solve's warm-up), and ``per_call_ms`` is None where none was made."""
 
     def __init__(self, torch, device):
         super().__init__(torch)
@@ -2138,8 +2367,9 @@ class LinearizeTimer(PhaseTimer):
             return None
         _sync(device)
         secs, calls = self.take()
-        return dict(linearize_s=secs.get("linearize", 0.0), calls=calls.get("linearize", 0),
-                    per_iteration_ms=1e3 * secs.get("linearize", 0.0) / max(iterations, 1))
+        n = calls.get("linearize", 0)
+        return dict(linearize_s=secs.get("linearize", 0.0), calls=n, iterations=iterations,
+                    per_call_ms=1e3 * secs.get("linearize", 0.0) / n if n else None)
 
 
 def _solve_timed(fg, opts, device, dtype=None):
@@ -2370,6 +2600,7 @@ def factor_library_rest_path(card, device="cuda", seconds=REST_SECONDS, N=NP_N,
     import torch
 
     import rome_tpu_torch as T
+    from rome_tpu_torch.utils import device_loop
     from rome_tpu_torch.solvers.multimodal import batched as B
 
     out, launches = {}, {}
@@ -2410,11 +2641,15 @@ def factor_library_rest_path(card, device="cuda", seconds=REST_SECONDS, N=NP_N,
 
         def parametric(name, fg, opts, check_fn):
             _reset_launches()
+            since = len(device_loop.CAPTURES)
             res, wall, _peak = _solve_timed(fg, opts, device)
             st = res["stats"]
+            warm = sum(c["warmup_launches"].get("normal", 0)
+                       for c in device_loop.CAPTURES[since:])
             row = dict(iterations=st.iterations, converged=st.converged,
                        solve_time_s=res["solve_time_s"], wall_s=wall, **check_fn(fg),
-                       linearize=timer.per_iteration(device, st.iterations))
+                       linearize=timer.per_iteration(device, st.iterations),
+                       warmup_k1_normal=warm)
             out[name], launches[name] = row, _launches()
             print(f"[{card}] factor_library_rest {name}: " + json.dumps(row))
             check(st.converged, f"{name} did not converge ({st.reason})")
@@ -2468,8 +2703,11 @@ def factor_library_rest_path(card, device="cuda", seconds=REST_SECONDS, N=NP_N,
                         T.GNOptions(**BIG), chain_err)
         check(out["fluxmix_chain"]["max_err"] <= 1e-3, f"fluxmix chain {out['fluxmix_chain']}")
         l = launches["fluxmix_chain"]
-        check(device != "cuda" or (l["k1_normal"] == st.iterations + 1 and l["k1_lin"] == 0),
-              f"fluxmix chain: K1 launches {l}, expected normal = {st.iterations} + 1, no lin")
+        warm = out["fluxmix_chain"]["warmup_k1_normal"]
+        check(device != "cuda" or (l["k1_normal"] == st.iterations + 1 + warm
+                                   and l["k1_lin"] == 0),
+              f"fluxmix chain: K1 launches {l}, expected normal = {st.iterations} + 1 + the "
+              f"program's warm-up {warm}, no lin")
     finally:
         timer.unwrap()
 
@@ -4375,21 +4613,30 @@ def run_examples(card, out_dir, device="cuda", g2o=CITYGRID, poses=10000,
 def periphery_path(card, bundle_phases, bee_keep, device="cuda", out_dir=None,
                    g2o=CITYGRID, gt_file=CITYGRID_GT, examples=True):
     """Phase 25, ``periphery``: a profiler trace of one warm citygrid solve
+    (the captured LM program: the trace must name K1's kernel and the
+    program's phase replays) and one solve of the program's eager runner
     with ``annotate`` around the linearize and the linear solve (the trace,
-    in build/periphery_trace/, must name both and K1's kernel); phase 23's
+    in build/periphery_trace/, must name both: a replay makes no Python
+    call to annotate); phase 23's
     PhaseTimer rows; the citygrid
     solve's plot_slam2d and one beehive belief's plot_kde as PNGs; the
     analysis helpers on phase 6's beehive solve against its parametric
     optimum; every torch example as a subprocess. Returns the result."""
+    import torch
+
     from rome_tpu_torch import GNOptions, solve_graph_parametric
+    from rome_tpu_torch.graph.lower import lower
     from rome_tpu_torch.services import analysis as A
     from rome_tpu_torch.services import plotting
     from rome_tpu_torch.solvers import gauss_newton as GN
+    from rome_tpu_torch.solvers.linearize import runtime_state
     from rome_tpu_torch.utils.profiling import annotate, trace
 
     out_dir = out_dir or os.path.join(HERE, "chiprun_out", "periphery")
     os.makedirs(out_dir, exist_ok=True)
     fg = build_graph(g2o)
+    # the eager runner's solve: another lowering of the same graph
+    ga = lower(fg, "parametric", dtype=torch.float32, device=device)
     wrapped = [(GN, "linearize_all_mixed_j", "lm.linearize"),
                (GN.ParametricSolver, "_linear_solve", "lm.linear_solve")]
     saved = []
@@ -4407,6 +4654,8 @@ def periphery_path(card, bundle_phases, bee_keep, device="cuda", out_dir=None,
         with trace(os.path.join(HERE, "build", "periphery_trace")) as logdir:
             res = solve_graph_parametric(fg, init=False, options=GNOptions(**BIG),
                                          chordal_init=True, device=device)
+            GN.ParametricSolver.cached(ga, GNOptions(**BIG)).solve(None, runtime_state(ga),
+                                                                 eager=True)
     finally:
         for owner, name, fn in saved:
             setattr(owner, name, fn)
@@ -4414,11 +4663,15 @@ def periphery_path(card, bundle_phases, bee_keep, device="cuda", out_dir=None,
     with open(path) as fh:
         names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
     k1_named = any("pose2pose2_kernel" in n for n in names)
+    replays = sorted(n for n in names if n.startswith("lm_ndchol"))
     traced = dict(file=os.path.relpath(path, HERE), bytes=os.path.getsize(path),
                   events=len(names), annotations=sorted(n for n in names if n.startswith("lm.")),
-                  k1_kernel_named=k1_named, iterations=res["stats"].iterations)
+                  program_replays=replays, k1_kernel_named=k1_named,
+                  iterations=res["stats"].iterations)
     print(f"[{card}] periphery trace: " + json.dumps(traced))
     check({"lm.linearize", "lm.linear_solve"} <= names, "the trace lacks the annotations")
+    check(device != "cuda" or any(n.endswith(".iterate") for n in replays),
+          "the trace does not name the LM program's replays")
     check(device != "cuda" or k1_named, "the trace does not name K1's kernel")
     print(f"[{card}] periphery: PhaseTimer rows of phase 23: " + json.dumps(bundle_phases))
     gt = np.load(gt_file)
@@ -4532,10 +4785,12 @@ def kernel_table(k1, k23, k1_launches, np_launches, param_launches, np_by_path, 
 def build_all(card):
     """One nvcc per kernel source, all started together."""
     from rome_tpu_torch.ops import linearize_cuda, nvcc_build, pairwise_cuda
+    from rome_tpu_torch.utils import device_loop
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (linearize_cuda, pairwise_cuda)))
+    mods = (linearize_cuda, pairwise_cuda, device_loop)
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        libs = list(pool.map(lambda m: m.build(), mods))
     build_s = time.time() - t0
     for lib in libs:
         print(f"[{card}] built {os.path.relpath(lib, HERE)}")
@@ -4580,6 +4835,9 @@ def main():
           f"cold {runs[0]['solve_time_s']:.3f} s, warm "
           f"{', '.join(f'{w:.3f}' for w in warm)} s, best {10000 / min(warm):.1f} poses/s, "
           f"{[r['iterations'] for r in runs]} LM iterations, K1 launches {launches}")
+    t0 = time.time()
+    fused = fused_program_path(card)
+    print(f"[{card}] fused_program: {time.time() - t0:.1f} s")
     t0 = time.time()
     params, param_launches = parametric_solvers_path(card)
     print(parametric_summary(card, params, param_launches, time.time() - t0))
@@ -4706,6 +4964,7 @@ def main():
                    "fixedlag_citygrid_3500": fixedlag, "live_slam_checkpoint": live,
                    "wheeled_tracker": tracker, "distributed": dist,
                    "fixed_order": fixed_order, "citygrid_repeats": repeats,
+                   "fused_program": fused,
                    "vision_bundle_ladybug49": bundle,
                    "tcp_citygrid_10k": tcp, "periphery": periphery,
                    "bench_torch": bench, "bench_multimodal": multimodal,

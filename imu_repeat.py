@@ -1,14 +1,16 @@
 """Repeat chip_smoke.py's phase-14 ndchol solve (imu_euroc_mh01, IMU_BIG) and
 phase 5's citygrid ndchol solve (BIG) on the card and print each solve: LM
 iterations, reason, final cost (repr), wall seconds, the LM loop's seconds
-(``ParametricSolver.solve`` between two syncs, the chordal init apart) and
+(``ParametricSolver.solve`` between two syncs: under BIG's fused_chordal
+the citygrid chordal stages are inside it, as the program runs them) and
 ms per LM iteration; for the IMU solves also the accepted (a) / rejected (r)
 steps and each step's CG polish iterations. IMU_SOLVES in PyTorch's default
 mode, then DET_SOLVES under ``torch.use_deterministic_algorithms(True)``,
 then CITY_SOLVES citygrid solves, each with its own chordal initialization
 (its SHA-256 printed), then CITY_LM_SOLVES LM solves of citygrid from one
-chordal start computed once (``chordal_init=False`` from that start: the LM
-stage alone); all share one graph and the structure cache, as the smoke
+chordal start computed once (``chordal_init=False`` and BIG less
+``fused_chordal`` from that start: the LM stage alone); all share one graph
+and the structure cache, as the smoke
 run's warm solves do. Then CHORDAL_REPS chordal stages on citygrid's
 lowered graph, each timed alone with CUDA events (after one untimed call),
 and the CUDA kernels one of them launches (torch.profiler). Then the
@@ -31,7 +33,6 @@ LM iteration; the chordal stage's ms and kernels; the fixed-lag summary.
 Run it from the root of a checkout: it reads that checkout's chip_smoke.py
 and package (a copy of this file in an older checkout times that one).
 """
-import contextlib
 import copy
 import json
 import os
@@ -87,7 +88,8 @@ def main():
                   f"{rows[mode][-1]['ms_per_iter']:.2f} ms per iteration; steps {steps}; "
                   f"CG {[r['cg'] for r in h]}", flush=True)
         torch.use_deterministic_algorithms(False)
-        with chordal_starts() as starts:
+        with cs.ChordalStarts() as recorded:
+            starts = recorded.digests
             for _ in range(city):
                 fg = cs.build_graph(cs.CITYGRID)
                 res, wall, _peak = cs._solve_timed(fg, rome_tpu_torch.GNOptions(**cs.BIG),
@@ -111,8 +113,8 @@ def main():
         for _ in range(city_lm):
             fg = copy.deepcopy(start)
             res = rome_tpu_torch.solve_graph_parametric(
-                fg, init=False, options=rome_tpu_torch.GNOptions(**cs.BIG), chordal_init=False,
-                device="cuda")
+                fg, init=False, options=rome_tpu_torch.GNOptions(**dict(cs.BIG, fused_chordal=False)),
+                chordal_init=False, device="cuda")
             st = res["stats"]
             rows["citygrid_lm_one_start"].append(dict(
                 iterations=st.iterations, cost=st.final_cost, wall_s=res["solve_time_s"],
@@ -145,28 +147,6 @@ def main():
         summary["fixedlag"] = fixedlag(card, fixedlag_poses)
     print(card)
     print(json.dumps({"checkout": os.getcwd(), "summary": summary}))
-
-
-@contextlib.contextmanager
-def chordal_starts():
-    """The SHA-256 of every chordal start made in the block (the Pose2
-    values ``init2d.chordal_init_pose2`` returns), in order."""
-    import hashlib
-
-    from rome_tpu_torch.solvers import init2d
-
-    real, digests = init2d.chordal_init_pose2, []
-
-    def recorded(ga, values):
-        out = real(ga, values)
-        digests.append(hashlib.sha256(out["Pose2"].cpu().numpy().tobytes()).hexdigest())
-        return out
-
-    init2d.chordal_init_pose2 = recorded
-    try:
-        yield digests
-    finally:
-        init2d.chordal_init_pose2 = real
 
 
 def chordal_stage(card, reps):

@@ -14,7 +14,10 @@ kernel body, two epilogues:
   solver's entry vector) and its float64 Jᵀr contributions.
 
 The library is compiled with ``nvcc`` at first use (``ops/nvcc_build.py``),
-loaded with ``ctypes`` and launched on PyTorch's current stream.
+loaded with ``ctypes`` and launched on PyTorch's current stream, which during
+a device program's capture (``utils/device_loop``) is the stream of the
+graph node the launch becomes: the ndchol LM program replays the normal
+epilogue once per LM iteration with no Python call.
 
 Dispatch is by the device of the tensors given: a CUDA tensor always goes to
 the kernel (a missing ``nvcc``, a failed build or a refused launch raises;
@@ -29,6 +32,7 @@ import ctypes
 import torch
 
 from rome_tpu_torch.ops import nvcc_build
+from rome_tpu_torch.utils import device_loop
 from rome_tpu_torch.ops.fused_linearize import (
     pose2pose2_linearize_plain,
     pose2pose2_normal_plain,
@@ -45,8 +49,8 @@ _FUNCTIONS = {
 # (36 entry values a factor) below 2**31 as well
 _MAX_N = (2**31 - 1) // 36
 
-# Kernel launches made by these wrappers, per epilogue (reset by callers
-# that count them).
+# Kernel launches made by these wrappers, per epilogue, counted on the device
+# inside a captured program (reset by callers that count them).
 LAUNCHES = {"lin": 0, "normal": 0}
 
 _lib = None
@@ -69,7 +73,10 @@ def _launch(name, fn, device, *args):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"Pose2Pose2 {name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    # inside a captured device program the launch is a graph node: its
+    # count is a device counter beside it, added to LAUNCHES at the
+    # program's final read
+    device_loop.count(LAUNCHES, name)
 
 
 def _check(p, q, z, S, w):

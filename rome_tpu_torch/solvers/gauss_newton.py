@@ -1,16 +1,29 @@
 """Batched Levenberg-Marquardt over factor batches (counterpart of
 ``rome_tpu/solvers/gauss_newton.py``).
 
-PyTorch runs eagerly, so each LM loop is a Python loop that makes the accept
-and Marquardt decisions on the host from one transfer of an iteration's
-scalars. Two loops, as in the JAX package:
-  - ``ParametricSolver.solve_host``: one LM step per iteration, the trial
-    cost from a separate residual pass (``cost_at``);
+Two loops, as in the JAX package, both with the accept, Marquardt and
+convergence decisions computed on the device (``_lm_update``, the JAX loop's
+``where`` chains) from the loop state in device tensors (``_LMState``):
   - ``ParametricSolver.solve``: for ``linear="ndchol"`` with
     ``GNOptions.speculative`` (the default), the speculative-accept loop,
     which linearizes at the trial point: its residuals are the trial cost,
-    and an accepted step hands its linearization to the next iteration. For
-    every other solver ``solve`` is ``solve_host``.
+    and an accepted step copies its linearization into the carried one. It
+    is one device program per connectivity (``_LMProgram``,
+    ``utils/device_loop``), as the JAX package's ``schedule="fused"`` solve
+    is one jitted program: a start phase (with ``GNOptions.fused_chordal``
+    the chordal stages, then the first linearize) and one LM iteration
+    guarded by "it < max_iters and no convergence code", its CG polish a
+    bounded loop of guarded iterations. On the card it is captured once as
+    CUDA graphs and replayed ``max_iters`` times with no host read until the
+    one final read (iterations, code, cost, gradient norm, history); on the
+    CPU the same body runs eagerly, reading each guard on the host.
+  - ``ParametricSolver.solve_host``: one LM step per iteration, the trial
+    cost from a separate residual pass (``cost_at``), one read of the
+    decisions per iteration. ``solve`` is ``solve_host`` for every other
+    linear solver and with ``speculative=False``.
+Not yet in the program (the host loop, eager on the card too):
+``linear != "ndchol"``, ``precond_reuse`` (the speculative loop with a
+reused factorization), ``speculative=False`` and ``schedule="host"``.
 
 Linear solvers (``GNOptions.linear``):
   - ``dense``: f64 normal equations, Jacobi scaling, f32 Cholesky, two
@@ -52,6 +65,7 @@ from rome_tpu_torch.graph.lower import GraphArrays
 from rome_tpu_torch.solvers.linearize import (
     DenseScatter,
     NormalEqWorkspace,
+    NormalParts,
     block_diag_from_lins,
     cost_at,
     dense_normal_eqs,
@@ -68,6 +82,7 @@ from rome_tpu_torch.solvers.linearize import (
     TangentScatter,
     unflatten_tangent,
 )
+from rome_tpu_torch.utils.device_loop import EAGER, Program
 from rome_tpu_torch.utils.math import einsum
 
 F32, F64 = torch.float32, torch.float64
@@ -91,6 +106,37 @@ def _nan_if_failed(L, info):
     if bool((info != 0).any()):
         L.fill_(math.nan)
     return L
+
+
+def guarded_cg(run, minv, apply, b, tol, iters):
+    """Preconditioned CG on ``apply`` x = ``b`` (flat vectors) from x = 0: a
+    bounded loop of ``iters`` guarded iterations while |r| > tol |b|
+    (``run``'s control flow, ``utils/device_loop``), the JAX package's
+    ``cg_polish`` while_loop. Returns (x, residual, iterations as a 0-dim
+    int64 tensor)."""
+    bn = torch.linalg.norm(b) + 1e-300
+    x = torch.zeros_like(b)
+    r = b.clone()
+    p = torch.zeros_like(b)
+    rz = torch.zeros((), dtype=b.dtype, device=b.device)
+    k = torch.zeros((), dtype=torch.int64, device=b.device)
+    live = torch.linalg.norm(r) > tol * bn
+
+    def body():
+        z = minv(r)
+        rz2 = torch.dot(r, z)
+        beta = torch.where(k == 0, 0.0, rz2 / _safe(rz))
+        p.copy_(z + beta * p)
+        Ap = apply(p)
+        alpha = rz2 / _safe(torch.dot(p, Ap))
+        x.copy_(x + alpha * p)
+        r.copy_(r - alpha * Ap)
+        rz.copy_(rz2)
+        k.add_(1)
+        live.copy_(torch.linalg.norm(r) > tol * bn)
+
+    run.loop(iters, live, body)
+    return x, r, k
 
 
 def pcg(hvp, b, precond, tol, maxiter):
@@ -126,8 +172,11 @@ class GNOptions:
     ``ftol=None`` -> dtype-aware: 1e-10 when values are carried in f64,
     3e-7 when they are f32. ``dtol_auto`` reads ``dtol`` as a per-dof RMS
     threshold in units of the median odometry edge length.
-    ``fused_chordal`` is accepted so the JAX package's option sets apply
-    unchanged; the chordal init always runs as its own stage before LM.
+    ``fused_chordal``: the chordal init of a Pose2 graph with odometry runs
+    inside the ``solve`` program, before its first linearize (the JAX
+    package's fused_chordal, its output in the working dtype); without it,
+    and where ``solve`` is not a program, ``solve_graph_parametric`` runs
+    ``chordal_init_pose2`` first.
     ``speculative``: the ndchol speculative-accept loop in ``solve``.
     ``precond_reuse``: ndchol reuses its factorization until a CG runs to
     ``precond_cg_cap`` iterations (or a step is rejected in the speculative
@@ -284,16 +333,21 @@ class ParametricSolver:
         )
         # cost accumulation dtype: always f64; the damping in the graph dtype
         self._cdt = F64
-        self._lam_type = np.float32 if ga.dtype == F32 else np.float64
         self._mixed_j = linear == "ndchol" and opts.mixed_jacobians and self._use64
         self._speculative = linear == "ndchol" and opts.speculative
-        # the mixed path's entry vector and K1 normal-epilogue plans, reused by
-        # every iteration; the speculative loop keeps a second set for the
-        # trial point (the current point's linearization must survive it)
+        # the mixed path's entry vector and K1 normal-epilogue plans of the
+        # host loops, reused by every iteration; the host speculative loop
+        # (precond_reuse) keeps a second set for the trial point (the current
+        # point's linearization must survive it)
         self._ws = NormalEqWorkspace(self._gaW) if self._mixed_j else None
         self._ws_trial = (
             NormalEqWorkspace(self._gaW) if self._mixed_j and self._speculative else None
         )
+        # the speculative loop as a device program (_LMProgram), one per
+        # connectivity (ndchol plan), as the JAX package's _programs_for
+        self._program_path = self._speculative and not opts.precond_reuse
+        self._programs = {}
+        self.last_program = None
 
     @classmethod
     def cached(cls, ga: GraphArrays, opts: GNOptions = None):
@@ -381,27 +435,11 @@ class ParametricSolver:
             out[t] = man.normalize(man.boxplus(values[t], d))
         return out
 
-    def _cg_polish(self, minv, hD, b, tol):
+    def _cg_polish(self, minv, hD, b, tol, run=EAGER):
         """CG on the true damped system, preconditioned by the fresh f32
-        factorization. Returns (x, residual, iterations)."""
-        bn = float(torch.linalg.norm(b)) + 1e-300
-        x = torch.zeros_like(b)
-        r = b
-        p = torch.zeros_like(b)
-        rz = torch.zeros((), dtype=b.dtype, device=b.device)
-        k = 0
-        while k < self.opts.polish_iters and float(torch.linalg.norm(r)) > tol * bn:
-            z = minv(r)
-            rz2 = torch.dot(r, z)
-            beta = rz2 / _safe(rz) if k else torch.zeros_like(rz2)
-            p = z + beta * p
-            Ap = hD(p)
-            alpha = rz2 / _safe(torch.dot(p, Ap))
-            x = x + alpha * p
-            r = r - alpha * Ap
-            rz = rz2
-            k += 1
-        return x, r, k
+        factorization (:func:`guarded_cg`, ``polish_iters`` iterations at
+        most). Returns (x, residual, iterations as a 0-dim int64 tensor)."""
+        return guarded_cg(run, minv, hD, b, tol, self.opts.polish_iters)
 
     def _polish_result(self, gaW, g, x, r, k, tol):
         """(delta, g, exact, extras) of a CG polish: ``exact`` is the residual
@@ -412,13 +450,15 @@ class ParametricSolver:
         pred = 0.5 * (torch.dot(b, x) + torch.dot(x, r))
         return unflatten_tangent(gaW, x), g, exact, {"pred": pred, "cg_iters": k}
 
-    def _linear_solve(self, lins, lam, rt, parts, pstate):
-        """(delta, g, exact, extras) of this solver's linear solve; extras may
-        carry "pred", "cg_iters" and the next "pstate"."""
-        return getattr(self, f"_solve_{self.linear}")(lins, lam, rt, parts, pstate)
+    def _linear_solve(self, lins, lam, rt, parts, pstate, run=EAGER):
+        """(delta, g, exact, extras) of this solver's linear solve at the
+        damping ``lam`` (a 0-dim tensor of the graph dtype); extras may
+        carry "pred", "cg_iters" and the next "pstate". ``run``: the control
+        flow of the CG polish (dense32, ndchol)."""
+        return getattr(self, f"_solve_{self.linear}")(lins, lam, rt, parts, pstate, run=run)
 
     # -- linear solvers ---------------------------------------------------------
-    def _solve_dense(self, lins, lam, rt, parts=None, pstate=None):
+    def _solve_dense(self, lins, lam, rt, parts=None, pstate=None, run=EAGER):
         """f64 assembly, Jacobi scaling, f32 Cholesky, safeguarded f64
         iterative refinement."""
         ga, opts = self.ga, self.opts
@@ -426,7 +466,7 @@ class ParametricSolver:
         hdt = F64 if use64 else ga.dtype
         H, g = dense_normal_eqs(ga, lins, dtype=hdt, rt=rt)
         diag = torch.clamp(torch.diagonal(H), min=1e-8)
-        Hd = H + torch.tensor(lam, dtype=ga.dtype, device=ga.device).to(hdt) * torch.diag(diag)
+        Hd = H + lam.to(hdt) * torch.diag(diag)
         d = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(Hd), min=1e-12))
         Hs = Hd * d[:, None] * d[None, :]
         bs = -g * d
@@ -452,7 +492,7 @@ class ParametricSolver:
         x = ((y * d) * free_vector(ga, rt).to(hdt)).to(ga.dtype)
         return unflatten_tangent(ga, x), g.to(ga.dtype), True, {}
 
-    def _solve_dense32(self, lins, lam, rt, parts=None, pstate=None):
+    def _solve_dense32(self, lins, lam, rt, parts=None, pstate=None, run=EAGER):
         """f32 dense normal equations with Jacobi scaling and ``chol_jitter``,
         ONE f32 Cholesky as the preconditioner of a short CG on the true
         damped system with the matrix-free Hvp in the working dtype. H is
@@ -460,7 +500,7 @@ class ParametricSolver:
         buffers."""
         gaW, opts = self._gaW, self.opts
         wdt = gaW.dtype
-        lam32 = torch.tensor(lam, dtype=F32, device=gaW.device)
+        lam32 = lam.to(F32)
         H, _g32 = dense_normal_eqs(gaW, lins, dtype=F32, rt=rt)
         diag = torch.clamp(torch.diagonal(H), min=1e-8)
         H.diagonal().add_(lam32 * diag)                 # Hd
@@ -482,10 +522,10 @@ class ParametricSolver:
             out = hvp_from_lins(gaW, lins, unflatten_tangent(gaW, x), rt)
             return (flatten_tangent(gaW, out) + lamW * diagW * x) * fvec
 
-        x, r, k = self._cg_polish(minv, hD, -flatten_tangent(gaW, g), tol=opts.polish_tol)
+        x, r, k = self._cg_polish(minv, hD, -flatten_tangent(gaW, g), opts.polish_tol, run)
         return self._polish_result(gaW, g, x, r, k, opts.polish_tol)
 
-    def _solve_ndchol(self, lins, lam, rt, parts=None, pstate=None):
+    def _solve_ndchol(self, lins, lam, rt, parts=None, pstate=None, run=EAGER):
         """ND multifrontal f32 Cholesky preconditioning a short matrix-free
         CG on the true damped system (f64 RHS, Hvp as gated below). ``parts``
         carries the entry values and Jᵀr contributions of the batches the
@@ -501,7 +541,7 @@ class ParametricSolver:
         jitter, ptol = opts.chol_jitter, opts.polish_tol
         vals = normal_eq_entry_values(gaW, lins, dtype=F32, parts=parts)
         fvec32 = free_vector(gaW, rt).to(F32)
-        lam32 = torch.tensor(lam, dtype=F32, device=ga.device)
+        lam32 = lam.to(F32)
         # the free mask is 0/1, so it applies after the sum exactly
         diag_H = nd["sum_diag"].add_(torch.zeros(sym.D, dtype=F32, device=ga.device),
                                      vals) * fvec32
@@ -542,7 +582,7 @@ class ParametricSolver:
                 out = hvp_from_lins(gaW, lins, unflatten_tangent(gaW, x), rt)
                 return (flatten_tangent(gaW, out) + lamW * diagW * x) * fvecW
 
-        x, r, k = self._cg_polish(minv, hD, -flatten_tangent(gaW, g), tol=ptol)
+        x, r, k = self._cg_polish(minv, hD, -flatten_tangent(gaW, g), ptol, run)
         out = self._polish_result(gaW, g, x, r, k, ptol)
         if opts.precond_reuse:
             # refresh signal: the CG needed enough iterations that the reused
@@ -551,26 +591,25 @@ class ParametricSolver:
                                 "stale": k >= opts.precond_cg_cap}
         return out
 
-    def _solve_pcg(self, lins, lam, rt, parts=None, pstate=None):
+    def _solve_pcg(self, lins, lam, rt, parts=None, pstate=None, run=EAGER):
         """Block-Jacobi preconditioned CG on the matrix-free damped Hvp, in
         the graph dtype."""
         ga, opts = self.ga, self.opts
         free = rt["free"]
         gvec = gradient_from_lins(ga, lins, rt)
         D = block_diag_from_lins(ga, lins, rt)
-        lamt = torch.tensor(lam, dtype=ga.dtype, device=ga.device)
         dd, Pinv = {}, {}
         for t in ga.type_names:
             eye = torch.eye(ga.manifolds[t].dof, dtype=ga.dtype, device=ga.device)
             # Marquardt damping on the diagonal of JᵀJ
             dd[t] = torch.clamp(torch.diagonal(D[t], dim1=-2, dim2=-1), min=1e-8)
-            blk = D[t] + lamt * dd[t][..., None] * eye + 1e-8 * eye
+            blk = D[t] + lam * dd[t][..., None] * eye + 1e-8 * eye
             fmask = free[t][:, None, None]
             Pinv[t] = torch.linalg.inv_ex(blk * fmask + eye * (1.0 - fmask))[0]
 
         def hvp(v):
             out = hvp_from_lins(ga, lins, v, rt)
-            return {t: (out[t] + lamt * dd[t] * v[t]) * free[t][:, None] for t in out}
+            return {t: (out[t] + lam * dd[t] * v[t]) * free[t][:, None] for t in out}
 
         def precond(r):
             return {t: einsum("nij,nj->ni", Pinv[t], r[t]) * free[t][:, None] for t in r}
@@ -595,15 +634,14 @@ class ParametricSolver:
         del H
         return _row_blocked_tri_inv(L), dvec
 
-    def _solve_mixed(self, lins, lam, rt, parts=None, pstate=None):
+    def _solve_mixed(self, lins, lam, rt, parts=None, pstate=None, run=EAGER):
         """Exact f64 Gauss-Newton steps: an f64 matrix-free CG on the true
         damped system, preconditioned by an explicit f32 inverse that is
         refreshed lazily: only when the previous CG missed its tolerance
         (``stale``)."""
         ga, ga64, opts = self.ga, self._ga64, self.opts
-        lamt = torch.tensor(lam, dtype=ga.dtype, device=ga.device)
         if (pstate or {}).get("stale", True):
-            Linv, dvec = self._mixed_refresh(lins, lamt, rt)
+            Linv, dvec = self._mixed_refresh(lins, lam, rt)
         else:
             Linv, dvec = pstate["Linv"], pstate["dvec"]
         fvec = free_vector(ga, rt).to(F64)
@@ -618,7 +656,7 @@ class ParametricSolver:
         rt64 = _cast_floats(rt, ga.dtype, F64)
         g64 = gradient_from_lins(ga64, lins64, rt64)
         D64 = block_diag_from_lins(ga64, lins64, rt64)
-        lam64 = lamt.to(F64)
+        lam64 = lam.to(F64)
         dd = {t: torch.clamp(torch.diagonal(D64[t], dim1=-2, dim2=-1), min=1e-8) for t in D64}
 
         def hvp(v):
@@ -633,13 +671,10 @@ class ParametricSolver:
                 cg_ok, extras)
 
     # -- one LM step (the host-scheduled loop) ------------------------------------
-    def step(self, values, lam, rt, pstate=None):
-        """One LM iteration at ``values`` with damping ``lam`` (a numpy scalar
-        of the graph dtype).
-        ``pstate`` (a lazy-preconditioner state dict) is updated in place.
-
-        Returns (trial values, cost0, cost1, gnorm, dnorm, exact, pred,
-        cg_iters) with the scalars as host floats."""
+    def _step_tensors(self, values, lam, rt, pstate=None):
+        """One LM iteration at ``values`` with damping ``lam`` (a 0-dim
+        tensor): (trial values, cost0, cost1, gnorm, dnorm, exact, pred,
+        cg_iters) as device tensors. ``pstate`` is updated in place."""
         gaW = self._gaW
         lins, parts = self._linearize(values, rt)
         cost0 = self._sumsq(lins)
@@ -656,51 +691,92 @@ class ParametricSolver:
         else:
             Hd = hvp_from_lins(gaW, lins, delta, rt)
             pred = (-(_tdot(gvec, delta) + 0.5 * _tdot(delta, Hd))).to(self._cdt)
-        exact_t = torch.as_tensor(exact, device=pred.device).to(self._cdt)
-        # ONE device-to-host transfer for every scalar the host loop needs
-        c0, c1, gn, dn, pr, ex = torch.stack([
-            cost0.to(self._cdt), cost1, gnorm.to(self._cdt), dnorm.to(self._cdt),
-            pred, exact_t,
-        ]).tolist()
-        return trial, c0, c1, gn, dn, bool(ex), pr, int(extras.get("cg_iters", 0))
+        exact = torch.as_tensor(exact, device=pred.device)
+        cg = extras.get("cg_iters", torch.zeros((), dtype=torch.int64, device=pred.device))
+        return (trial, cost0.to(self._cdt), cost1, gnorm.to(self._cdt), dnorm.to(self._cdt),
+                exact, pred, cg)
 
-    def _marquardt(self, lam, okb, rho):
-        """The damping after a step, in the graph dtype as the JAX package's
-        lam."""
-        opts, lt = self.opts, self._lam_type
-        if not okb or rho < 0.25:
-            return np.minimum(lam * lt(opts.lam_up), lt(opts.lam_max))
-        if rho > 0.7:
-            return np.maximum(lam * lt(opts.lam_down), lt(opts.lam_min))
-        return lam
+    def step(self, values, lam, rt, pstate=None):
+        """One LM iteration at ``values`` with damping ``lam`` (a scalar).
+        ``pstate`` (a lazy-preconditioner state dict) is updated in place.
 
-    def _accepted_code(self, gn, dn, exact, cost_prev, c1, lam, lam0):
+        Returns (trial values, cost0, cost1, gnorm, dnorm, exact, pred,
+        cg_iters) with the scalars as host numbers."""
+        lam = torch.as_tensor(lam, dtype=self.ga.dtype, device=self.ga.device)
+        trial, *scalars = self._step_tensors(values, lam, rt, pstate)
+        # ONE device-to-host transfer for every scalar
+        c0, c1, gn, dn, ex, pr, cg = torch.stack([t.to(self._cdt) for t in scalars]).tolist()
+        return trial, c0, c1, gn, dn, bool(ex), pr, int(cg)
+
+    # -- the LM decisions, on the device ------------------------------------------
+    def _marquardt(self, lam, ok, rho):
+        """The damping after a step, in lam's dtype (the graph dtype) as the
+        JAX package's."""
+        o = self.opts
+        grow = torch.clamp(lam * o.lam_up, max=o.lam_max)
+        shrink = torch.clamp(lam * o.lam_down, min=o.lam_min)
+        return torch.where(~ok | (rho < 0.25), grow, torch.where(rho > 0.7, shrink, lam))
+
+    def _accepted_code(self, gn, dn, exact, cost_prev, c1, lam):
         """Convergence code of an accepted step (0: go on). ftol/xtol only
-        trust an exact (non-truncated) solve; dtol needs lam <= ``lam0``."""
-        opts = self.opts
-        if gn < opts.gtol:
-            return 1
-        if exact and dn < opts.xtol:
-            return 2
-        if exact and math.isfinite(cost_prev) and abs(cost_prev - c1) <= (
-                self._ftol * max(1.0, abs(cost_prev))):
-            return 3
-        if self._dtol > 0 and dn < self._dtol and float(lam) <= lam0:
-            return 6
-        return 0
+        trust an exact (non-truncated) solve; dtol needs lam <= ``lam0``
+        (compared in lam's dtype)."""
+        o = self.opts
+        ftol_hit = torch.abs(cost_prev - c1) <= (
+            self._ftol * torch.clamp(torch.abs(cost_prev), min=1.0))
+        dtol_hit = ((dn < self._dtol) & (lam <= o.lam0) if self._dtol > 0
+                    else torch.zeros_like(dn, dtype=torch.bool))
+        return torch.where(gn < o.gtol, 1, torch.where(
+            exact & (dn < o.xtol), 2, torch.where(
+                exact & torch.isfinite(cost_prev) & ftol_hit, 3, torch.where(dtol_hit, 6, 0))))
 
     def _rejected_code(self, dn, n_rej, lam, step_floor):
-        if dn < step_floor:
-            return 4
-        if n_rej >= 8 or float(lam) >= self.opts.lam_max:
-            return 5
-        return 0
+        return torch.where(dn < step_floor, 4, torch.where(
+            (n_rej >= 8) | (lam >= self.opts.lam_max), 5, 0))
 
-    def _stats(self, hist, code, n_rej, gnorm, final_cost):
-        converged = code in (1, 2, 3, 4, 6) or (code == 5 and n_rej >= 8 and len(hist) > 3)
+    def _lm_update(self, st, c1, gn, dn, exact, pred, cg, step_floor):
+        """One LM iteration's decisions on the device, from the trial cost
+        ``c1``, the gradient and step norms, the solve's exactness, the
+        model reduction ``pred`` and its CG iterations: the history row at
+        ``st.it``, then ``st`` advanced in place (the JAX loop's body).
+        Returns ``ok``, the accept decision (a 0-dim bool tensor)."""
+        cost0 = st.cost0
+        ok = torch.isfinite(c1) & (c1 < cost0)
+        rho = (cost0 - c1) / torch.where(pred > 1e-30, pred, 1e-30)
+        lam = self._marquardt(st.lam, ok, rho)
+        n_rej = torch.where(ok, 0, st.n_rej + 1)
+        code = torch.where(ok, self._accepted_code(gn, dn, exact, st.cost_prev, c1, lam),
+                           self._rejected_code(dn, n_rej, lam, step_floor))
+        row = torch.stack([cost0, c1, gn, dn, ok.to(F64), lam.to(F64), cg.to(F64)])
+        st.hist.index_copy_(0, st.it.reshape(1), row.reshape(1, 7))
+        st.cost_prev.copy_(torch.where(ok, c1, st.cost_prev))
+        st.cost0.copy_(torch.where(ok, c1, cost0))
+        st.lam.copy_(lam)
+        st.n_rej.copy_(n_rej)
+        st.code.copy_(code)
+        st.gnorm.copy_(gn)
+        st.it.add_(1)
+        st.running.copy_((st.it < self.opts.max_iters) & (st.code == 0))
+        return ok
+
+    def _stats(self, host, final_cost=None):
+        """SolveStats from ``_LMState.read_list``'s values read to the host
+        (``final_cost``: the solve's own, else the carried cost)."""
+        it, code, n_rej = (int(v) for v in host[:3])
+        gnorm, cost0 = float(host[3]), float(host[4])
+        rows = np.asarray(host[5:]).reshape(-1, 7)[:it]
+        hist = [dict(iter=k, cost0=float(h[0]), cost1=float(h[1]), gnorm=float(h[2]),
+                     dnorm=float(h[3]), accepted=bool(h[4] > 0.5), lam=float(h[5]), cg=int(h[6]))
+                for k, h in enumerate(rows)]
+        if self.opts.verbose:
+            for h in hist:
+                print(f"  LM it={h['iter']} cost={h['cost0']:.6g}->{h['cost1']:.6g} "
+                      f"|g|={h['gnorm']:.3g} |dx|={h['dnorm']:.3g} ok={h['accepted']} "
+                      f"lam={h['lam']:.1e} cg={h['cg']}")
+        converged = code in (1, 2, 3, 4, 6) or (code == 5 and n_rej >= 8 and it > 3)
         return SolveStats(
-            iterations=len(hist),
-            final_cost=final_cost,
+            iterations=it,
+            final_cost=cost0 if final_cost is None else float(final_cost),
             gnorm=gnorm,
             converged=bool(converged),
             history=hist,
@@ -708,111 +784,266 @@ class ParametricSolver:
             reason=self._REASONS.get(code, "max_iters"),
         )
 
-    def _record(self, hist, it, c0, c1, gn, dn, okb, lam, cg_k):
-        hist.append(dict(iter=it, cost0=c0, cost1=c1, gnorm=gn, dnorm=dn,
-                         accepted=okb, lam=float(lam), cg=cg_k))
-        if self.opts.verbose:
-            print(f"  LM it={it} cost={c0:.6g}->{c1:.6g} |g|={gn:.3g} "
-                  f"|dx|={dn:.3g} ok={okb} lam={float(lam):.1e} cg={cg_k}")
-
     # -- the LM loops -----------------------------------------------------------------
     def solve_host(self, values=None, rt=None):
         """LM with one step per iteration and the trial cost from a separate
-        residual pass (the JAX package's ``solve_host``). ``rt`` is the
-        graph's runtime_state (this solver's own by default)."""
-        ga, opts = self.ga, self.opts
+        residual pass (the JAX package's ``solve_host``); one read of the
+        device's decisions per iteration. ``rt`` is the graph's
+        runtime_state (this solver's own by default)."""
+        ga = self.ga
         values, rt = self._start(values, rt)
-        lam = self._lam_type(opts.lam0)
+        st = _LMState(self)
         step_floor = 1e-4 if ga.dtype == F32 else 1e-9
-        hist = []
-        cost_prev = math.inf
-        n_rej = 0
-        code = 0
-        gnorm = math.nan
         pstate = self._pstate0()
-        for it in range(int(opts.max_iters)):
-            trial, c0, c1, gn, dn, exact, pred, cg_k = self.step(values, lam, rt, pstate)
-            rho = (c0 - c1) / (pred if pred > 1e-30 else 1e-30)
-            okb = math.isfinite(c1) and c1 < c0
-            lam = self._marquardt(lam, okb, rho)
-            gnorm = gn
-            self._record(hist, it, c0, c1, gn, dn, okb, lam, cg_k)
+        for _ in range(int(self.opts.max_iters)):
+            trial, c0, c1, gn, dn, exact, pred, cg = self._step_tensors(values, st.lam, rt, pstate)
+            st.cost0.copy_(c0)
+            ok = self._lm_update(st, c1, gn, dn, exact, pred, cg, step_floor)
+            okb, running = torch.stack([ok, st.running]).tolist()
             if okb:
                 values = trial
-                code = self._accepted_code(gn, dn, exact, cost_prev, c1, lam, opts.lam0)
-                cost_prev = c1
-                n_rej = 0
-            else:
-                n_rej += 1
-                code = self._rejected_code(dn, n_rej, lam, step_floor)
-            if code:
+            if not running:
                 break
         # final cost accumulated in the graph dtype, as the JAX package's
-        final_cost = float(cost_at(ga, values, rt))
-        return values, self._stats(hist, code, n_rej, gnorm, final_cost)
+        host = _read(st.read_list() + [cost_at(ga, values, rt)])
+        return values, self._stats(host[:-1], final_cost=host[-1])
 
-    def solve(self, values=None, rt=None):
-        """The LM solve: the speculative-accept loop for ndchol with
-        ``speculative``, else :meth:`solve_host`. ``rt`` is the graph's
-        runtime_state; pass the CURRENT graph's when this solver came from
-        :meth:`cached`."""
+    @property
+    def fuses_chordal(self):
+        """Whether :meth:`solve` runs the chordal init itself: the program
+        with ``fused_chordal`` on a Pose2 graph with odometry batches."""
+        return (self._program_path and self.opts.fused_chordal and "Pose2" in self.ga.counts
+                and any(b.ftype.name in _ODO_BATCHES for b in self.ga.batches))
+
+    def solve(self, values=None, rt=None, eager=False):
+        """The LM solve: for ndchol with ``speculative`` the speculative-
+        accept loop (the device program; with ``precond_reuse`` its host
+        loop), else :meth:`solve_host`. ``rt`` is the graph's runtime_state;
+        pass the CURRENT graph's when this solver came from :meth:`cached`.
+        ``eager`` runs the program's plain version (each guard read on the
+        host) instead of its captured graphs."""
         if not self._speculative:
             return self.solve_host(values, rt)
-        values, rt = self._start(values, rt)
-        return self._solve_speculative(values, rt)
+        if not self._program_path:
+            values, rt = self._start(values, rt)
+            return self._solve_speculative(values, rt)
+        rt = rt if rt is not None else self._rt0
+        sym = (rt["ndchol"] if "ndchol" in rt else self._plan_for(rt))[0]
+        # keyed by the plan's identity; the entry holds the plan, so the id
+        # is not reused while the entry lives
+        _sym, program = self._programs.get(id(sym), (None, None))
+        if program is None:
+            _v, rt0 = self._start(None, rt)
+            if len(self._programs) >= _PROGRAMS_MAX:
+                self._programs.clear()
+            program = _LMProgram(self, rt0)
+            self._programs[id(sym)] = (sym, program)
+        self.last_program = program
+        return program.solve(values or self.ga.values0, rt, eager)
 
     def _solve_speculative(self, values, rt):
-        """Linearize AT THE TRIAL POINT: its residuals give the trial cost,
-        and an accepted step hands its linearization (and its workspace) to
-        the next iteration, so no separate cost pass and no final cost pass
-        is made. A rejected step keeps the carried linearization and forces a
-        reused factorization stale. ``final_cost`` is the carried f64 cost."""
-        gaW, opts = self._gaW, self.opts
-        cdt = self._cdt
-        lam = self._lam_type(opts.lam0)
+        """The speculative-accept loop with ``precond_reuse``, on the host:
+        linearize AT THE TRIAL POINT (its residuals give the trial cost), an
+        accepted step hands its linearization (and its workspace) to the
+        next iteration, a rejected one keeps the carried linearization and
+        forces a reused factorization stale. One read of the decisions per
+        iteration; ``final_cost`` is the carried f64 cost."""
+        gaW = self._gaW
+        st = _LMState(self)
         step_floor = 1e-4 if gaW.dtype == F32 else 1e-9
         ws, ws_trial = self._ws, self._ws_trial
         lins, parts = self._linearize(values, rt, ws)
-        cost0 = float(self._sumsq(lins))
-        hist = []
-        cost_prev = math.inf
-        n_rej = 0
-        code = 0
-        gnorm = 0.0
+        st.cost0.copy_(self._sumsq(lins))
         pstate = self._pstate0()
-        for it in range(int(opts.max_iters)):
-            delta, g, exact, extras = self._linear_solve(lins, lam, rt, parts, pstate)
+        for _ in range(int(self.opts.max_iters)):
+            delta, g, exact, extras = self._linear_solve(lins, st.lam, rt, parts, pstate)
             pstate = extras.get("pstate", pstate)
-            gvec = g if isinstance(g, dict) else unflatten_tangent(gaW, g)
             trial = self._boxplus_all(values, delta, rt)
             lins_t, parts_t = self._linearize(trial, rt, ws_trial)
-            c1, gn, dn, pr, ex = torch.stack([
-                self._sumsq(lins_t), torch.sqrt(_tdot(gvec, gvec)).to(cdt),
-                torch.sqrt(_tdot(delta, delta)).to(cdt), extras["pred"].to(cdt),
-                torch.as_tensor(exact, device=gaW.device).to(cdt),
-            ]).tolist()
-            rho = (cost0 - c1) / (pr if pr > 1e-30 else 1e-30)
-            okb = math.isfinite(c1) and c1 < cost0
-            lam = self._marquardt(lam, okb, rho)
-            gnorm = gn
-            self._record(hist, it, cost0, c1, gn, dn, okb, lam, int(extras.get("cg_iters", 0)))
+            ok = self._lm_update(st, self._sumsq(lins_t), torch.sqrt(_tdot(g, g)).to(F64),
+                                 torch.sqrt(_tdot(delta, delta)).to(F64), exact,
+                                 extras["pred"].to(F64), extras["cg_iters"], step_floor)
+            okb, running = torch.stack([ok, st.running]).tolist()
             if okb:
                 values, lins, parts = trial, lins_t, parts_t
                 ws, ws_trial = ws_trial, ws
-                # the JAX package's loop compares lam with lam0 in lam's dtype
-                code = self._accepted_code(gn, dn, bool(ex), cost_prev, c1, lam,
-                                           float(self._lam_type(opts.lam0)))
-                cost0 = cost_prev = c1
-                n_rej = 0
-            else:
-                n_rej += 1
-                code = self._rejected_code(dn, n_rej, lam, step_floor)
+            elif "stale" in pstate:
                 # lam grew 8x: a carried factorization no longer matches
-                if "stale" in pstate:
-                    pstate = {**pstate, "stale": True}
-            if code:
+                pstate = {**pstate, "stale": True}
+            if not running:
                 break
-        return values, self._stats(hist, code, n_rej, gnorm, cost0)
+        return values, self._stats(_read(st.read_list()))
+
+
+_PROGRAMS_MAX = 4
+_ODO_BATCHES = ("Pose2Pose2", "MutablePose2Pose2Gaussian")
+
+
+def _read(tensors):
+    """One device-to-host read of ``tensors``, flattened as float64."""
+    return torch.cat([t.reshape(-1).to(F64) for t in tensors]).cpu().numpy()
+
+
+class _LMState:
+    """The LM loop's state in device tensors (the JAX loop's carry): the
+    damping ``lam`` in the graph dtype (as the JAX package's), the carried
+    and the last accepted cost and the last gradient norm (float64), the
+    iteration count, the consecutive rejections and the convergence code
+    (int64), ``running`` (it < max_iters and code == 0) and the
+    (max_iters, 7) float64 history [cost0, cost1, gnorm, dnorm, accepted,
+    lam, cg iterations]. Made in its initial state; :meth:`reset` returns
+    to it (the cost is the caller's)."""
+
+    def __init__(self, solver):
+        ga, dev = solver.ga, solver.ga.device
+        self._lam0, self._iters = solver.opts.lam0, int(solver.opts.max_iters)
+
+        def scalar(dtype):
+            return torch.zeros((), dtype=dtype, device=dev)
+
+        self.lam, self.cost0, self.cost_prev, self.gnorm = (
+            scalar(ga.dtype), scalar(F64), scalar(F64), scalar(F64))
+        self.it, self.n_rej, self.code = (scalar(torch.int64) for _ in range(3))
+        self.running = scalar(torch.bool)
+        self.hist = torch.zeros((max(self._iters, 1), 7), dtype=F64, device=dev)
+        self.reset()
+
+    def reset(self):
+        self.lam.fill_(self._lam0)
+        self.cost_prev.fill_(math.inf)
+        for t in (self.gnorm, self.it, self.n_rej, self.code, self.hist):
+            t.zero_()
+        self.running.fill_(self._iters > 0)
+
+    def read_list(self):
+        """What a solve's final read takes: it, code, n_rej, gnorm, the
+        carried cost, then the history."""
+        return [self.it, self.code, self.n_rej, self.gnorm, self.cost0, self.hist]
+
+
+class _LMProgram:
+    """The speculative ndchol LM solve of one connectivity as a device
+    program (``utils/device_loop.Program``), the JAX package's jitted fused
+    loop (rome_tpu/solvers/gauss_newton.py ``_make_solve_loop``).
+
+    Static inputs, which each solve copies in: the values (in the working
+    dtype) and a copy of the runtime state (params, slots, weights, free
+    masks) beside the connectivity's ndchol and tangent-sum plans. Phases:
+    ``_start`` (the inputs into the state; with ``fused_chordal`` the
+    chordal stages, whose result is kept in ``chordal_start``; the first
+    linearize into the carried linearization; the loop state reset) once,
+    then ``_iterate`` (one LM iteration, guarded by ``running``)
+    ``max_iters`` times. The carried linearization (residuals, Jacobians
+    and, on the mixed path, the JᵀJ entry vector and Jᵀr contributions)
+    lives in buffers of its own: the trial's linearization is made in the
+    solver's workspace and an accepted step copies it in (``torch.where``
+    on the accept decision), as the JAX loop selects its carry."""
+
+    def __init__(self, solver, rt):
+        ga, gaW = solver.ga, solver._gaW
+        self.solver = solver
+        self.values_in = {t: torch.empty(v.shape, dtype=gaW.dtype, device=ga.device)
+                          for t, v in ga.values0.items()}
+        self.values = {t: torch.empty_like(v) for t, v in self.values_in.items()}
+        self.rt = {
+            "params": tuple({k: v.clone() for k, v in p.items()} for p in rt["params"]),
+            "vslots": tuple(v.clone() for v in rt["vslots"]),
+            "weight": tuple(w.clone() for w in rt["weight"]),
+            "free": {t: f.clone() for t, f in rt["free"].items()},
+            "ndchol": rt["ndchol"],
+            "scatter": rt["scatter"],
+        }
+        self.ws = NormalEqWorkspace(gaW) if solver._mixed_j else None
+        self.carried = self.parts = None
+        self.st = _LMState(solver)
+        self.step_floor = 1e-4 if gaW.dtype == F32 else 1e-9
+        self.chordal = self.chordal_start = None
+        if solver.fuses_chordal:
+            from rome_tpu_torch.solvers.init2d import _chordal_plan
+
+            r = self.rt
+            edges = [(r["vslots"][i][:, 0], r["vslots"][i][:, 1], r["params"][i]["z"],
+                      r["params"][i]["sqrt_info"], r["weight"][i])
+                     for i, b in enumerate(ga.batches) if b.ftype.name in _ODO_BATCHES]
+            priors = [(r["vslots"][i][:, 0], r["params"][i]["z"], r["params"][i]["sqrt_info"],
+                       r["weight"][i])
+                      for i, b in enumerate(ga.batches) if b.ftype.name == "PriorPose2"]
+            plan, arrs = _chordal_plan(ga.counts["Pose2"], edges, priors, ga.device)
+            self.chordal = (edges, priors, plan.sym, arrs)
+            self.chordal_start = torch.empty_like(self.values["Pose2"])
+        self.program = Program(ga.device, [(self._start, 1),
+                                           (self._iterate, int(solver.opts.max_iters))],
+                               name="lm_ndchol" + ("_fused_chordal" if self.chordal else ""))
+
+    def _start(self, run):
+        s = self.solver
+        for t, v in self.values.items():
+            v.copy_(self.values_in[t])
+        if self.chordal is not None:
+            from rome_tpu_torch.solvers.init2d import _chordal_body
+
+            edges, priors, sym, arrs = self.chordal
+            pose2 = self.values["Pose2"]
+            pose2.copy_(_chordal_body(pose2.dtype, pose2.shape[0], pose2, edges, priors,
+                                      self.rt["free"]["Pose2"], sym, arrs, run))
+            self.chordal_start.copy_(pose2)
+        lins, parts = s._linearize(self.values, self.rt, self.ws)
+        if self.carried is None:
+            self.carried = [(r.clone(), tuple(J.clone() for J in Js)) for _b, r, Js, _v in lins]
+            if parts is not None:
+                self.parts = NormalParts(parts.vals.clone(), parts.offsets,
+                                         {i: j.clone() for i, j in parts.jtr.items()})
+        else:
+            self._carry(lins, parts)
+        self.st.reset()
+        self.st.cost0.copy_(s._sumsq(lins))
+
+    def _carry(self, lins, parts, ok=None):
+        """The carried linearization := ``lins`` / ``parts`` (where ``ok``)."""
+        def put(dst, src):
+            dst.copy_(src if ok is None else torch.where(ok, src, dst))
+
+        for (r, Js), (_b, r1, Js1, _v) in zip(self.carried, lins):
+            put(r, r1)
+            for J, J1 in zip(Js, Js1):
+                put(J, J1)
+        if parts is not None:
+            put(self.parts.vals, parts.vals)
+            for i, j in self.parts.jtr.items():
+                put(j, parts.jtr[i])
+
+    def _iterate(self, run):
+        run.cond(self.st.running, lambda: self._step(run))
+
+    def _step(self, run):
+        s, st, rt = self.solver, self.st, self.rt
+        lins = [(b, r, Js, vs) for b, (r, Js), vs in zip(s.ga.batches, self.carried, rt["vslots"])]
+        delta, g, exact, extras = s._linear_solve(lins, st.lam, rt, self.parts, None, run=run)
+        trial = s._boxplus_all(self.values, delta, rt)
+        lins_t, parts_t = s._linearize(trial, rt, self.ws)
+        ok = s._lm_update(st, s._sumsq(lins_t), torch.sqrt(_tdot(g, g)).to(F64),
+                          torch.sqrt(_tdot(delta, delta)).to(F64), exact,
+                          extras["pred"].to(F64), extras["cg_iters"], self.step_floor)
+        for t, v in self.values.items():
+            v.copy_(torch.where(ok, trial[t], v))
+        self._carry(lins_t, parts_t, ok)
+
+    def solve(self, values, rt, eager=False):
+        """Copy ``values`` and ``rt`` in, run the program (its plain version
+        with ``eager``), make its one read. Returns (values, SolveStats)."""
+        for t, v in self.values_in.items():
+            v.copy_(values[t])
+        for dst, src in ((self.rt["vslots"], rt["vslots"]), (self.rt["weight"], rt["weight"])):
+            for d, s_ in zip(dst, src):
+                d.copy_(s_)
+        for d, s_ in zip(self.rt["params"], rt["params"]):
+            for k, v in d.items():
+                v.copy_(s_[k])
+        for t, f in self.rt["free"].items():
+            f.copy_(rt["free"][t])
+        self.program.run(eager=eager)
+        host = self.program.read(self.st.read_list())
+        return {t: v.clone() for t, v in self.values.items()}, self.solver._stats(host)
 
 
 # --------------------------- covariance recovery ---------------------------

@@ -14,9 +14,20 @@ Each stage solves its normal equations with an f32 factorization (dense
 Cholesky below 300 poses, the nested-dissection multifrontal Cholesky from
 300 up) as the preconditioner of an f64 CG against an edge-based f64
 matvec. Frozen (free=0) poses are held bit-identical.
+
+Both stages are one device program (``utils/device_loop``), as the JAX
+package's one jitted program: each CG is a bounded loop of 30 guarded
+iterations whose condition is evaluated on the device, the dense path's
+safeguard a ``torch.where``. On the card :func:`chordal_init_pose2` captures
+the program once per connectivity and replays it; with
+``GNOptions.fused_chordal`` the LM program runs the same stages before its
+first linearize (``solvers/gauss_newton.py``). On the CPU the same body
+runs eagerly.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -24,6 +35,7 @@ import torch
 from rome_tpu_torch.graph.lower import GraphArrays
 from rome_tpu_torch.ops.segment_sum import SegmentPlan
 from rome_tpu_torch.solvers.linearize import TangentScatter
+from rome_tpu_torch.utils.device_loop import EAGER, Program
 from rome_tpu_torch.utils.math import einsum, rot2
 
 _ODO_BATCHES = ("Pose2Pose2", "MutablePose2Pose2Gaussian")
@@ -48,12 +60,7 @@ def _rdot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def _safe(x):
-    """Denominator guard: |x| < 1e-300 -> 1e-300 (as the JAX package)."""
-    return torch.where(torch.abs(x) < 1e-300, torch.full_like(x, 1e-300), x)
-
-
-def _solve_spd_delta(A, g, free, dtype, matvec):
+def _solve_spd_delta(A, g, free, dtype, matvec, run=EAGER):
     """GN step for a linear problem: solve A dx = -g with frozen rows pinned
     to dx = 0. Jacobi scaling + f32 Cholesky (+1e-6 ridge) as the
     preconditioner of an f64 CG against the UNPINNED matvec ``matvec``."""
@@ -65,8 +72,7 @@ def _solve_spd_delta(A, g, free, dtype, matvec):
     nD = A.shape[0]
     As32 = (A * d[:, None] * d[None, :]).to(F32) + 1e-6 * torch.eye(nD, dtype=F32, device=dev)
     L, info = torch.linalg.cholesky_ex(As32)
-    if int(info) != 0:
-        L = torch.full_like(L, float("nan"))
+    L = torch.where(info != 0, math.nan, L)
     # explicit triangular inverse: the CG applies the preconditioner ~30x
     Linv = torch.linalg.solve_triangular(L, torch.eye(nD, dtype=F32, device=dev), upper=False)
 
@@ -80,34 +86,38 @@ def _solve_spd_delta(A, g, free, dtype, matvec):
         return d * (f * matvec(f * x) + one_minus_f * x)
 
     y = prec(bs)
-    x = y
+    x = y.clone()
     r = bs - apply_s(x)
-    z = prec(r)
-    p = z
-    rz = _rdot(r, z)
-    bn = float(torch.linalg.norm(bs)) + 1e-300
-    k = 0
-    while k < 30 and float(torch.linalg.norm(r)) > 1e-7 * bn:
+    p = prec(r)
+    rz = _rdot(r, p)
+    bn = torch.linalg.norm(bs) + 1e-300
+    live = torch.linalg.norm(r) > 1e-7 * bn
+
+    def body():
+        # CG from the single f32 solve, 30 guarded iterations at most
         Ap = apply_s(p)
         alpha = rz / _rdot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
+        x.copy_(x + alpha * p)
+        r.copy_(r - alpha * Ap)
         z = prec(r)
         rz2 = _rdot(r, z)
-        p = z + (rz2 / rz) * p
-        rz = rz2
-        k += 1
+        p.copy_(z + (rz2 / rz) * p)
+        rz.copy_(rz2)
+        live.copy_(torch.linalg.norm(r) > 1e-7 * bn)
+
+    run.loop(30, live, body)
     # safeguard: keep the single f32 solve if CG diverged
-    if float(torch.linalg.norm(bs - apply_s(x))) <= float(torch.linalg.norm(bs - apply_s(y))):
-        y = x
+    y = torch.where(torch.linalg.norm(bs - apply_s(x)) <= torch.linalg.norm(bs - apply_s(y)),
+                    x, y)
     return (y * d * f).to(dtype)
 
 
 def _ndchol_spd_delta(sym, nd, vals_vec, g, free2, matvec, out_dtype,
-                      tol=1e-7, ridge=1e-6):
+                      tol=1e-7, ridge=1e-6, run=EAGER):
     """Sparse twin of :func:`_solve_spd_delta`: ND multifrontal f32
     factorization of the 2-dof chordal system as the preconditioner of an
     f64 CG against the edge-based matvec."""
+    from rome_tpu_torch.solvers.gauss_newton import guarded_cg
     from rome_tpu_torch.solvers.sparse import (
         ndchol_assemble, ndchol_factorize, ndchol_solve,
     )
@@ -135,25 +145,9 @@ def _ndchol_spd_delta(sym, nd, vals_vec, g, free2, matvec, out_dtype,
     def apply_A(v):
         return frdt * matvec(frdt * v) + one_minus * v
 
-    bn = float(torch.linalg.norm(b)) + 1e-300
-    x = torch.zeros_like(b)
-    r = b
-    p = torch.zeros_like(b)
-    rz = torch.zeros((), dtype=rdt, device=b.device)
-    k = 0
     # tolerance 1e-7 on both stages: end-to-end ATE is very sensitive to
     # the rotation-stage precision (see the JAX package's init2d notes)
-    while k < 30 and float(torch.linalg.norm(r)) > tol * bn:
-        z = minv(r)
-        rz2 = _rdot(r, z)
-        beta = rz2 / _safe(rz) if k else torch.zeros_like(rz2)
-        p = z + beta * p
-        Ap = apply_A(p)
-        alpha = rz2 / _safe(_rdot(p, Ap))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        rz = rz2
-        k += 1
+    x, _r, _k = guarded_cg(run, minv, apply_A, b, tol, 30)
     return (x * frdt).to(out_dtype)
 
 
@@ -207,25 +201,76 @@ class _ChordalPlan:
         return out
 
 
-def _chordal_plan(n, edges, priors, device):
+def _chordal_key(n, edges, priors):
+    """The chordal systems' connectivity key (host copies of the slots)."""
+    return (
+        "chordal",
+        n,
+        tuple(e[0].cpu().numpy().tobytes() + e[1].cpu().numpy().tobytes() for e in edges),
+        tuple(p[0].cpu().numpy().tobytes() for p in priors),
+    )
+
+
+def _chordal_plan(n, edges, priors, device, key=None):
     """The chordal systems' plan and its tensors on ``device``, cached per
     pose-graph connectivity (beside the LM's ND plans)."""
     from rome_tpu_torch.solvers.sparse import cached_symbolic
 
-    ei = [(e[0].cpu().numpy(), e[1].cpu().numpy()) for e in edges]
-    pi = [p[0].cpu().numpy() for p in priors]
-    key = (
-        "chordal",
-        n,
-        tuple(a.tobytes() + b.tobytes() for a, b in ei),
-        tuple(a.tobytes() for a in pi),
-    )
-    return cached_symbolic(key, lambda: _ChordalPlan(n, ei, pi), device)
+    key = key or _chordal_key(n, edges, priors)
+
+    def build():
+        ei = [(e[0].cpu().numpy(), e[1].cpu().numpy()) for e in edges]
+        return _ChordalPlan(n, ei, [p[0].cpu().numpy() for p in priors])
+
+    return cached_symbolic(key, build, device)
 
 
-def chordal_init_pose2(ga: GraphArrays, values):
+class ChordalProgram:
+    """Both chordal stages of one connectivity as a device program
+    (``utils/device_loop.Program``): static inputs that each call copies in
+    (the Pose2 values, every edge and prior batch's slots, z, sqrt-info and
+    weight, the free mask), the stages replayed from them, the Pose2 values
+    out. ``dtype`` is the output's."""
+
+    def __init__(self, n, edges, priors, free, dtype, plan, arrs):
+        dev = free.device
+
+        def buf(t):
+            return torch.empty(t.shape, dtype=t.dtype, device=dev)
+
+        self.n, self.dtype, self.sym, self.arrs = n, dtype, plan.sym, arrs
+        self.pose2 = torch.empty((n, 3), dtype=dtype, device=dev)
+        self.edges = [tuple(buf(t) for t in e) for e in edges]
+        self.priors = [tuple(buf(t) for t in p) for p in priors]
+        self.free = buf(free)
+        self.out = torch.empty((n, 3), dtype=dtype, device=dev)
+        self.program = Program(dev, [(self._body, 1)], name="chordal")
+
+    def _body(self, run):
+        self.out.copy_(_chordal_body(self.dtype, self.n, self.pose2, self.edges, self.priors,
+                                     self.free, self.sym, self.arrs, run))
+
+    def __call__(self, pose2, edges, priors, free, eager=False):
+        """The chordal Pose2 values of these inputs (a new tensor); with
+        ``eager`` the program's plain version."""
+        for dst, src in zip(self.edges + self.priors, edges + priors):
+            for d, s in zip(dst, src):
+                d.copy_(s)
+        self.pose2.copy_(pose2)
+        self.free.copy_(free)
+        self.program.run(eager=eager)
+        return self.out.clone()
+
+
+_PROGRAMS: dict = {}
+_PROGRAMS_MAX = 8
+
+
+def chordal_init_pose2(ga: GraphArrays, values, eager=False):
     """Return values with the Pose2 block re-initialized by the two-stage
-    chordal solve. Other variable types pass through untouched."""
+    chordal solve. Other variable types pass through untouched. On the card
+    the stages are one captured program per connectivity (at most
+    ``_PROGRAMS_MAX`` kept), replayed; ``eager`` runs its plain version."""
     if "Pose2" not in ga.counts:
         return values
     n = ga.counts["Pose2"]
@@ -233,11 +278,23 @@ def chordal_init_pose2(ga: GraphArrays, values):
     if not edges:
         return values
     priors = _pose2_priors(ga)
-    plan, arrs = _chordal_plan(n, edges, priors, ga.device)
+    key = getattr(ga, "_chordal_key", None)
+    if key is None:
+        key = ga._chordal_key = _chordal_key(n, edges, priors)
+    plan, arrs = _chordal_plan(n, edges, priors, ga.device, key)
     out = dict(values)
-    out["Pose2"] = _chordal_body(
-        ga.dtype, n, values["Pose2"], edges, priors, ga.free["Pose2"], plan.sym, arrs
-    )
+    free = ga.free["Pose2"]
+    if ga.device.type != "cuda":
+        out["Pose2"] = _chordal_body(ga.dtype, n, values["Pose2"], edges, priors, free,
+                                     plan.sym, arrs)
+        return out
+    pkey = (key, str(ga.dtype), str(ga.device))
+    program = _PROGRAMS.get(pkey)
+    if program is None:
+        if len(_PROGRAMS) >= _PROGRAMS_MAX:
+            _PROGRAMS.clear()
+        program = _PROGRAMS[pkey] = ChordalProgram(n, edges, priors, free, ga.dtype, plan, arrs)
+    out["Pose2"] = program(values["Pose2"], edges, priors, free, eager=eager)
     return out
 
 
@@ -321,7 +378,7 @@ def _tr_entries(et, pt):
     return torch.cat([v.reshape(-1) for v in vals])
 
 
-def _chordal_body(dtype, n, pose2_values, edges, priors, free, sym, arrs):
+def _chordal_body(dtype, n, pose2_values, edges, priors, free, sym, arrs, run=EAGER):
     # assembly/refinement precision f64 (the Laplacian solves need it); the
     # factorizations are f32. Every sum of colliding contributions goes
     # through one of the plan's fixed-order sums (``arrs``)
@@ -340,9 +397,9 @@ def _chordal_body(dtype, n, pose2_values, edges, priors, free, sym, arrs):
     def solve(vals, g, matvec, tol):
         if sym is not None:
             return _ndchol_spd_delta(sym, arrs["nd"], vals, g, f2, matvec, adt,
-                                     tol=tol, ridge=_CHORDAL_RIDGE)
+                                     tol=tol, ridge=_CHORDAL_RIDGE, run=run)
         A = arrs["dense"].add_(torch.zeros(4 * n * n, dtype=F32, device=dev), vals)
-        return _solve_spd_delta(A.view(2 * n, 2 * n), g, f2, adt, matvec)
+        return _solve_spd_delta(A.view(2 * n, 2 * n), g, f2, adt, matvec, run)
 
     # -------- stage 1: chordal rotation relaxation (linear in (c, s)) ------
     u0 = torch.stack([torch.cos(th0), torch.sin(th0)], dim=-1)  # (n, 2)

@@ -45,10 +45,14 @@ def solve_graph_parametric(
     graph with no unary factor gets its first variable frozen as the gauge
     anchor.
 
-    ``schedule="fused"`` runs ``ParametricSolver.solve`` (the speculative-
-    accept loop for ndchol), ``"host"`` runs ``solve_host``. The chordal
-    init always runs as its own stage before LM, ``GNOptions.fused_chordal``
-    or not. The solver comes from the structure cache
+    ``schedule="fused"`` runs ``ParametricSolver.solve`` (for ndchol the
+    speculative-accept loop as one device program, captured on the card),
+    ``"host"`` runs ``solve_host``. With ``chordal_init`` a Pose2 graph of
+    more than two poses is initialized by ``chordal_init_pose2`` first,
+    unless ``schedule="fused"`` and the solver runs the chordal stages
+    inside its program (``GNOptions.fused_chordal``, as the JAX package's
+    fused_chordal); ``solve_time_s`` covers both. The solver comes from the
+    structure cache
     (``ParametricSolver.cached``). With ``fg.params.multiproc`` set inside
     an initialized process group of more than one rank, every rank takes the
     factor-sharded distributed solve (``solve_graph_distributed``); otherwise
@@ -89,13 +93,15 @@ def solve_graph_parametric(
     )
     t0 = time.time()
     values0 = ga.values0
-    if chordal_init and "Pose2" in ga.counts and ga.counts["Pose2"] > 2:
+    # structure-cached solver; the graph's data rides in as its runtime_state
+    solver = ParametricSolver.cached(ga, opts)
+    fused = schedule == "fused"
+    if (chordal_init and "Pose2" in ga.counts and ga.counts["Pose2"] > 2
+            and not (fused and solver.fuses_chordal)):
         from rome_tpu_torch.solvers.init2d import chordal_init_pose2
 
         values0 = chordal_init_pose2(ga, values0)
-    # structure-cached solver; the graph's data rides in as its runtime_state
-    solver = ParametricSolver.cached(ga, opts)
-    run = solver.solve if schedule == "fused" else solver.solve_host
+    run = solver.solve if fused else solver.solve_host
     values, stats = run(values0, rt=runtime_state(ga))
     dt = time.time() - t0
 

@@ -179,9 +179,9 @@ def test_rejected_speculative_step_keeps_the_carried_linearization():
     real = solver._solve_ndchol
     seen = []
 
-    def flaky(lins, lam, rt, parts, pstate):
+    def flaky(lins, lam, rt, parts, pstate, **kw):
         got = [t.clone() for _b, r0, Js, _v in lins for t in (r0,) + tuple(Js)]
-        delta, g, exact, extras = real(lins, lam, rt, parts, pstate)
+        delta, g, exact, extras = real(lins, lam, rt, parts, pstate, **kw)
         # the entry vector once the solve has filled in the generic batches
         seen.append(got + [parts.vals.clone()])
         if len(seen) == 2:

@@ -119,9 +119,9 @@ def test_lm_rejects_nan_step_and_recovers():
     real = solver._solve_ndchol
     calls = {"n": 0}
 
-    def flaky(lins, lam, rt, parts, pstate):
+    def flaky(lins, lam, rt, parts, pstate, **kw):
         calls["n"] += 1
-        delta, g, exact, extras = real(lins, lam, rt, parts, pstate)
+        delta, g, exact, extras = real(lins, lam, rt, parts, pstate, **kw)
         if calls["n"] == 2:
             delta = {t: torch.full_like(d, float("nan")) for t, d in delta.items()}
         return delta, g, exact, extras
