@@ -815,17 +815,14 @@ def _citygrid_runs(card, gt_file, device):
     fills): every solve, cold and warm, held to bench.py's gates (converged,
     SE(2)-aligned ATE <= 1.0 m, cost <= 1.002 * optimum + 1e-3) and its
     poses finite."""
-    from rome_tpu_torch.utils import device_loop
-
     gt = np.load(gt_file)
     ref_cost = float(gt["final_cost"])
     runs = []
-    since = [len(device_loop.CAPTURES)]
+    since = [_captures()[0]]
 
     def on_run(label, fg, res):
         st = res["stats"]
-        caps = device_loop.CAPTURES[since[0]:]
-        since[0] = len(device_loop.CAPTURES)
+        since[0], caps = _captures(since[0])
         pts = np.stack([fg.get_point(l) for l in fg.ls(r"^x\d+$")])
         ate, ate_raw = ate_rmse(fg, gt["poses"])
         row = dict(run=label, iterations=st.iterations, converged=st.converged,
@@ -1077,17 +1074,39 @@ def _sync_calls(solver, rt, eager):
     return len(sites), sites[:8]
 
 
+def _captures(since=0):
+    """(a mark for the next call, the device programs captured since the
+    mark ``since``): each from its ``program.capture`` span in the
+    profiling ring: name, warm-up, capture and instantiate seconds, graph
+    nodes and warm-up launches."""
+    from rome_tpu_torch.utils import profiling
+
+    out = []
+    for s in profiling.spans("program.capture"):
+        if s.start >= since:
+            secs = {c.name: c.seconds for c in s.children}
+            out.append(dict(name=s.attrs["program"], warmup_s=secs.get("warmup"),
+                            capture_s=secs.get("capture"),
+                            instantiate_s=secs.get("instantiate"), nodes=s.attrs.get("nodes"),
+                            warmup_launches=s.attrs.get("warmup_launches", {})))
+    return time.perf_counter_ns(), out
+
+
 def _program_device_ms(program, reps=3):
-    """Device milliseconds of each phase of a captured program (CUDA events
-    between its phases' replays, from its current static inputs; the host
-    enqueues the few graph launches in well under their device time, so the
-    device is never starved in between), in the run of ``reps`` whose total
-    is least."""
+    """(device milliseconds of each stamped phase of a captured program,
+    the program's whole device span in milliseconds), from its current
+    static inputs: the phase stamps and the program's span that its read
+    notes on the open span, in the run of ``reps`` whose span is least."""
+    from rome_tpu_torch.utils.profiling import annotate
+
     runs = []
     for _ in range(reps):
-        runs.append(program.run(timed=True))
-        program.read([])  # this run's launch counters, as a solve's read takes them
-    return min(runs, key=sum)
+        with annotate("chip_smoke.program") as span:
+            program.run()
+            program.read([])  # the run's stamps and launch counters, as a solve's read
+        runs.append(({k: v / 1e6 for k, v in span.attrs["device_ns"].items()},
+                     span.attrs["program_device_ns"] / 1e6))
+    return min(runs, key=lambda r: r[1])
 
 
 def fused_program_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT, turns=FUSED_TURNS):
@@ -1104,9 +1123,10 @@ def fused_program_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT, t
     one synchronizing call (``torch.cuda.set_sync_debug_mode``) and
     torch.profiler sees its K1 normal kernels, iterations + 1. Reported:
     seconds per solve, the program's capture (warm-up, capture and
-    instantiate seconds, graph nodes: ``device_loop.CAPTURES``), the
-    program's device time (CUDA events between its replays: the start phase,
-    chordal stages and first linearize, and the LM iterations) and each
+    instantiate seconds, graph nodes: its ``program.capture`` span), the
+    program's device time (its %globaltimer span, and its phases' stamps:
+    the chordal stages, the first linearize, and the LM iterations' assembly,
+    factorization, CG, linearize and update) and each
     mode's device busy share (that time over the mode's solve seconds), per mode
     the host launch calls and device kernels under torch.profiler and the
     synchronizing calls, and those of the cached solver serving another
@@ -1118,10 +1138,10 @@ def fused_program_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT, t
     from rome_tpu_torch.graph.lower import lower
     from rome_tpu_torch.solvers.gauss_newton import ParametricSolver
     from rome_tpu_torch.solvers.linearize import runtime_state
-    from rome_tpu_torch.utils import device_loop
 
     gt = np.load(gt_file)
     ref_cost = float(gt["final_cost"])
+    since = _captures()[0]
     ga = lower(build_graph(g2o), "parametric", dtype=torch.float32, device=device)
     solver = ParametricSolver.cached(ga, GNOptions(**BIG))
     check(solver.fuses_chordal, "citygrid under big: the solver does not fuse the chordal init")
@@ -1162,10 +1182,9 @@ def fused_program_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT, t
     if device != "cuda":
         return out
     prog = solver.last_program.program
-    caps = [c for c in device_loop.CAPTURES if c["name"] == prog.name]
+    caps = [c for c in _captures(since)[1] if c["name"] == prog.name]
     out["capture"] = caps[0] if caps else None
-    out["phase_device_ms"] = dict(zip(("start", "iterate"), _program_device_ms(prog)))
-    out["device_ms"] = sum(out["phase_device_ms"].values())
+    out["phase_device_ms"], out["device_ms"] = _program_device_ms(prog)
     secs = {m: min(r["seconds"] for r in rows if r["mode"] == m) for m in ("captured", "eager")}
     out["busy_share"] = {m: out["device_ms"] / 1e3 / secs[m] for m in secs}
     out["profile"] = {m: _profiled_solve(solver, None, m == "eager") for m in secs}
@@ -1174,10 +1193,9 @@ def fused_program_path(card, device="cuda", g2o=CITYGRID, gt_file=CITYGRID_GT, t
     out["sync_calls"] = {m: n for m, (n, _sites) in syncs.items()}
     out["sync_sites"] = {m: sites for m, (_n, sites) in syncs.items()}
     print(f"[{card}] fused_program capture: {json.dumps(out['capture'])}; the program's "
-          f"device time {out['device_ms']:.3f} ms (CUDA events; by phase "
-          f"{json.dumps(out['phase_device_ms'])}: the start is the chordal stages and the "
-          f"first linearize), busy share {json.dumps(out['busy_share'])} of the fastest "
-          f"solve of each mode")
+          f"device time {out['device_ms']:.3f} ms (%globaltimer stamps; by phase, summed "
+          f"over its iterations: {json.dumps(out['phase_device_ms'])}), busy share "
+          f"{json.dumps(out['busy_share'])} of the fastest solve of each mode")
     for m in secs:
         print(f"[{card}] fused_program {m} warm solve under torch.profiler: "
               f"{json.dumps(out['profile'][m])}")
@@ -2600,7 +2618,6 @@ def factor_library_rest_path(card, device="cuda", seconds=REST_SECONDS, N=NP_N,
     import torch
 
     import rome_tpu_torch as T
-    from rome_tpu_torch.utils import device_loop
     from rome_tpu_torch.solvers.multimodal import batched as B
 
     out, launches = {}, {}
@@ -2641,11 +2658,10 @@ def factor_library_rest_path(card, device="cuda", seconds=REST_SECONDS, N=NP_N,
 
         def parametric(name, fg, opts, check_fn):
             _reset_launches()
-            since = len(device_loop.CAPTURES)
+            since = _captures()[0]
             res, wall, _peak = _solve_timed(fg, opts, device)
             st = res["stats"]
-            warm = sum(c["warmup_launches"].get("normal", 0)
-                       for c in device_loop.CAPTURES[since:])
+            warm = sum(c["warmup_launches"].get("normal", 0) for c in _captures(since)[1])
             row = dict(iterations=st.iterations, converged=st.converged,
                        solve_time_s=res["solve_time_s"], wall_s=wall, **check_fn(fg),
                        linearize=timer.per_iteration(device, st.iterations),

@@ -22,31 +22,24 @@ benchmark's ``big`` options). The phases:
    warning of an op that has no deterministic implementation.
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` is set for the whole process, so the
    two modes differ only in the deterministic flag.
-2. Phase breakdown of three more solves, timed with CUDA events recorded
-   around each phase on the current stream (no added synchronization): the
-   chordal init, the symbolic-plan lookup, the LM loop and, inside it, the
-   linearize, the linear solve (normal-equation entries, ND assembly,
-   factorization, CG polish) and the cost evaluations; inside the linear
-   solve the JᵀJ entry values and the gradient.
-3. One more solve with the linearize, the entry values, the gradient and
-   the trial-cost pass (``cost_at``) each counted per call: host seconds
-   (the host clock around the call, no synchronization) and, under a
-   torch.profiler session of its own, the device operations the call
-   launched and their device time; reported per LM iteration. Then three
-   solves with the whole LM loop (``ParametricSolver.solve``) under one
-   profiler session each: device operations, device time and host time per
-   LM iteration.
-4. torch.profiler over one more solve: kernel count, device time, and the
+2. The recorder's summary of those captured solves
+   (``rome_tpu_torch.utils.profiling.summary`` of their ``solve`` spans):
+   per span (``solve.lower``, ``solve.cache``, ``solve.plan``,
+   ``solve.run``, ``solve.write_back``, any ``program.capture``) its count,
+   total and mean milliseconds on the host clock; per device phase of the
+   captured LM program (``lm.chordal``, ``lm.start_linearize``,
+   ``lm.assemble``, ``lm.factorize``, ``lm.cg``, ``lm.linearize``,
+   ``lm.update``) its calls and device milliseconds from the program's
+   %globaltimer stamps; the programs' device milliseconds; the structure
+   cache's counters.
+3. torch.profiler over one more solve: kernel count, device time, and the
    device busy share (union of kernel intervals over the span from the first
    kernel's start to the last one's end); the op table goes to
    ``<out>/profile_ops.txt``.
-5. K1's lin epilogue alone at n = 13,085 (float32): device time per launch
+4. K1's lin epilogue alone at n = 13,085 (float32): device time per launch
    from the profiler, against the plain PyTorch version's device time per
    call.
-Phases 2 and 3 time the ndchol program's eager runner (``solve(...,
-eager=True)``: the same bodies, each guard read on the host), since the
-captured program's replays make no Python call to wrap; the repeatability
-solves and phase 4 run the captured program.
+Every solve runs the captured program users run.
 
 ``--path beehive``: the solve of chip_smoke.py's beehive path
 (``solve_graph_nonparametric(..., sweeps=3, N=100, engine="batched",
@@ -85,7 +78,6 @@ non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -139,143 +131,15 @@ def repeatability(torch, gt, card, n):
     return runs
 
 
-@contextlib.contextmanager
-def eager_solves():
-    """Every ``ParametricSolver.solve`` in the block runs its program's eager
-    runner: the captured program's replays make no Python call for the
-    phase timers to wrap."""
-    from rome_tpu_torch.solvers import gauss_newton as GN
+def span_summary(card, since):
+    """The recorder's summary of the ``solve`` spans that began after the
+    host-clock mark ``since`` (``time.perf_counter_ns``)."""
+    from rome_tpu_torch.utils import profiling
 
-    real = GN.ParametricSolver.solve
-
-    def eager(self, values=None, rt=None, eager=True):
-        return real(self, values, rt, eager=eager)
-
-    GN.ParametricSolver.solve = eager
-    try:
-        yield
-    finally:
-        GN.ParametricSolver.solve = real
-
-
-def phases(torch, gt, card, n=3):
-    from rome_tpu_torch.solvers import gauss_newton as GN
-    from rome_tpu_torch.solvers import init2d as I2
-
-    timer = C.PhaseTimer(torch)
-    timer.wrap(I2, "chordal_init_pose2", "chordal_init")
-    timer.wrap(GN, "_symbolic_plan", "symbolic_plan")
-    timer.wrap(GN.ParametricSolver, "solve", "lm_loop")
-    timer.wrap(GN.ParametricSolver, "_linearize", "lm.linearize")
-    timer.wrap(GN.ParametricSolver, "_solve_ndchol", "lm.linear_solve")
-    timer.wrap(GN, "normal_eq_entry_values", "lm.linear_solve.entry_values")
-    timer.wrap(GN, "gradient_from_lins", "lm.linear_solve.gradient")
-    timer.wrap(GN, "cost_at", "lm.cost_at")
-    rows = []
-    try:
-        for _ in range(n):
-            row = solve_once(torch, gt)
-            row["phases_s"], row["phase_calls"] = timer.take()
-            rows.append(row)
-            print(f"[{card}] phases (CUDA events): " + json.dumps(row))
-    finally:
-        timer.unwrap()
-    return rows
-
-
-# the per-iteration work the normal epilogue took over, and the trial-cost
-# pass the speculative loop drops: (owner, name, label)
-LIN_PHASES = (("solver", "_linearize", "lm.linearize"),
-              ("module", "normal_eq_entry_values", "lm.entry_values"),
-              ("module", "gradient_from_lins", "lm.gradient"),
-              ("module", "cost_at", "lm.cost_at"))
-
-
-def per_call(torch, gt, card):
-    """One solve with each of LIN_PHASES counted per call: host seconds, and
-    device operations and device time under a profiler session per call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from rome_tpu_torch.solvers import gauss_newton as GN
-
-    rows = {label: [] for _o, _n, label in LIN_PHASES}
-    restore = []
-
-    def counted(fn, label):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                out = fn(*args, **kwargs)
-                host = time.perf_counter() - t0
-                torch.cuda.synchronize()
-            ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
-            rows[label].append((host, len(ev), sum(e.time_range.end - e.time_range.start
-                                                   for e in ev)))
-            return out
-        return call
-
-    for owner, name, label in LIN_PHASES:
-        obj = GN.ParametricSolver if owner == "solver" else GN
-        restore.append((obj, name, getattr(obj, name)))
-        setattr(obj, name, counted(getattr(obj, name), label))
-    try:
-        solve = solve_once(torch, gt)
-    finally:
-        for obj, name, fn in restore:
-            setattr(obj, name, fn)
-    iters = solve["iterations"]
-    res = {label: dict(calls=len(r), host_ms_per_iteration=1e3 * sum(x[0] for x in r) / iters,
-                       device_ops_per_iteration=sum(x[1] for x in r) / iters,
-                       device_us_per_iteration=sum(x[2] for x in r) / iters)
-           for label, r in rows.items()}
-    res["total"] = {k: sum(v[k] for v in res.values()) for k in
-                    ("host_ms_per_iteration", "device_ops_per_iteration",
-                     "device_us_per_iteration")}
-    print(f"[{card}] per LM iteration ({iters} iterations; host clock, device ops under "
-          f"torch.profiler): " + json.dumps(res))
-    return dict(solve=solve, per_iteration=res)
-
-
-def loop_per_iteration(torch, gt, card, n=3):
-    """``n`` solves, each with the LM loop (``ParametricSolver.solve``) under
-    a torch.profiler session of its own: device operations and device time
-    per LM iteration, and the loop's host seconds (ending in a sync) per
-    iteration."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from rome_tpu_torch.solvers import gauss_newton as GN
-
-    real = GN.ParametricSolver.solve
-    rec = {}
-
-    def solve(self, *args, **kwargs):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = real(self, *args, **kwargs)
-            torch.cuda.synchronize()
-            rec["host_s"] = time.perf_counter() - t0
-        ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        rec["ops"], rec["device_us"] = len(ev), sum(e.time_range.end - e.time_range.start
-                                                     for e in ev)
-        return out
-
-    rows = []
-    GN.ParametricSolver.solve = solve
-    try:
-        for _ in range(n):
-            row = solve_once(torch, gt)
-            it = row["iterations"]
-            rows.append(dict(iterations=it, solve_time_s=row["solve_time_s"],
-                             device_ops_per_iteration=rec["ops"] / it,
-                             device_us_per_iteration=rec["device_us"] / it,
-                             host_ms_per_iteration=1e3 * rec["host_s"] / it))
-            print(f"[{card}] LM loop per iteration (torch.profiler, host clock): "
-                  + json.dumps(rows[-1]))
-    finally:
-        GN.ParametricSolver.solve = real
-    return rows
+    roots = [r for r in profiling.roots() if r.name == "solve" and r.start >= since]
+    res = dict(solves=len(roots), **profiling.summary(roots))
+    print(f"[{card}] span summary of {len(roots)} captured solves: " + json.dumps(res))
+    return res
 
 
 def busy_share(events):
@@ -542,11 +406,9 @@ def main():
     K.build()
     print(f"[{card}] K1 built in {time.time() - t0:.2f} s")
     gt = np.load(C.CITYGRID_GT)
+    since = time.perf_counter_ns()
     report["repeatability"] = repeatability(torch, gt, card, args.solves)
-    with eager_solves():
-        report["phases"] = phases(torch, gt, card)
-        report["per_call"] = per_call(torch, gt, card)
-        report["loop"] = loop_per_iteration(torch, gt, card)
+    report["summary"] = span_summary(card, since)
     report["profile"] = profiled(
         torch, card, os.path.join(args.out, "profile_ops.txt"), lambda: solve_once(torch, gt)
     )

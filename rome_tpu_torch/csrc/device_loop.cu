@@ -22,6 +22,12 @@
 // Limits: one 1-thread kernel and one node per guarded region, which is
 // what a skipped region costs. Needs CUDA 12.4 or later (conditional nodes
 // in stream capture).
+//
+// rome_stamp(stream, begin, acc) launches a one-thread kernel on `stream`
+// that reads the card's %globaltimer (nanoseconds): with `acc` null it
+// stores the reading at `begin`; else it adds (reading - *begin) to acc[0]
+// and 1 to acc[1]. A pair of them brackets a device phase; captured inside
+// a conditional body, a skipped body stamps nothing.
 
 #include <cuda_runtime.h>
 
@@ -44,7 +50,23 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph, const cudaGraphNode
                                                   : cudaErrorStreamCaptureImplicit;
 }
 
+__global__ void stamp(long long* begin, long long* acc) {
+  long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (acc == nullptr) {
+    *begin = now;
+  } else {
+    acc[0] += now - *begin;
+    acc[1] += 1;
+  }
+}
+
 }  // namespace
+
+extern "C" int rome_stamp(cudaStream_t stream, long long* begin, long long* acc) {
+  stamp<<<1, 1, 0, stream>>>(begin, acc);
+  return cudaGetLastError();
+}
 
 extern "C" int rome_begin_if(cudaStream_t stream, const void* pred, cudaStream_t child) {
   cudaGraph_t graph;

@@ -17,6 +17,7 @@ import numpy as np
 from rome_tpu_torch.distributions import MvNormal
 from rome_tpu_torch.factors.pose2 import PriorPose2
 from rome_tpu_torch.graph.graph import FactorGraph, SolverParams
+from rome_tpu_torch.utils.profiling import annotate
 from rome_tpu_torch.variables import Pose2
 
 
@@ -194,7 +195,8 @@ def fifo_freeze(fg: FactorGraph, qfl: Optional[int] = None):
     """fifoFreeze! analogue (testFixedLagFG.jl:93): freeze all but the
     newest ``qfl`` poses (uses SolverParams.qfl when not given)."""
     qfl = qfl if qfl is not None else fg.params.qfl
-    return set_solvable_old_poses(fg, youngest=qfl, oldest=10**9, solvable=0)
+    with annotate("fifo_freeze"):
+        return set_solvable_old_poses(fg, youngest=qfl, oldest=10**9, solvable=0)
 
 
 # reference-style aliases

@@ -84,6 +84,7 @@ from rome_tpu_torch.solvers.linearize import (
 )
 from rome_tpu_torch.utils.device_loop import EAGER, Program
 from rome_tpu_torch.utils.math import einsum
+from rome_tpu_torch.utils.profiling import annotate, count
 
 F32, F64 = torch.float32, torch.float64
 _LINEAR = ("dense", "dense32", "ndchol", "pcg", "mixed")
@@ -358,9 +359,14 @@ class ParametricSolver:
         opts = opts or GNOptions()
         key = (structure_signature(ga), tuple(sorted(vars(opts).items())))
         solver = _SOLVER_CACHE.get(key)
-        if solver is None:
-            if len(_SOLVER_CACHE) >= _SOLVER_CACHE_MAX:
-                _SOLVER_CACHE.clear()
+        if solver is not None:
+            count("solver_cache.hit")
+            return solver
+        count("solver_cache.miss")
+        if len(_SOLVER_CACHE) >= _SOLVER_CACHE_MAX:
+            count("solver_cache.clear")
+            _SOLVER_CACHE.clear()
+        with annotate("solver.build"):
             solver = _SOLVER_CACHE[key] = cls(ga, opts)
         return solver
 
@@ -394,20 +400,28 @@ class ParametricSolver:
             self._dense = DenseScatter.of(self.ga, self._rt0["vslots"])
         return self._dense
 
+    def plans(self, rt=None, host=True):
+        """``rt`` (this solver's own by default) with the plans of its
+        connectivity that a solve takes, looked up or made: the ndchol plan
+        and, unless the device program solves it (``host=False`` and the
+        program path), the tangent sums' plan and the dense solvers' plan."""
+        rt = rt if rt is not None else self._rt0
+        if self.linear == "ndchol" and "ndchol" not in rt:
+            rt = {**rt, "ndchol": self._plan_for(rt)}
+        if host or not self._program_path:
+            if "scatter" not in rt:
+                rt = {**rt, "scatter": self._scatter_for(rt)}
+            if self.linear in _DENSE_LINEAR and "dense" not in rt:
+                rt = {**rt, "dense": self._dense_for(rt)}
+        return rt
+
     def _start(self, values, rt):
         """(values in the working dtype, rt with the ndchol plan, the
         tangent sums' plan and the dense solvers' plan)."""
         values = values or self.ga.values0
         if self._use64:
             values = {t: v.to(F64) for t, v in values.items()}
-        rt = rt if rt is not None else self._rt0
-        if self.linear == "ndchol" and "ndchol" not in rt:
-            rt = {**rt, "ndchol": self._plan_for(rt)}
-        if "scatter" not in rt:
-            rt = {**rt, "scatter": self._scatter_for(rt)}
-        if self.linear in _DENSE_LINEAR and "dense" not in rt:
-            rt = {**rt, "dense": self._dense_for(rt)}
-        return values, rt
+        return values, self.plans(rt)
 
     def _pstate0(self):
         """Initial lazy-preconditioner state: stale, so the first iteration
@@ -539,51 +553,57 @@ class ParametricSolver:
         sym, nd = rt["ndchol"] if "ndchol" in rt else self._plan_for(rt)
         wdt = gaW.dtype
         jitter, ptol = opts.chol_jitter, opts.polish_tol
-        vals = normal_eq_entry_values(gaW, lins, dtype=F32, parts=parts)
-        fvec32 = free_vector(gaW, rt).to(F32)
-        lam32 = lam.to(F32)
-        # the free mask is 0/1, so it applies after the sum exactly
-        diag_H = nd["sum_diag"].add_(torch.zeros(sym.D, dtype=F32, device=ga.device),
-                                     vals) * fvec32
-        dv = torch.rsqrt(torch.clamp(diag_H * (1.0 + lam32), min=1e-12))
-        df = dv * fvec32
-        if opts.precond_reuse and not (pstate or {}).get("stale", True):
+        # a device program's phases (``run.span``); nothing in a host loop
+        with run.span("lm.assemble"):
+            vals = normal_eq_entry_values(gaW, lins, dtype=F32, parts=parts)
+            fvec32 = free_vector(gaW, rt).to(F32)
+            lam32 = lam.to(F32)
+            # the free mask is 0/1, so it applies after the sum exactly
+            diag_H = nd["sum_diag"].add_(torch.zeros(sym.D, dtype=F32, device=ga.device),
+                                         vals) * fvec32
+            dv = torch.rsqrt(torch.clamp(diag_H * (1.0 + lam32), min=1e-12))
+            df = dv * fvec32
+            reuse = opts.precond_reuse and not (pstate or {}).get("stale", True)
+            if not reuse:
+                diag_add = fvec32 * (lam32 / (1.0 + lam32) + jitter) + (1.0 - fvec32)
+                Ws = ndchol_assemble(sym, nd, vals, df, diag_add)
+        if reuse:
             Linvs, L21s, dfp = pstate["Linvs"], pstate["L21s"], pstate["df"]
         else:
-            diag_add = fvec32 * (lam32 / (1.0 + lam32) + jitter) + (1.0 - fvec32)
-            Ws = ndchol_assemble(sym, nd, vals, df, diag_add)
-            Linvs, L21s, _L11s = ndchol_factorize(sym, nd, Ws)
+            with run.span("lm.factorize"):
+                Linvs, L21s, _L11s = ndchol_factorize(sym, nd, Ws)
             dfp = df
 
         def minv(r):
             y = ndchol_solve(sym, nd, Linvs, L21s, r.to(F32) * dfp)
             return (y * dfp).to(wdt)
 
-        g = gradient_from_lins(gaW, lins, rt, parts=parts)
-        fvecW = free_vector(gaW, rt).to(wdt)
-        diagW = diag_H.to(wdt)
-        lamW = lam32.to(wdt)
+        with run.span("lm.cg"):
+            g = gradient_from_lins(gaW, lins, rt, parts=parts)
+            fvecW = free_vector(gaW, rt).to(wdt)
+            diagW = diag_H.to(wdt)
+            lamW = lam32.to(wdt)
 
-        # the loose polish tolerates an f32 Hvp, except on large metric
-        # scales: on the 10 m city grid the f32 Hvp's rounding stalls LM
-        # (+12.7% cost in the JAX package), so there the f64 Hvp is kept
-        if opts.polish_tol >= 1e-3 and wdt != F32 and self._edge_scale <= 3.0:
-            lins32 = [
-                (bb, r0.to(F32), tuple(J.to(F32) for J in Js), vs)
-                for bb, r0, Js, vs in lins
-            ]
+            # the loose polish tolerates an f32 Hvp, except on large metric
+            # scales: on the 10 m city grid the f32 Hvp's rounding stalls LM
+            # (+12.7% cost in the JAX package), so there the f64 Hvp is kept
+            if opts.polish_tol >= 1e-3 and wdt != F32 and self._edge_scale <= 3.0:
+                lins32 = [
+                    (bb, r0.to(F32), tuple(J.to(F32) for J in Js), vs)
+                    for bb, r0, Js, vs in lins
+                ]
 
-            def hD(x):
-                x32 = x.to(F32)
-                out = hvp_from_lins(ga, lins32, unflatten_tangent(ga, x32), rt)
-                return ((flatten_tangent(ga, out) + lam32 * diag_H * x32) * fvec32).to(wdt)
-        else:
-            def hD(x):
-                out = hvp_from_lins(gaW, lins, unflatten_tangent(gaW, x), rt)
-                return (flatten_tangent(gaW, out) + lamW * diagW * x) * fvecW
+                def hD(x):
+                    x32 = x.to(F32)
+                    out = hvp_from_lins(ga, lins32, unflatten_tangent(ga, x32), rt)
+                    return ((flatten_tangent(ga, out) + lam32 * diag_H * x32) * fvec32).to(wdt)
+            else:
+                def hD(x):
+                    out = hvp_from_lins(gaW, lins, unflatten_tangent(gaW, x), rt)
+                    return (flatten_tangent(gaW, out) + lamW * diagW * x) * fvecW
 
-        x, r, k = self._cg_polish(minv, hD, -flatten_tangent(gaW, g), ptol, run)
-        out = self._polish_result(gaW, g, x, r, k, ptol)
+            x, r, k = self._cg_polish(minv, hD, -flatten_tangent(gaW, g), ptol, run)
+            out = self._polish_result(gaW, g, x, r, k, ptol)
         if opts.precond_reuse:
             # refresh signal: the CG needed enough iterations that the reused
             # factor stopped paying for itself
@@ -984,19 +1004,22 @@ class _LMProgram:
 
             edges, priors, sym, arrs = self.chordal
             pose2 = self.values["Pose2"]
-            pose2.copy_(_chordal_body(pose2.dtype, pose2.shape[0], pose2, edges, priors,
-                                      self.rt["free"]["Pose2"], sym, arrs, run))
-            self.chordal_start.copy_(pose2)
-        lins, parts = s._linearize(self.values, self.rt, self.ws)
-        if self.carried is None:
-            self.carried = [(r.clone(), tuple(J.clone() for J in Js)) for _b, r, Js, _v in lins]
-            if parts is not None:
-                self.parts = NormalParts(parts.vals.clone(), parts.offsets,
-                                         {i: j.clone() for i, j in parts.jtr.items()})
-        else:
-            self._carry(lins, parts)
-        self.st.reset()
-        self.st.cost0.copy_(s._sumsq(lins))
+            with run.span("lm.chordal"):
+                pose2.copy_(_chordal_body(pose2.dtype, pose2.shape[0], pose2, edges, priors,
+                                          self.rt["free"]["Pose2"], sym, arrs, run))
+                self.chordal_start.copy_(pose2)
+        with run.span("lm.start_linearize"):
+            lins, parts = s._linearize(self.values, self.rt, self.ws)
+            if self.carried is None:
+                self.carried = [(r.clone(), tuple(J.clone() for J in Js))
+                                for _b, r, Js, _v in lins]
+                if parts is not None:
+                    self.parts = NormalParts(parts.vals.clone(), parts.offsets,
+                                             {i: j.clone() for i, j in parts.jtr.items()})
+            else:
+                self._carry(lins, parts)
+            self.st.reset()
+            self.st.cost0.copy_(s._sumsq(lins))
 
     def _carry(self, lins, parts, ok=None):
         """The carried linearization := ``lins`` / ``parts`` (where ``ok``)."""
@@ -1018,15 +1041,18 @@ class _LMProgram:
     def _step(self, run):
         s, st, rt = self.solver, self.st, self.rt
         lins = [(b, r, Js, vs) for b, (r, Js), vs in zip(s.ga.batches, self.carried, rt["vslots"])]
+        # device phases lm.assemble, lm.factorize and lm.cg inside
         delta, g, exact, extras = s._linear_solve(lins, st.lam, rt, self.parts, None, run=run)
-        trial = s._boxplus_all(self.values, delta, rt)
-        lins_t, parts_t = s._linearize(trial, rt, self.ws)
-        ok = s._lm_update(st, s._sumsq(lins_t), torch.sqrt(_tdot(g, g)).to(F64),
-                          torch.sqrt(_tdot(delta, delta)).to(F64), exact,
-                          extras["pred"].to(F64), extras["cg_iters"], self.step_floor)
-        for t, v in self.values.items():
-            v.copy_(torch.where(ok, trial[t], v))
-        self._carry(lins_t, parts_t, ok)
+        with run.span("lm.linearize"):
+            trial = s._boxplus_all(self.values, delta, rt)
+            lins_t, parts_t = s._linearize(trial, rt, self.ws)
+        with run.span("lm.update"):
+            ok = s._lm_update(st, s._sumsq(lins_t), torch.sqrt(_tdot(g, g)).to(F64),
+                              torch.sqrt(_tdot(delta, delta)).to(F64), exact,
+                              extras["pred"].to(F64), extras["cg_iters"], self.step_floor)
+            for t, v in self.values.items():
+                v.copy_(torch.where(ok, trial[t], v))
+            self._carry(lins_t, parts_t, ok)
 
     def solve(self, values, rt, eager=False):
         """Copy ``values`` and ``rt`` in, run the program (its plain version

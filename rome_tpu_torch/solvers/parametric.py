@@ -19,10 +19,12 @@ from rome_tpu_torch.solvers.gauss_newton import (
 )
 from rome_tpu_torch.solvers.linearize import runtime_state
 from rome_tpu_torch.utils.device import entry_device
+from rome_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger("rome_tpu_torch")
 
 
+@annotate("solve")
 def solve_graph_parametric(
     fg: FactorGraph,
     solve_key: str = "parametric",
@@ -59,6 +61,12 @@ def solve_graph_parametric(
     the graph solves on its one device.
 
     Returns a result dict with stats, and covariances when requested.
+
+    Recorded (``utils/profiling``) as a span ``solve`` with the children
+    ``solve.lower``, ``solve.cache`` (the structure cache; a miss holds
+    ``solver.build``), ``solve.plan`` (the connectivity's plans; a new one
+    holds ``symbolic.build``), ``solve.run`` (the program's copy-in, replays
+    and read, or the host loop) and ``solve.write_back``.
     """
     entry_device(device)
     if schedule not in ("fused", "host"):
@@ -73,7 +81,8 @@ def solve_graph_parametric(
 
         return solve_graph_distributed(fg, solve_key=solve_key, device=device)
 
-    ga = lower(fg, solve_key, dtype=dtype, pad=pad, device=device)
+    with annotate("solve.lower"):
+        ga = lower(fg, solve_key, dtype=dtype, pad=pad, device=device)
 
     # gauge: with no unary factor, freeze the first variable
     has_unary = any(b.ftype.arity == 1 for b in ga.batches)
@@ -94,18 +103,23 @@ def solve_graph_parametric(
     t0 = time.time()
     values0 = ga.values0
     # structure-cached solver; the graph's data rides in as its runtime_state
-    solver = ParametricSolver.cached(ga, opts)
+    with annotate("solve.cache"):
+        solver = ParametricSolver.cached(ga, opts)
     fused = schedule == "fused"
-    if (chordal_init and "Pose2" in ga.counts and ga.counts["Pose2"] > 2
-            and not (fused and solver.fuses_chordal)):
-        from rome_tpu_torch.solvers.init2d import chordal_init_pose2
+    with annotate("solve.plan"):
+        rt = solver.plans(runtime_state(ga), host=not fused)
+    with annotate("solve.run"):
+        if (chordal_init and "Pose2" in ga.counts and ga.counts["Pose2"] > 2
+                and not (fused and solver.fuses_chordal)):
+            from rome_tpu_torch.solvers.init2d import chordal_init_pose2
 
-        values0 = chordal_init_pose2(ga, values0)
-    run = solver.solve if fused else solver.solve_host
-    values, stats = run(values0, rt=runtime_state(ga))
+            values0 = chordal_init_pose2(ga, values0)
+        run = solver.solve if fused else solver.solve_host
+        values, stats = run(values0, rt=rt)
     dt = time.time() - t0
 
-    write_back(fg, ga, values, solve_key)
+    with annotate("solve.write_back"):
+        write_back(fg, ga, values, solve_key)
 
     result = {
         "stats": stats,

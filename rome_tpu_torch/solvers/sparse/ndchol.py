@@ -28,6 +28,8 @@ import math
 
 import torch
 
+from rome_tpu_torch.utils.profiling import annotate, count
+
 # connectivity key -> (host symbolic plan, {device: index tensors}); the ND
 # symbolic phase is the costly host step of a cold solve at 10k poses
 _PLANS: dict = {}
@@ -39,10 +41,12 @@ def cached_symbolic(key, build, device):
     ``key``; ``build()`` makes the :class:`SymbolicChol` plan on a miss. At
     most ``_PLANS_MAX`` plans are kept: a full cache is cleared."""
     entry = _PLANS.get(key)
+    count("symbolic.hit" if entry is not None else "symbolic.miss")
     if entry is None:
         if len(_PLANS) >= _PLANS_MAX:
             _PLANS.clear()
-        entry = _PLANS[key] = (build(), {})
+        with annotate("symbolic.build"):
+            entry = _PLANS[key] = (build(), {})
     sym, devs = entry
     dkey = str(device)
     if dkey not in devs:
