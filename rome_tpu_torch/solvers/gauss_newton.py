@@ -38,6 +38,11 @@ Linear solvers (``GNOptions.linear``):
     f64 matrix-free CG;
   - ``auto``: ``dense`` up to ``dense_threshold`` total dof, else
     ``dense32``.
+``dense`` and ``dense32`` form, scale and factor the normal equations over
+the solve's free dims only (``DenseScatter.of`` with the free mask): a
+fixed-lag step's frozen history and shape-bucket padding never enter the
+D x D system. Every dense factorization counts ``dense.factorizations`` and
+its order in ``dense.dof`` (``utils/profiling.count``).
 
 Precision split of the dense32 and ndchol paths: values, residuals, cost,
 gradient and CG in f64; the factorization in f32 (ndchol: also the
@@ -107,6 +112,14 @@ def _nan_if_failed(L, info):
     if bool((info != 0).any()):
         L.fill_(math.nan)
     return L
+
+
+def _dense_cholesky(H):
+    """The lower Cholesky factor of the dense ``H`` (:func:`_nan_if_failed`),
+    counted as one of ``dense.factorizations`` of ``dense.dof`` its order."""
+    count("dense.factorizations")
+    count("dense.dof", H.shape[0])
+    return _nan_if_failed(*torch.linalg.cholesky_ex(H))
 
 
 def guarded_cg(run, minv, apply, b, tol, iters):
@@ -328,7 +341,8 @@ class ParametricSolver:
             self._dtol = opts.dtol
         self._rt0 = runtime_state(ga)
         self._scatter = TangentScatter.of(ga, self._rt0["vslots"])
-        self._dense = None
+        # this graph's own dense plan and the free mask it was made for
+        self._dense = self._dense_free = None
         self._sym, self._nd = (
             _symbolic_plan(ga, opts.nd_leaf) if linear == "ndchol" else (None, None)
         )
@@ -392,13 +406,28 @@ class ParametricSolver:
 
     def _dense_for(self, rt):
         """The dense normal equations' plan (``DenseScatter``) of ``rt``'s
-        connectivity: this graph's own (made at its first use and kept), or
-        one made for another's."""
+        connectivity: this graph's own (made at its first use and kept while
+        the free mask holds), or one made for another's. The dense and
+        dense32 solves take a plan over ``rt``'s free dims only: a frozen or
+        pad dim's row is an identity decoupled from the rest and its update
+        is zero, so the free block's system is the same without it. Its mask
+        is read from the device once per call."""
+        free = None
+        if self.linear in ("dense", "dense32"):
+            free = (free_vector(self.ga, rt) > 0).cpu().numpy()
         if not self._is_own(rt):
-            return DenseScatter.of(self.ga, rt["vslots"])
-        if self._dense is None:
-            self._dense = DenseScatter.of(self.ga, self._rt0["vslots"])
+            return DenseScatter.of(self.ga, rt["vslots"], free)
+        if self._dense is None or not np.array_equal(free, self._dense_free):
+            self._dense = DenseScatter.of(self.ga, self._rt0["vslots"], free)
+            self._dense_free = free
         return self._dense
+
+    def _with_dense(self, rt):
+        """(``rt`` with its dense plan, the plan): the one the solver put
+        there, else one made for it."""
+        if "dense" not in rt:
+            rt = {**rt, "dense": self._dense_for(rt)}
+        return rt, rt["dense"]
 
     def plans(self, rt=None, host=True):
         """``rt`` (this solver's own by default) with the plans of its
@@ -478,14 +507,14 @@ class ParametricSolver:
         ga, opts = self.ga, self.opts
         use64 = opts.ir_rounds > 0
         hdt = F64 if use64 else ga.dtype
+        rt, plan = self._with_dense(rt)
         H, g = dense_normal_eqs(ga, lins, dtype=hdt, rt=rt)
         diag = torch.clamp(torch.diagonal(H), min=1e-8)
         Hd = H + lam.to(hdt) * torch.diag(diag)
         d = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(Hd), min=1e-12))
         Hs = Hd * d[:, None] * d[None, :]
         bs = -g * d
-        L, info = torch.linalg.cholesky_ex(Hs.to(ga.dtype))
-        L = _nan_if_failed(L, info)
+        L = _dense_cholesky(Hs.to(ga.dtype))
 
         def cho_solve(v):
             return torch.cholesky_solve(v.to(ga.dtype)[:, None], L)[:, 0].to(hdt)
@@ -503,34 +532,37 @@ class ParametricSolver:
                 y = y + cho_solve(r)
             if not float(torch.linalg.norm(bs - Hs @ y)) < rn_best:
                 y = y_best
-        x = ((y * d) * free_vector(ga, rt).to(hdt)).to(ga.dtype)
-        return unflatten_tangent(ga, x), g.to(ga.dtype), True, {}
+        x = (plan.extend(y * d) * free_vector(ga, rt).to(hdt)).to(ga.dtype)
+        return unflatten_tangent(ga, x), plan.extend(g).to(ga.dtype), True, {}
 
     def _solve_dense32(self, lins, lam, rt, parts=None, pstate=None, run=EAGER):
         """f32 dense normal equations with Jacobi scaling and ``chol_jitter``,
         ONE f32 Cholesky as the preconditioner of a short CG on the true
         damped system with the matrix-free Hvp in the working dtype. H is
         damped, scaled and factored in place: H and L are the only D x D
-        buffers."""
+        buffers, over the free dims only where ``rt``'s plan has them (the
+        preconditioner gathers them from the full-length CG vectors and
+        scatters its result back)."""
         gaW, opts = self._gaW, self.opts
         wdt = gaW.dtype
         lam32 = lam.to(F32)
+        rt, plan = self._with_dense(rt)
         H, _g32 = dense_normal_eqs(gaW, lins, dtype=F32, rt=rt)
         diag = torch.clamp(torch.diagonal(H), min=1e-8)
         H.diagonal().add_(lam32 * diag)                 # Hd
         d = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
         H.mul_(d[:, None]).mul_(d[None, :])             # Hs = D Hd D
         H.diagonal().add_(opts.chol_jitter)
-        L = _nan_if_failed(*torch.linalg.cholesky_ex(H))
+        L = _dense_cholesky(H)
         del H
         fvec = free_vector(gaW, rt).to(wdt)
 
         def minv(r):
-            y = torch.cholesky_solve((r.to(F32) * d)[:, None], L)[:, 0]
-            return (y * d).to(wdt) * fvec
+            y = torch.cholesky_solve((plan.restrict(r.to(F32)) * d)[:, None], L)[:, 0]
+            return plan.extend((y * d).to(wdt)) * fvec
 
         g = gradient_from_lins(gaW, lins, rt, parts=parts)
-        diagW, lamW = diag.to(wdt), lam32.to(wdt)
+        diagW, lamW = plan.extend(diag.to(wdt)), lam32.to(wdt)
 
         def hD(x):
             out = hvp_from_lins(gaW, lins, unflatten_tangent(gaW, x), rt)
@@ -650,7 +682,7 @@ class ParametricSolver:
         dvec = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
         H.mul_(dvec[:, None]).mul_(dvec[None, :])       # Hs
         H.diagonal().add_(1e-6)
-        L = _nan_if_failed(*torch.linalg.cholesky_ex(H))
+        L = _dense_cholesky(H)
         del H
         return _row_blocked_tri_inv(L), dvec
 

@@ -389,13 +389,22 @@ class DenseScatter:
     their place in its block (as ``TangentScatter`` and the ndchol plans
     order theirs). Made on the device once per connectivity: a fixed-lag
     step, whose connectivity changes every step, pays one device sort per
-    sum and no host sort."""
+    sum and no host sort.
+
+    A plan over the free dims only (``of`` with a ``free`` mask that holds a
+    frozen or pad dim) numbers the free dims 0 .. D_free - 1 in their global
+    order and sends every frozen dim to one dump row and column, D_free;
+    ``sum`` gives the D_free x D_free system without them and ``free_idx``
+    holds the free dims' global offsets. A free destination's contributions
+    and their order are those of the plan over every dim, so its sum is the
+    same number."""
 
     def __init__(self, offs, vslots, size):
         """``offs``: per batch, per slot, the (n, dof) scalar offsets of the
         slot's variables (tensors, on the device; an offset may repeat, such
         as a dump row); ``vslots``: per batch, its (n, arity) slots; H is
         ``size`` x ``size``."""
+        self.free_idx = None
         dev = vslots[0].device if vslots else "cpu"
         width = max((v.shape[1] for v in vslots), default=0)
         h_dst, h_key, g_dst, g_key = [], [], [], []
@@ -414,15 +423,45 @@ class DenseScatter:
         self.g = SegmentPlan(torch.cat(g_dst), keys=(torch.cat(g_key),), device=dev)
 
     @classmethod
-    def of(cls, ga: GraphArrays, vslots):
-        """The plan of ``ga``'s global tangent over the per-batch ``vslots``."""
+    def of(cls, ga: GraphArrays, vslots, free=None):
+        """The plan of ``ga``'s global tangent over the per-batch ``vslots``;
+        with ``free`` (a host bool mask of the global tangent) that holds a
+        frozen dim, the plan over its free dims only."""
         base, D = tangent_offsets(ga)
+        dev = ga.device
+        idx = None if free is None or free.all() else np.flatnonzero(free)
+        if idx is not None:
+            # global offset -> compact index; frozen and pad dims -> the dump
+            cmap = np.full(D, idx.size, dtype=np.int64)
+            cmap[idx] = np.arange(idx.size)
+            cmap = torch.as_tensor(cmap, device=dev)
         offs = []
         for b, vs in zip(ga.batches, vslots):
-            offs.append([base[t] + vs[:, k, None] * ga.manifolds[t].dof
-                         + torch.arange(ga.manifolds[t].dof, device=vs.device)
-                         for k, t in enumerate(b.vtypes)])
-        return cls(offs, list(vslots), D)
+            o = [base[t] + vs[:, k, None] * ga.manifolds[t].dof
+                 + torch.arange(ga.manifolds[t].dof, device=vs.device)
+                 for k, t in enumerate(b.vtypes)]
+            offs.append(o if idx is None else [cmap[ok] for ok in o])
+        if idx is None:
+            return cls(offs, list(vslots), D)
+        plan = cls(offs, list(vslots), idx.size + 1)
+        plan.free_idx, plan.total = torch.as_tensor(idx, device=dev), D
+        return plan
+
+    @property
+    def dim(self):
+        """The order of the system ``sum`` gives."""
+        return self.size if self.free_idx is None else self.size - 1
+
+    def restrict(self, v):
+        """A global tangent vector's entries at this plan's dims."""
+        return v if self.free_idx is None else v.index_select(0, self.free_idx)
+
+    def extend(self, v):
+        """A vector over this plan's dims as a global tangent vector, zero
+        at the dims it leaves out."""
+        if self.free_idx is None:
+            return v
+        return v.new_zeros(self.total).index_copy_(0, self.free_idx, v)
 
     @staticmethod
     def terms(lins, dtype):
@@ -439,13 +478,15 @@ class DenseScatter:
         return torch.cat(hv), torch.cat(gv)
 
     def sum(self, lins, dtype):
-        """(H, g) of ``lins`` in ``dtype``: (size, size) and (size,)."""
+        """(H, g) of ``lins`` in ``dtype``: (dim, dim) and (dim,), without
+        the dump of a plan over the free dims."""
         hv, gv = self.terms(lins, dtype)
         H = torch.zeros((self.size * self.size,), dtype=dtype, device=hv.device)
         g = torch.zeros((self.size,), dtype=dtype, device=gv.device)
         self.h.add_(H, hv)
         self.g.add_(g, gv)
-        return H.view(self.size, self.size), g
+        n = self.dim
+        return H.view(self.size, self.size)[:n, :n], g[:n]
 
 
 def dense_normal_eqs(ga: GraphArrays, lins, dtype=None, rt=None):
@@ -456,13 +497,16 @@ def dense_normal_eqs(ga: GraphArrays, lins, dtype=None, rt=None):
     fixed-order sum per output (``rt["dense"]``, a ``DenseScatter``, where
     the solver put one; else one made for ``lins``' slots); the free mask
     is applied to H in place (a 0/1 mask, so the products are exact), so H
-    is the only D x D buffer.
+    is the only D x D buffer. A plan over the free dims only gives H and g
+    over those (``DenseScatter.free_idx``), with no frozen dim to mask.
     """
     dtype = dtype or ga.dtype
     plan = rt.get("dense") if rt is not None else None
     if plan is None:
         plan = DenseScatter.of(ga, [vs for _b, _r0, _Js, vs in lins])
     H, g = plan.sum(lins, dtype)
+    if plan.free_idx is not None:
+        return H, g
     f = free_vector(ga, rt).to(dtype)
     H.mul_(f[:, None]).mul_(f[None, :])
     H.diagonal().add_(1.0 - f)

@@ -23,6 +23,15 @@ package runs the same chunks through its own ``parse_g2o_instruction``.
   (both packages run out max_iters on some float32 steps), with no slack.
 - Frozen drift exactly 0.0 in both packages: a frozen pose keeps its
   float64 value bit for bit through every later solve.
+- The dense solves over the free window only: on a 9 x 10 grid with its
+  first 65 poses frozen and shape buckets (6 pad poses), one LM step of
+  ``dense`` (float64) and ``dense32`` (float32 graph, f64 values) factors
+  the 75 free dims alone, its delta within 1e-5 relative of the exact
+  solve of the full-D masked system of ``dense_normal_eqs`` and of the
+  full-D path, zero at every frozen and pad dim; with no frozen dim the
+  plan is the identity and the step bit-equal to the full-D path. A
+  dense32 stream of 100 poses run twice gives the same poses bit for bit,
+  each step factoring 3 x its free poses.
 """
 
 import logging
@@ -37,8 +46,20 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import rome_tpu as R  # noqa: E402
+import rome_tpu_torch as T  # noqa: E402
 from rome_tpu.frontend.robot_utils import fifo_freeze as jax_fifo_freeze  # noqa: E402
 from rome_tpu.io.g2o import parse_g2o_instruction as jax_parse  # noqa: E402
+from rome_tpu_torch.frontend.robot_utils import fifo_freeze  # noqa: E402
+from rome_tpu_torch.graph.lower import lower  # noqa: E402
+from rome_tpu_torch.solvers.gauss_newton import ParametricSolver  # noqa: E402
+from rome_tpu_torch.solvers.linearize import (  # noqa: E402
+    DenseScatter,
+    dense_normal_eqs,
+    flatten_tangent,
+    free_vector,
+)
+from rome_tpu_torch.utils import profiling  # noqa: E402
+from test_torch_helpers import grid_graph  # noqa: E402
 
 
 sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir)))
@@ -168,3 +189,83 @@ def test_fixedlag_path_rehearsal(tmp_path):
     assert fl["checks"][0]["window_err_m"] <= C.FIXEDLAG_WINDOW_GATE_M
     assert doc["incremental"]["steps"] == 6
     assert np.isfinite(fl["end_state_ate_vs_batch_m"])
+
+
+# --- the dense solves over the free window only ---------------------------------
+
+DENSE_DTYPES = {"dense": torch.float64, "dense32": torch.float32}
+
+
+def _counted(fn):
+    """(fn(), the dense factorizations it made, their summed order)."""
+    c0 = dict(profiling.COUNTERS)
+    out = fn()
+    c = profiling.COUNTERS
+    return (out, c["dense.factorizations"] - c0.get("dense.factorizations", 0),
+            c["dense.dof"] - c0.get("dense.dof", 0))
+
+
+@pytest.mark.parametrize("frozen,pad", [(65, True), (0, False)])
+@pytest.mark.parametrize("linear", ["dense", "dense32"])
+def test_dense_step_factors_the_free_window_only(linear, frozen, pad):
+    fg = grid_graph(T, 9, 10, seed=5, frozen=[f"x{i}" for i in range(frozen)])
+    ga = lower(fg, dtype=DENSE_DTYPES[linear], pad=pad, device="cpu")
+    assert ga.counts["Pose2"] == (96 if pad else 90)
+    solver = ParametricSolver(ga, T.GNOptions(linear=linear))
+    gaW = solver._gaW
+    values, rt = solver._start(None, None)
+    lins, parts = solver._linearize(values, rt)
+    lam = torch.tensor(1e-3, dtype=ga.dtype)
+
+    def step(rt):
+        delta, *_ = solver._linear_solve(lins, lam, rt, parts, solver._pstate0())
+        return flatten_tangent(ga, delta).to(torch.float64)
+
+    x, n_fact, dof = _counted(lambda: step(rt))
+    assert n_fact == 1 and dof == 3 * (90 - frozen)
+    # the full-D path: the plan over every dim, frozen rows masked to identity
+    full = dict(rt, dense=DenseScatter.of(gaW, rt["vslots"]))
+    x_full, _n, dof_full = _counted(lambda: step(full))
+    assert dof_full == 3 * ga.counts["Pose2"]
+    if not frozen:
+        assert rt["dense"].free_idx is None and torch.equal(x, x_full)
+        return
+    assert rt["dense"].dim == 75
+    f = free_vector(ga, rt)
+    assert int((f == 0).sum()) == 3 * (65 + 6) and bool((x[f == 0] == 0).all())
+    H, g = dense_normal_eqs(gaW, lins, dtype=torch.float64, rt=full)
+    diag = torch.clamp(torch.diagonal(H), min=1e-8)
+    x_ref = torch.linalg.solve(H + float(lam) * torch.diag(diag), -g)
+    for got in (x, x_full):
+        assert float(torch.linalg.norm(got - x_ref)) <= 1e-5 * float(torch.linalg.norm(x_ref))
+
+
+def _dense32_stream(poses):
+    """tools/torch/incremental_bench.py's fixed-lag stream of ``poses`` in
+    float32 with the steps' solver forced to dense32: the final poses and
+    every step's (free poses, factorizations, summed order)."""
+    fg = IB._mk_fg()
+    fg.params.qfl = C.FIXEDLAG_WINDOW
+    fg.params.isfixedlag = True
+    opts = T.GNOptions(max_iters=IB.MAX_ITERS, linear="dense32")
+    steps = []
+    for chunk in IB.solve_chunks(IB.stream_instructions(poses)):
+        for ins in chunk:
+            IB.add_instruction(fg, ins)
+        fifo_freeze(fg)
+        n_free = sum(fg.variables[l].solvable > 0 for l in fg.ls(r"^x\d+$"))
+        res, n_fact, dof = _counted(lambda: T.solve_graph_parametric(
+            fg, init=False, options=opts, chordal_init=False, pad=True,
+            dtype=torch.float32, device="cpu"))
+        assert res["linear_solver"] == "dense32"
+        steps.append((n_free, n_fact, dof))
+    return np.stack([fg.get_coords(f"x{i}") for i in range(poses)]), steps
+
+
+def test_dense32_stream_one_answer_per_input():
+    a, steps = _dense32_stream(100)
+    b, steps_b = _dense32_stream(100)
+    assert np.array_equal(a.view(np.uint64), b.view(np.uint64)) and steps == steps_b
+    assert steps[-1][0] == C.FIXEDLAG_WINDOW
+    for n_free, n_fact, dof in steps:
+        assert n_fact >= 1 and dof == 3 * n_free * n_fact
