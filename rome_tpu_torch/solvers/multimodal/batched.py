@@ -24,7 +24,10 @@ three sequential Gauss-Seidel passes over the chronological variable order
 (``gs_pass``), so loop-closure corrections cross the whole graph before the
 Jacobi sweeps, which move information one hop each. Beliefs and the
 lowering are float32 on the solver's device; random draws come from one
-``torch.Generator`` seeded by the solve.
+``torch.Generator`` seeded by the solve. Each stage is a span of
+``utils/profiling`` (``np.init``, ``np.sweep`` > ``np.messages`` and
+``np.products``, ``np.write_back``); each batched particle solve counts
+``np.gn_solves`` and ``np.gn_rows`` (``convolve._gn_solve_target``).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from rome_tpu_torch.solvers.multimodal.kde import (
 )
 from rome_tpu_torch.utils.device import entry_device
 from rome_tpu_torch.utils.math import einsum
+from rome_tpu_torch.utils.profiling import annotate
 
 
 def set_points_from_beliefs(fg: FactorGraph, labels, solve_key: str, device="cuda",
@@ -471,15 +475,16 @@ class BatchedNonparametricSolver:
         (optional {type: (V,)} / {type: (V, K)} arrays) let a tree schedule
         update only selected variables from a restricted message set."""
         bp, ga = self.bp, self.ga
-        msgs = _messages(bp, ga, beliefs, self._params_all, gen)
-        padded, masks = _pad_messages(bp, ga, beliefs, msgs)
-        if bp.fallback:
-            self.scatter_beliefs(beliefs)  # the fallback reads the records
-            for flbl, vlbl, t, vslot, k in bp.fallback:
-                m = approx_conv(self.fg, flbl, vlbl, self.solve_key, gen=gen, N=self.N,
-                                device=ga.device)
-                padded[t][vslot, k] = m.to(ga.dtype)
-                masks[t][vslot, k] = 1.0
+        with annotate("np.messages"):
+            msgs = _messages(bp, ga, beliefs, self._params_all, gen)
+            padded, masks = _pad_messages(bp, ga, beliefs, msgs)
+            if bp.fallback:
+                self.scatter_beliefs(beliefs)  # the fallback reads the records
+                for flbl, vlbl, t, vslot, k in bp.fallback:
+                    m = approx_conv(self.fg, flbl, vlbl, self.solve_key, gen=gen, N=self.N,
+                                    device=ga.device)
+                    padded[t][vslot, k] = m.to(ga.dtype)
+                    masks[t][vslot, k] = 1.0
         if msg_masks is not None:
             masks = {t: masks[t] * self._tensor(msg_masks[t]) for t in masks}
         var_masks = {
@@ -487,7 +492,8 @@ class BatchedNonparametricSolver:
             else torch.ones((ga.counts[t],), dtype=ga.dtype, device=ga.device)
             for t in padded
         }
-        return _products(bp, ga, beliefs, padded, masks, var_masks, gen)
+        with annotate("np.products"):
+            return _products(bp, ga, beliefs, padded, masks, var_masks, gen)
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), device=self.ga.device).to(self.ga.dtype)
@@ -593,13 +599,15 @@ class BatchedNonparametricSolver:
             raise ValueError(f"unknown init {init!r}")
         gen = torch.Generator(device=self.ga.device)
         gen.manual_seed(int(seed))
-        if init == "points":
-            self.init_beliefs_from_points(gen)
-        elif init:
-            from rome_tpu_torch.solvers.multimodal.solve import init_all_beliefs
+        with annotate("np.init"):
+            if init == "points":
+                self.init_beliefs_from_points(gen)
+            elif init:
+                from rome_tpu_torch.solvers.multimodal.solve import init_all_beliefs
 
-            init_all_beliefs(self.fg, self.solve_key, N=self.N, gen=gen, device=self.ga.device)
-        beliefs = self.gather_beliefs()
+                init_all_beliefs(self.fg, self.solve_key, N=self.N, gen=gen,
+                                 device=self.ga.device)
+            beliefs = self.gather_beliefs()
         if init is True:
             # the particle init carries accumulated odometry drift: smoothing
             # passes carry loop-closure corrections across the whole graph
@@ -610,6 +618,8 @@ class BatchedNonparametricSolver:
                     break
                 beliefs = out
         for _ in range(sweeps):
-            beliefs = self.sweep(beliefs, gen)
-        self.write_back(beliefs)
+            with annotate("np.sweep"):
+                beliefs = self.sweep(beliefs, gen)
+        with annotate("np.write_back"):
+            self.write_back(beliefs)
         return self.fg

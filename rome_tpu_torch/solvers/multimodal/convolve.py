@@ -27,6 +27,7 @@ from rome_tpu_torch.graph.graph import FactorGraph
 from rome_tpu_torch.solvers.multimodal.kde import categorical, silverman_bandwidth
 from rome_tpu_torch.utils.device import entry_device
 from rome_tpu_torch.utils.math import matvec
+from rome_tpu_torch.utils.profiling import count
 
 DTYPE = torch.float32
 
@@ -48,8 +49,11 @@ def _gn_solve_target(ftype, slot, mans, z, params, other_pts, x0, iters=10, damp
     z (M, zdim) measurement samples; params: dict of (M, ...) per-particle
     factor parameters (``sqrt_info`` among them); other_pts: tuple of
     (M, point_dim) points for every slot (the target's entry is ignored);
-    x0 (M, point_dim) start. Returns (M, point_dim).
+    x0 (M, point_dim) start. Returns (M, point_dim). Counts one
+    ``np.gn_solves`` and M ``np.gn_rows`` (``utils/profiling.count``).
     """
+    count("np.gn_solves")
+    count("np.gn_rows", x0.shape[0])
     man = mans[slot]
 
     def resid(d, x, z, params, others):

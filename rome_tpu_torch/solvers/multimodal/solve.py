@@ -23,6 +23,7 @@ from rome_tpu_torch.solvers.multimodal.batched import (
 from rome_tpu_torch.solvers.multimodal.convolve import DTYPE, approx_conv
 from rome_tpu_torch.solvers.multimodal.kde import ManifoldKernelDensity, gibbs_product
 from rome_tpu_torch.utils.device import entry_device
+from rome_tpu_torch.utils.profiling import annotate
 
 
 def _generator(gen, device, seed):
@@ -144,20 +145,27 @@ def solve_graph_nonparametric(
     records. ``engine="loop"``: the per-variable host loop of
     ``predict_belief`` (the reference-shaped cross-check).
     ``SolverParams.treeinit`` routes the solve through the Bayes tree.
-    ``seed`` seeds the solve's ``torch.Generator``.
+    ``seed`` seeds the solve's ``torch.Generator``. The call is one
+    ``np.solve`` span (``utils/profiling``).
     """
     if engine not in ("batched", "loop"):
         raise ValueError(f"unknown engine {engine!r}")
     if init not in (True, False, "points"):
         raise ValueError(f"unknown init {init!r}")
     entry_device(device)
+    with annotate("np.solve"):
+        return _solve(fg, solve_key, sweeps, N, seed, init, engine, device)
+
+
+def _solve(fg, solve_key, sweeps, N, seed, init, engine, device):
     if fg.params.treeinit:
         from rome_tpu_torch.solvers.multimodal.tree import solve_tree
 
         solve_tree(fg, solve_key=solve_key, N=N, seed=seed, init=init, device=device)
         return fg
     if engine == "batched":
-        solver = BatchedNonparametricSolver(fg, solve_key, N=N, device=device)
+        with annotate("np.lower"):
+            solver = BatchedNonparametricSolver(fg, solve_key, N=N, device=device)
         return solver.solve(sweeps=sweeps, seed=seed, init=init)
 
     N = N or fg.params.N
