@@ -221,14 +221,14 @@ def beehive_solve(torch, poses=C.BEEHIVE_POSES, N=C.BEEHIVE_N):
 def beehive_phases(torch, card, n=3):
     from rome_tpu_torch.ops import pairwise_cuda as P
     from rome_tpu_torch.solvers.multimodal import batched as B
-    from rome_tpu_torch.solvers.multimodal import convolve as V
 
     timer = C.PhaseTimer(torch)
     timer.wrap(B.BatchedNonparametricSolver, "init_beliefs_from_points", "points_init")
     timer.wrap(B.BatchedNonparametricSolver, "gather_beliefs", "gather_beliefs")
     timer.wrap(B.BatchedNonparametricSolver, "scatter_beliefs", "scatter_beliefs")
     timer.wrap(B, "_messages", "messages")
-    timer.wrap(V, "_gn_solve_target", "messages.gauss_newton")
+    # one call per message, its program replayed (or captured) inside
+    timer.wrap(B, "conv_particles", "messages.gauss_newton")
     timer.wrap(B, "_pad_messages", "pad_messages")
     timer.wrap(B, "_products", "products")
     timer.wrap(P, "se2_gibbs_draw", "products.k2_draw")
@@ -313,7 +313,8 @@ def _default_timer(torch):
     timer.wrap(B.BatchedNonparametricSolver, "sweep", "jacobi_sweep")
     timer.wrap(B.BatchedNonparametricSolver, "write_back", "write_back")
     timer.wrap(B, "_source_messages", "messages")
-    timer.wrap(V, "_gn_solve_target", "gauss_newton")
+    timer.wrap(B, "conv_particles", "gauss_newton")
+    timer.wrap(V, "conv_particles", "gauss_newton")
     timer.wrap(B, "_masked_gibbs", "gibbs_products")
     timer.wrap(P, "se2_gibbs_draw", "k2_draw")
     timer.wrap(P, "euclid_gibbs_draw", "k3_draw")

@@ -27,7 +27,9 @@ lowering are float32 on the solver's device; random draws come from one
 ``torch.Generator`` seeded by the solve. Each stage is a span of
 ``utils/profiling`` (``np.init``, ``np.sweep`` > ``np.messages`` and
 ``np.products``, ``np.write_back``); each batched particle solve counts
-``np.gn_solves`` and ``np.gn_rows`` (``convolve._gn_solve_target``).
+``np.gn_solves``, ``np.gn_rows`` and a ``np.gn_program.hit`` or ``.miss``
+(``convolve.conv_particles``: one device program per message's shapes,
+captured at its first call and replayed).
 """
 
 from __future__ import annotations

@@ -5,6 +5,10 @@ To propagate a belief through a factor toward a target variable, each
 particle's sampled measurement is solved for ``residual = 0`` on the
 target's few tangent dofs: a fixed-iteration damped Gauss-Newton, batched
 over every particle (and, in the batched engine, every factor) at once.
+Each message's initializer and iterations are one device program per key
+(factor type, slot, particle count, dtype, device, the params' shapes),
+captured as a CUDA graph at the key's first call and replayed, as the JAX
+package jits ``_cached_conv`` once per key (``conv_particles``).
 
 ``approx_conv`` also carries the per-particle hypothesis machinery:
 ``nullhypo`` (a particle keeps its inflated prior sample with probability
@@ -26,6 +30,7 @@ from torch.func import jacfwd, vmap
 from rome_tpu_torch.graph.graph import FactorGraph
 from rome_tpu_torch.solvers.multimodal.kde import categorical, silverman_bandwidth
 from rome_tpu_torch.utils.device import entry_device
+from rome_tpu_torch.utils.device_loop import Program
 from rome_tpu_torch.utils.math import matvec
 from rome_tpu_torch.utils.profiling import count
 
@@ -49,11 +54,9 @@ def _gn_solve_target(ftype, slot, mans, z, params, other_pts, x0, iters=10, damp
     z (M, zdim) measurement samples; params: dict of (M, ...) per-particle
     factor parameters (``sqrt_info`` among them); other_pts: tuple of
     (M, point_dim) points for every slot (the target's entry is ignored);
-    x0 (M, point_dim) start. Returns (M, point_dim). Counts one
-    ``np.gn_solves`` and M ``np.gn_rows`` (``utils/profiling.count``).
+    x0 (M, point_dim) start. Returns (M, point_dim). Reads nothing on the
+    host: a message's program captures it (:class:`_GNProgram`).
     """
-    count("np.gn_solves")
-    count("np.gn_rows", x0.shape[0])
     man = mans[slot]
 
     def resid(d, x, z, params, others):
@@ -83,13 +86,86 @@ def _gn_solve_target(ftype, slot, mans, z, params, other_pts, x0, iters=10, damp
     return x
 
 
-def conv_particles(ftype, slot, mans, params, z, x0, pts):
-    """One message: seed the target slot from the factor's closed-form
-    initializer (or ``x0``) and solve every particle. ``params``: (M, ...)
-    per particle; z (M, zdim); x0 (M, pdim); pts: (M, pdim) per slot."""
+def _conv(ftype, slot, mans, params, z, x0, pts):
+    """One message's arithmetic: the target slot seeded from the factor's
+    closed-form initializer (or ``x0``), then every particle solved. The
+    body of :class:`_GNProgram` and its plain version alike."""
     init_fn = ftype.initializers.get(slot)
     x_init = init_fn({**params, "z": z}, list(pts)) if init_fn is not None else x0
     return _gn_solve_target(ftype, slot, mans, z, params, pts, x_init)
+
+
+class _GNProgram:
+    """:func:`_conv` of one (factor type, slot, particle count, dtype,
+    device, params' shapes) as a device program (``utils/device_loop``):
+    static inputs that each call copies in (z, each per-particle param, each
+    slot's points, x0), the initializer and the Gauss-Newton iterations
+    replayed from them, the solved points out. Captured at its first call on
+    the card; run eagerly on the CPU."""
+
+    def __init__(self, ftype, slot, mans, params, z, x0, pts):
+        def buf(t):
+            return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+        self.ftype, self.slot, self.mans = ftype, slot, list(mans)
+        self.params = {k: buf(v) for k, v in params.items()}
+        self.z, self.x0 = buf(z), buf(x0)
+        self.pts = [buf(p) for p in pts]
+        self.out = buf(x0)
+        self.program = Program(z.device, [(self._body, 1)], name="np_gn")
+
+    def _body(self, run):
+        self.out.copy_(_conv(self.ftype, self.slot, self.mans, self.params, self.z, self.x0,
+                             self.pts))
+
+    def __call__(self, params, z, x0, pts, eager=False):
+        """The solved (M, pdim) points of these inputs (a new tensor); with
+        ``eager`` the program's plain version."""
+        for k, b in self.params.items():
+            b.copy_(params[k])
+        for b, p in zip(self.pts, pts):
+            b.copy_(p)
+        self.z.copy_(z)
+        self.x0.copy_(x0)
+        self.program.run(eager=eager)
+        return self.out.clone()
+
+
+_PROGRAMS: dict = {}
+_PROGRAMS_MAX = 32
+
+
+def _program_key(ftype, slot, mans, params, z, x0, pts):
+    def shape(t):
+        return tuple(t.shape[1:]), t.dtype
+
+    return (ftype, slot, tuple(m.name for m in mans), z.shape[0], z.dtype, str(z.device),
+            tuple((k, *shape(v)) for k, v in sorted(params.items())), shape(z), shape(x0),
+            tuple(shape(p) for p in pts))
+
+
+def conv_particles(ftype, slot, mans, params, z, x0, pts):
+    """One message: seed the target slot from the factor's closed-form
+    initializer (or ``x0``) and solve every particle. ``params``: (M, ...)
+    per particle; z (M, zdim); x0 (M, pdim); pts: (M, pdim) per slot.
+
+    Runs the keyed :class:`_GNProgram` (at most ``_PROGRAMS_MAX`` kept,
+    cleared when full), as the JAX package jits ``_cached_conv`` once per
+    key. Counts one ``np.gn_solves``, M ``np.gn_rows`` and a
+    ``np.gn_program.hit`` or ``.miss`` (a new program, captured at this
+    call on the card)."""
+    count("np.gn_solves")
+    count("np.gn_rows", z.shape[0])
+    key = _program_key(ftype, slot, mans, params, z, x0, pts)
+    program = _PROGRAMS.get(key)
+    if program is None:
+        count("np.gn_program.miss")
+        if len(_PROGRAMS) >= _PROGRAMS_MAX:
+            _PROGRAMS.clear()
+        program = _PROGRAMS[key] = _GNProgram(ftype, slot, mans, params, z, x0, pts)
+    else:
+        count("np.gn_program.hit")
+    return program(params, z, x0, pts)
 
 
 def record_particles(rec, solve_key, N, gen, device, dtype=DTYPE):

@@ -207,6 +207,7 @@ CAPTURED = {
     "ops/segment_sum.py": ["SegmentPlan.add_"],
     "ops/linearize_cuda.py": ["_launch", "pose2pose2_linearize", "Pose2Pose2Normal.__call__"],
     "ops/fused_linearize.py": ["pose2pose2_linearize_plain", "pose2pose2_normal_plain"],
+    "solvers/multimodal/convolve.py": ["_gn_solve_target", "_conv", "_GNProgram._body"],
 }
 HOST_CASTS = {"float", "int", "bool"}
 HOST_METHODS = {"item", "tolist"}
