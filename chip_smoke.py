@@ -4061,10 +4061,10 @@ def fixed_order_check(card, device="cuda", g2o=CITYGRID):
     rt = L.runtime_state(ga)
     values = {t: v.to(torch.float64) for t, v in ga.values0.items()}
     lins, parts = L.linearize_all_mixed_j(ga64, ga, values, rt)
-    sym, nd = GN._symbolic_plan(ga, BIG["nd_leaf"])
+    sym, nd = GN.ndchol_plan(ga, BIG["nd_leaf"])
     vals = L.normal_eq_entry_values(ga64, lins, dtype=torch.float32, parts=parts)
     fvec = L.free_vector(ga).to(torch.float32)
-    scatter = L.TangentScatter.of(ga, rt["vslots"])
+    scatter = L.TangentScatter.of(ga, rt["key"])
     rt_s = dict(rt, scatter=scatter)
 
     def diag():
@@ -4171,7 +4171,7 @@ def chordal_sum_cases(ga, device):
 
     n = ga.counts["Pose2"]
     e32, p32 = I._pose2_edges(ga), I._pose2_priors(ga)
-    _plan, arrs = I._chordal_plan(n, e32, p32, device)
+    _plan, arrs = I._chordal_plan(ga.key, device)
     f64 = torch.float64
     edges = [(i, j, z.to(f64), S.to(f64), w.to(f64)) for i, j, z, S, w in e32]
     priors = [(i, z.to(f64), S.to(f64), w.to(f64)) for i, z, S, w in p32]
@@ -4434,7 +4434,7 @@ def vision_bundle_path(card, device="cuda", cameras=BUNDLE_CAMERAS, points=BUNDL
                   f"{row['landmark_rmse_to_optimum_m']} > {BUNDLE_LANDMARK_GATE_M} m")
     finally:
         lin.unwrap()
-    sym, _nd = GN._symbolic_plan(lower(fg0, device=device), BUNDLE_BIG["nd_leaf"])
+    sym, _nd = GN.ndchol_plan(lower(fg0, device=device), BUNDLE_BIG["nd_leaf"])
     rng = np.random.default_rng(BUNDLE_SEED + 2)
     picks = np.sort(rng.choice(points, sample, replace=False))
     errs, ms = [], []

@@ -4,6 +4,12 @@
 Factors group by type into dense batches (params stacked, variable slots as
 int64 index tensors); variables group by type into dense point tensors. All
 tensors of a :class:`GraphArrays` live on its ``device``.
+
+The connectivity of a lowered graph, its variable counts and every batch's
+variable slots, is a hashable key made from the host slots before they go
+to the device (``FactorBatch.key``, ``GraphArrays.key``): every store of
+per-connectivity plans and programs is keyed by it, and every plan that
+needs the slots on the host reads them from it (:func:`slots_of`).
 """
 
 from __future__ import annotations
@@ -30,6 +36,19 @@ class FactorBatch:
     # nonparametric-path metadata (add_factor kwargs)
     nullhypo: object = None  # (n,) float eta per factor
     inflation: object = None  # (n,) float init-noise scale per factor
+    # batch_key of vslots: set by to_device, else by whoever builds the batch
+    key: tuple = None
+
+
+def batch_key(ftype_name: str, vtypes, vslots) -> tuple:
+    """A batch's connectivity key: its factor type's name, its variable
+    types and the bytes of its (n, arity) host slots as int64."""
+    return (ftype_name, tuple(vtypes), np.ascontiguousarray(vslots, np.int64).tobytes())
+
+
+def slots_of(key: tuple) -> np.ndarray:
+    """The (n, arity) int64 host slots a :func:`batch_key` holds (read-only)."""
+    return np.frombuffer(key[2], np.int64).reshape(-1, len(key[1]))
 
 
 @dataclass
@@ -48,6 +67,13 @@ class GraphArrays:
     excluded_factors: list = field(default_factory=list)
 
     @property
+    def key(self) -> tuple:
+        """The connectivity key: the variable type names, their counts and
+        every batch's key. The free mask is data, not connectivity."""
+        return (tuple(self.type_names), tuple(self.counts[t] for t in self.type_names),
+                tuple(b.key for b in self.batches))
+
+    @property
     def total_dof(self):
         return sum(self.counts[t] * self.manifolds[t].dof for t in self.type_names)
 
@@ -62,7 +88,8 @@ class GraphArrays:
 
     def to_device(self):
         """Move every host array onto ``self.device`` (values, params, free,
-        weight, nullhypo and inflation in ``self.dtype``; slots as int64)."""
+        weight, nullhypo and inflation in ``self.dtype``; slots as int64),
+        each batch's key made from its host slots first."""
         dev, dt = self.device, self.dtype
 
         def fl(v):
@@ -71,6 +98,7 @@ class GraphArrays:
         self.values0 = {k: fl(v) for k, v in self.values0.items()}
         self.free = {k: fl(v) for k, v in self.free.items()}
         for b in self.batches:
+            b.key = batch_key(b.ftype.name, b.vtypes, b.vslots)
             b.vslots = torch.tensor(np.asarray(b.vslots, np.int64), device=dev)
             b.params = {k: fl(v).contiguous() for k, v in b.params.items()}
             b.weight = fl(b.weight)

@@ -26,7 +26,7 @@ import math
 import numpy as np
 import torch
 
-from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays
+from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays, batch_key, slots_of
 from rome_tpu_torch.parallel.distributed import Mesh, mesh_for
 from rome_tpu_torch.solvers.gauss_newton import ParametricSolver
 from rome_tpu_torch.solvers.linearize import TangentScatter, linearize_all
@@ -53,9 +53,11 @@ def pad_batches_for_mesh(ga: GraphArrays, n_shards: int) -> GraphArrays:
             S = params["sqrt_info"]
             S[b.n:] = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
         weight = torch.cat([b.weight, b.weight.new_zeros(pad)])
+        host = np.concatenate([slots_of(b.key), np.zeros((pad, len(b.vtypes)), np.int64)])
         new_batches.append(FactorBatch(
             ftype=b.ftype, n=b.n + pad, vtypes=b.vtypes, vslots=vslots, params=params,
             weight=weight, labels=list(b.labels),
+            key=batch_key(b.ftype.name, b.vtypes, host),
         ))
     return dataclasses.replace(ga, batches=new_batches)
 
@@ -74,6 +76,7 @@ def _local_arrays(ga: GraphArrays, mesh: Mesh) -> GraphArrays:
             vslots=b.vslots[sl].to(dev),
             params={k: v[sl].to(dev).contiguous() for k, v in b.params.items()},
             weight=b.weight[sl].to(dev),
+            key=batch_key(b.ftype.name, b.vtypes, slots_of(b.key)[sl]),
         ))
     return dataclasses.replace(
         ga, batches=batches, device=dev,
@@ -138,7 +141,7 @@ def make_sharded_gn_step(
     tn, manifolds = ga.type_names, ga.manifolds
     free = loc.free
     # this rank's sums into the variables' rows, in a fixed order
-    scatter = TangentScatter.of(loc, [b.vslots for b in loc.batches])
+    scatter = TangentScatter.of(loc, loc.key)
     ct = np.float32 if dtype == torch.float32 else np.float64
 
     def dof(t):

@@ -31,7 +31,7 @@ import math
 import numpy as np
 import torch
 
-from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays
+from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays, batch_key
 from rome_tpu_torch.parallel.distributed import Mesh, mesh_for
 from rome_tpu_torch.parallel.sharding import lm_loop
 from rome_tpu_torch.solvers.gauss_newton import ParametricSolver
@@ -270,6 +270,7 @@ def make_varpart_solver(ga: GraphArrays, mesh: Mesh = None, axis: str = "v",
             params={k: row(v, dtype if np.issubdtype(v.dtype, np.floating) else None)
                     for k, v in fb["params"].items()},
             weight=row(fb["weight"], dtype),
+            key=batch_key(fb["ftype"].name, fb["vtypes"], fb["vslots"][d]),
         )
         for fb in plan.fb_local
     ]
@@ -353,7 +354,7 @@ def make_varpart_solver(ga: GraphArrays, mesh: Mesh = None, axis: str = "v",
     # the rank's sums in a fixed order, planned once: the gradient into the
     # local rows, the owners' separator tails, and the local dense system
     # [interior | separator | dump DT]
-    scatter = TangentScatter.of(loc, [b.vslots for b in batches])
+    scatter = TangentScatter.of(loc, loc.key)
     sep_sum = {t: SegmentPlan(sep_src[t], device=dev) for t in tn}
     dense = DenseScatter([[slot_offsets(b.vslots[:, k], t) for k, t in enumerate(b.vtypes)]
                           for b in batches], [b.vslots for b in batches], DT + 1)

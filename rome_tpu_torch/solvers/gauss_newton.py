@@ -66,7 +66,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rome_tpu_torch.graph.lower import GraphArrays
+from rome_tpu_torch.graph.lower import GraphArrays, slots_of
+from rome_tpu_torch.solvers.init2d import (
+    _ODO_BATCHES, _chordal_body, _chordal_plan, _pose2_edges, _pose2_priors,
+)
 from rome_tpu_torch.solvers.linearize import (
     DenseScatter,
     NormalEqWorkspace,
@@ -89,7 +92,8 @@ from rome_tpu_torch.solvers.linearize import (
 )
 from rome_tpu_torch.utils.device_loop import EAGER, Program
 from rome_tpu_torch.utils.math import einsum
-from rome_tpu_torch.utils.profiling import annotate, count
+from rome_tpu_torch.utils.profiling import count
+from rome_tpu_torch.utils.store import Store
 
 F32, F64 = torch.float32, torch.float64
 _LINEAR = ("dense", "dense32", "ndchol", "pcg", "mixed")
@@ -237,31 +241,24 @@ class SolveStats:
     reason: str = ""
 
 
-def _symbolic_plan(ga: GraphArrays, leaf: int, vslots=None):
-    """ndchol symbolic factorization of a connectivity (``vslots`` per batch,
-    default the graph's own), cached on the host per connectivity bytes,
-    with its index tensors per device."""
+def ndchol_plan(ga: GraphArrays, leaf: int, key=None):
+    """(ndchol symbolic factorization, its index tensors on ``ga.device``)
+    of the connectivity ``key`` (``GraphArrays.key``, default ``ga``'s),
+    from the ``symbolic`` store (``sparse.cached_symbolic``)."""
     from rome_tpu_torch.solvers.sparse import cached_symbolic, symbolic_factor
     from rome_tpu_torch.solvers.sparse.symbolic import entry_keys
 
-    vslots = [b.vslots for b in ga.batches] if vslots is None else vslots
-    vs = [v.cpu().numpy() for v in vslots]
-    key = (
-        "lm",
-        tuple(ga.type_names),
-        tuple(ga.counts[t] for t in ga.type_names),
-        leaf,
-        tuple((b.vtypes, v.tobytes()) for b, v in zip(ga.batches, vs)),
-    )
+    key = ga.key if key is None else key
 
     def build():
-        dofs = {t: ga.manifolds[t].dof for t in ga.type_names}
-        specs = [(b.vtypes, v) for b, v in zip(ga.batches, vs)]
-        sym = symbolic_factor(ga.type_names, ga.counts, dofs, specs, leaf=leaf)
+        names, counts, batches = key
+        dofs = {t: ga.manifolds[t].dof for t in names}
+        specs = [(bk[1], slots_of(bk)) for bk in batches]
+        sym = symbolic_factor(list(names), dict(zip(names, counts)), dofs, specs, leaf=leaf)
         sym.entry_key = entry_keys(dofs, specs)
         return sym
 
-    return cached_symbolic(key, build, ga.device)
+    return cached_symbolic(("lm", leaf, key), build, ga.device)
 
 
 def _cast_floats(tree, src, dst):
@@ -289,8 +286,8 @@ def _row_blocked_tri_inv(L, blk=1024):
     return Linv
 
 
-_SOLVER_CACHE: dict = {}
-_SOLVER_CACHE_MAX = 8
+# structure signature and options -> solver (``ParametricSolver.cached``)
+_SOLVER_CACHE = Store("solver_cache", 8, span="solver.build")
 
 
 class ParametricSolver:
@@ -340,12 +337,10 @@ class ParametricSolver:
         else:
             self._dtol = opts.dtol
         self._rt0 = runtime_state(ga)
-        self._scatter = TangentScatter.of(ga, self._rt0["vslots"])
-        # this graph's own dense plan and the free mask it was made for
-        self._dense = self._dense_free = None
-        self._sym, self._nd = (
-            _symbolic_plan(ga, opts.nd_leaf) if linear == "ndchol" else (None, None)
-        )
+        # the plans of this graph's own connectivity, made at their first
+        # use (``plans``)
+        self.key = ga.key
+        self._own = {}
         # cost accumulation dtype: always f64; the damping in the graph dtype
         self._cdt = F64
         self._mixed_j = linear == "ndchol" and opts.mixed_jacobians and self._use64
@@ -359,90 +354,58 @@ class ParametricSolver:
             NormalEqWorkspace(self._gaW) if self._mixed_j and self._speculative else None
         )
         # the speculative loop as a device program (_LMProgram), one per
-        # connectivity (ndchol plan), as the JAX package's _programs_for
+        # connectivity, as the JAX package's _programs_for
         self._program_path = self._speculative and not opts.precond_reuse
-        self._programs = {}
+        self._programs = Store("lm_program", 4)
         self.last_program = None
 
     @classmethod
     def cached(cls, ga: GraphArrays, opts: GNOptions = None):
         """Structure-keyed solver reuse: the same structure signature and
         options give the same solver (pass the new graph's runtime_state and
-        values to :meth:`solve`). At most ``_SOLVER_CACHE_MAX`` solvers are
-        kept: a full cache is cleared."""
+        values to :meth:`solve`). At most 8 solvers are kept: a full cache
+        is cleared (``_SOLVER_CACHE``)."""
         opts = opts or GNOptions()
         key = (structure_signature(ga), tuple(sorted(vars(opts).items())))
-        solver = _SOLVER_CACHE.get(key)
-        if solver is not None:
-            count("solver_cache.hit")
-            return solver
-        count("solver_cache.miss")
-        if len(_SOLVER_CACHE) >= _SOLVER_CACHE_MAX:
-            count("solver_cache.clear")
-            _SOLVER_CACHE.clear()
-        with annotate("solver.build"):
-            solver = _SOLVER_CACHE[key] = cls(ga, opts)
-        return solver
+        return _SOLVER_CACHE.get(key, lambda: cls(ga, opts))
 
     # -- building blocks ---------------------------------------------------------
-    def _is_own(self, rt):
-        """Whether ``rt`` holds this graph's own connectivity."""
-        vs, own = rt["vslots"], self._rt0["vslots"]
-        return len(vs) == len(own) and all(a is b for a, b in zip(vs, own))
-
-    def _plan_for(self, rt):
-        """The ndchol (plan, index tensors) of the connectivity ``rt`` holds:
-        this graph's own, or one re-derived (and cached) for another's."""
-        if self._is_own(rt):
-            return self._sym, self._nd
-        return _symbolic_plan(self.ga, self.opts.nd_leaf, rt["vslots"])
-
-    def _scatter_for(self, rt):
-        """The tangent sums' plan (``TangentScatter``) of ``rt``'s
-        connectivity: this graph's own, or one made for another's."""
-        if self._is_own(rt):
-            return self._scatter
-        return TangentScatter.of(self.ga, rt["vslots"])
-
-    def _dense_for(self, rt):
-        """The dense normal equations' plan (``DenseScatter``) of ``rt``'s
-        connectivity: this graph's own (made at its first use and kept while
-        the free mask holds), or one made for another's. The dense and
-        dense32 solves take a plan over ``rt``'s free dims only: a frozen or
-        pad dim's row is an identity decoupled from the rest and its update
-        is zero, so the free block's system is the same without it. Its mask
-        is read from the device once per call."""
-        free = None
-        if self.linear in ("dense", "dense32"):
-            free = (free_vector(self.ga, rt) > 0).cpu().numpy()
-        if not self._is_own(rt):
-            return DenseScatter.of(self.ga, rt["vslots"], free)
-        if self._dense is None or not np.array_equal(free, self._dense_free):
-            self._dense = DenseScatter.of(self.ga, self._rt0["vslots"], free)
-            self._dense_free = free
-        return self._dense
-
-    def _with_dense(self, rt):
-        """(``rt`` with its dense plan, the plan): the one the solver put
-        there, else one made for it."""
-        if "dense" not in rt:
-            rt = {**rt, "dense": self._dense_for(rt)}
-        return rt, rt["dense"]
-
     def plans(self, rt=None, host=True):
-        """``rt`` (this solver's own by default) with the plans of its
-        connectivity that a solve takes, looked up or made: the ndchol plan
-        and, unless the device program solves it (``host=False`` and the
-        program path), the tangent sums' plan and the dense solvers' plan."""
-        rt = rt if rt is not None else self._rt0
+        """``rt`` (this solver's graph's by default) with the plans of its
+        connectivity that a solve takes: the ndchol plan and, unless the
+        device program solves it (``host=False`` and the program path), the
+        tangent sums' plan and the dense solvers' plan. The one place that
+        attaches them, by ``rt["key"]``: this solver's own connectivity's
+        are kept (the dense plan while the free mask holds), another's made
+        (its ndchol plan from the ``symbolic`` store).
+
+        The dense and dense32 solves take a plan over ``rt``'s free dims
+        only: a frozen or pad dim's row is an identity decoupled from the
+        rest and its update is zero, so the free block's system is the same
+        without it. Its mask is read from the device once per call."""
+        rt = self._rt0 if rt is None else rt
+        ga, key = self.ga, rt["key"]
+        kept = self._own if key == self.key else {}
+        add = {}
         if self.linear == "ndchol" and "ndchol" not in rt:
-            rt = {**rt, "ndchol": self._plan_for(rt)}
+            if "ndchol" not in kept:
+                kept["ndchol"] = ndchol_plan(ga, self.opts.nd_leaf, key)
+            add["ndchol"] = kept["ndchol"]
         if host or not self._program_path:
             if "scatter" not in rt:
-                rt = {**rt, "scatter": self._scatter_for(rt)}
+                if "scatter" not in kept:
+                    kept["scatter"] = TangentScatter.of(ga, key)
+                add["scatter"] = kept["scatter"]
             if self.linear in _DENSE_LINEAR and "dense" not in rt:
-                rt = {**rt, "dense": self._dense_for(rt)}
-        return rt
+                free = None
+                if self.linear in ("dense", "dense32"):
+                    free = (free_vector(ga, rt) > 0).cpu().numpy()
+                dfree, dense = kept.get("dense", (None, None))
+                if dense is None or not np.array_equal(free, dfree):
+                    dense = DenseScatter.of(ga, rt["vslots"], free)
+                    kept["dense"] = (free, dense)
+                add["dense"] = dense
+        return {**rt, **add} if add else rt
 
     def _start(self, values, rt):
         """(values in the working dtype, rt with the ndchol plan, the
@@ -507,7 +470,7 @@ class ParametricSolver:
         ga, opts = self.ga, self.opts
         use64 = opts.ir_rounds > 0
         hdt = F64 if use64 else ga.dtype
-        rt, plan = self._with_dense(rt)
+        plan = rt["dense"]
         H, g = dense_normal_eqs(ga, lins, dtype=hdt, rt=rt)
         diag = torch.clamp(torch.diagonal(H), min=1e-8)
         Hd = H + lam.to(hdt) * torch.diag(diag)
@@ -546,7 +509,7 @@ class ParametricSolver:
         gaW, opts = self._gaW, self.opts
         wdt = gaW.dtype
         lam32 = lam.to(F32)
-        rt, plan = self._with_dense(rt)
+        plan = rt["dense"]
         H, _g32 = dense_normal_eqs(gaW, lins, dtype=F32, rt=rt)
         diag = torch.clamp(torch.diagonal(H), min=1e-8)
         H.diagonal().add_(lam32 * diag)                 # Hd
@@ -582,7 +545,7 @@ class ParametricSolver:
         )
 
         ga, gaW, opts = self.ga, self._gaW, self.opts
-        sym, nd = rt["ndchol"] if "ndchol" in rt else self._plan_for(rt)
+        sym, nd = rt["ndchol"]
         wdt = gaW.dtype
         jitter, ptol = opts.chol_jitter, opts.polish_tol
         # a device program's phases (``run.span``); nothing in a host loop
@@ -755,7 +718,7 @@ class ParametricSolver:
         Returns (trial values, cost0, cost1, gnorm, dnorm, exact, pred,
         cg_iters) with the scalars as host numbers."""
         lam = torch.as_tensor(lam, dtype=self.ga.dtype, device=self.ga.device)
-        trial, *scalars = self._step_tensors(values, lam, rt, pstate)
+        trial, *scalars = self._step_tensors(values, lam, self.plans(rt), pstate)
         # ONE device-to-host transfer for every scalar
         c0, c1, gn, dn, ex, pr, cg = torch.stack([t.to(self._cdt) for t in scalars]).tolist()
         return trial, c0, c1, gn, dn, bool(ex), pr, int(cg)
@@ -879,17 +842,9 @@ class ParametricSolver:
         if not self._program_path:
             values, rt = self._start(values, rt)
             return self._solve_speculative(values, rt)
-        rt = rt if rt is not None else self._rt0
-        sym = (rt["ndchol"] if "ndchol" in rt else self._plan_for(rt))[0]
-        # keyed by the plan's identity; the entry holds the plan, so the id
-        # is not reused while the entry lives
-        _sym, program = self._programs.get(id(sym), (None, None))
-        if program is None:
-            _v, rt0 = self._start(None, rt)
-            if len(self._programs) >= _PROGRAMS_MAX:
-                self._programs.clear()
-            program = _LMProgram(self, rt0)
-            self._programs[id(sym)] = (sym, program)
+        rt = self._rt0 if rt is None else rt
+        # one program per connectivity, made with its plans (at most 4 kept)
+        program = self._programs.get(rt["key"], lambda: _LMProgram(self, self.plans(rt)))
         self.last_program = program
         return program.solve(values or self.ga.values0, rt, eager)
 
@@ -927,8 +882,6 @@ class ParametricSolver:
         return values, self._stats(_read(st.read_list()))
 
 
-_PROGRAMS_MAX = 4
-_ODO_BATCHES = ("Pose2Pose2", "MutablePose2Pose2Gaussian")
 
 
 def _read(tensors):
@@ -997,13 +950,13 @@ class _LMProgram:
         self.values_in = {t: torch.empty(v.shape, dtype=gaW.dtype, device=ga.device)
                           for t, v in ga.values0.items()}
         self.values = {t: torch.empty_like(v) for t, v in self.values_in.items()}
+        # rt's connectivity key and plans, and its own copies of the data
         self.rt = {
+            **rt,
             "params": tuple({k: v.clone() for k, v in p.items()} for p in rt["params"]),
             "vslots": tuple(v.clone() for v in rt["vslots"]),
             "weight": tuple(w.clone() for w in rt["weight"]),
             "free": {t: f.clone() for t, f in rt["free"].items()},
-            "ndchol": rt["ndchol"],
-            "scatter": rt["scatter"],
         }
         self.ws = NormalEqWorkspace(gaW) if solver._mixed_j else None
         self.carried = self.parts = None
@@ -1011,17 +964,8 @@ class _LMProgram:
         self.step_floor = 1e-4 if gaW.dtype == F32 else 1e-9
         self.chordal = self.chordal_start = None
         if solver.fuses_chordal:
-            from rome_tpu_torch.solvers.init2d import _chordal_plan
-
-            r = self.rt
-            edges = [(r["vslots"][i][:, 0], r["vslots"][i][:, 1], r["params"][i]["z"],
-                      r["params"][i]["sqrt_info"], r["weight"][i])
-                     for i, b in enumerate(ga.batches) if b.ftype.name in _ODO_BATCHES]
-            priors = [(r["vslots"][i][:, 0], r["params"][i]["z"], r["params"][i]["sqrt_info"],
-                       r["weight"][i])
-                      for i, b in enumerate(ga.batches) if b.ftype.name == "PriorPose2"]
-            plan, arrs = _chordal_plan(ga.counts["Pose2"], edges, priors, ga.device)
-            self.chordal = (edges, priors, plan.sym, arrs)
+            plan, arrs = _chordal_plan(rt["key"], ga.device)
+            self.chordal = (_pose2_edges(ga, self.rt), _pose2_priors(ga, self.rt), plan.sym, arrs)
             self.chordal_start = torch.empty_like(self.values["Pose2"])
         self.program = Program(ga.device, [(self._start, 1),
                                            (self._iterate, int(solver.opts.max_iters))],
@@ -1032,8 +976,6 @@ class _LMProgram:
         for t, v in self.values.items():
             v.copy_(self.values_in[t])
         if self.chordal is not None:
-            from rome_tpu_torch.solvers.init2d import _chordal_body
-
             edges, priors, sym, arrs = self.chordal
             pose2 = self.values["Pose2"]
             with run.span("lm.chordal"):
@@ -1192,9 +1134,8 @@ def _marginal_covariances_takahashi(ga: GraphArrays, lins, rt, hdt):
     )
 
     rt = rt if rt is not None else runtime_state(ga)
-    # the plan of the rt's actual connectivity (cached on its bytes, never on
-    # the identity of ga)
-    sym, arrs = _symbolic_plan(ga, 16, rt["vslots"])
+    # the plan of the rt's connectivity
+    sym, arrs = ndchol_plan(ga, 16, rt["key"])
     vals = normal_eq_entry_values(ga, lins, dtype=hdt)
     fvec = free_vector(ga, rt).to(hdt)
     diag_H = arrs["sum_diag"].add_(torch.zeros(sym.D, dtype=hdt, device=ga.device),

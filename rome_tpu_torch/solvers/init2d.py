@@ -32,28 +32,32 @@ import math
 import numpy as np
 import torch
 
-from rome_tpu_torch.graph.lower import GraphArrays
+from rome_tpu_torch.graph.lower import GraphArrays, slots_of
 from rome_tpu_torch.ops.segment_sum import SegmentPlan
 from rome_tpu_torch.solvers.linearize import TangentScatter
 from rome_tpu_torch.utils.device_loop import EAGER, Program
 from rome_tpu_torch.utils.math import einsum, rot2
+from rome_tpu_torch.utils.store import Store
 
 _ODO_BATCHES = ("Pose2Pose2", "MutablePose2Pose2Gaussian")
 F32, F64 = torch.float32, torch.float64
 
 
-def _pose2_edges(ga: GraphArrays):
-    return [
-        (b.vslots[:, 0], b.vslots[:, 1], b.params["z"], b.params["sqrt_info"], b.weight)
-        for b in ga.batches if b.ftype.name in _ODO_BATCHES
-    ]
+def _batches(ga: GraphArrays, rt, names):
+    """(slots, params, weight) of ``ga``'s batches of the types ``names``:
+    its own, or those of the runtime state ``rt``."""
+    return [(b.vslots, b.params, b.weight) if rt is None else
+            (rt["vslots"][i], rt["params"][i], rt["weight"][i])
+            for i, b in enumerate(ga.batches) if b.ftype.name in names]
 
 
-def _pose2_priors(ga: GraphArrays):
-    return [
-        (b.vslots[:, 0], b.params["z"], b.params["sqrt_info"], b.weight)
-        for b in ga.batches if b.ftype.name == "PriorPose2"
-    ]
+def _pose2_edges(ga: GraphArrays, rt=None):
+    return [(v[:, 0], v[:, 1], p["z"], p["sqrt_info"], w)
+            for v, p, w in _batches(ga, rt, _ODO_BATCHES)]
+
+
+def _pose2_priors(ga: GraphArrays, rt=None):
+    return [(v[:, 0], p["z"], p["sqrt_info"], w) for v, p, w in _batches(ga, rt, ("PriorPose2",))]
 
 
 def _rdot(a, b):
@@ -201,28 +205,30 @@ class _ChordalPlan:
         return out
 
 
-def _chordal_key(n, edges, priors):
-    """The chordal systems' connectivity key (host copies of the slots)."""
-    return (
-        "chordal",
-        n,
-        tuple(e[0].cpu().numpy().tobytes() + e[1].cpu().numpy().tobytes() for e in edges),
-        tuple(p[0].cpu().numpy().tobytes() for p in priors),
-    )
+def _chordal_key(key):
+    """The chordal systems' connectivity key, of the graph connectivity
+    ``key`` (``GraphArrays.key``): the Pose2 count and the odometry and
+    prior batches' keys."""
+    names, counts, batches = key
+    return ("chordal", counts[names.index("Pose2")],
+            tuple(b for b in batches if b[0] in _ODO_BATCHES),
+            tuple(b for b in batches if b[0] == "PriorPose2"))
 
 
-def _chordal_plan(n, edges, priors, device, key=None):
-    """The chordal systems' plan and its tensors on ``device``, cached per
-    pose-graph connectivity (beside the LM's ND plans)."""
+def _chordal_plan(key, device):
+    """The chordal systems' plan and its tensors on ``device`` for the graph
+    connectivity ``key``, cached per pose-graph connectivity (beside the
+    LM's ND plans, in the ``symbolic`` store)."""
     from rome_tpu_torch.solvers.sparse import cached_symbolic
 
-    key = key or _chordal_key(n, edges, priors)
+    ckey = _chordal_key(key)
 
     def build():
-        ei = [(e[0].cpu().numpy(), e[1].cpu().numpy()) for e in edges]
-        return _ChordalPlan(n, ei, [p[0].cpu().numpy() for p in priors])
+        _c, n, edges, priors = ckey
+        ei = [(s[:, 0], s[:, 1]) for s in map(slots_of, edges)]
+        return _ChordalPlan(n, ei, [slots_of(p)[:, 0] for p in priors])
 
-    return cached_symbolic(key, build, device)
+    return cached_symbolic(ckey, build, device)
 
 
 class ChordalProgram:
@@ -262,15 +268,15 @@ class ChordalProgram:
         return self.out.clone()
 
 
-_PROGRAMS: dict = {}
-_PROGRAMS_MAX = 8
+# (chordal key, dtype, device) -> ChordalProgram
+_PROGRAMS = Store("chordal_program", 8)
 
 
 def chordal_init_pose2(ga: GraphArrays, values, eager=False):
     """Return values with the Pose2 block re-initialized by the two-stage
     chordal solve. Other variable types pass through untouched. On the card
-    the stages are one captured program per connectivity (at most
-    ``_PROGRAMS_MAX`` kept), replayed; ``eager`` runs its plain version."""
+    the stages are one captured program per connectivity (at most 8 kept,
+    ``_PROGRAMS``), replayed; ``eager`` runs its plain version."""
     if "Pose2" not in ga.counts:
         return values
     n = ga.counts["Pose2"]
@@ -278,22 +284,15 @@ def chordal_init_pose2(ga: GraphArrays, values, eager=False):
     if not edges:
         return values
     priors = _pose2_priors(ga)
-    key = getattr(ga, "_chordal_key", None)
-    if key is None:
-        key = ga._chordal_key = _chordal_key(n, edges, priors)
-    plan, arrs = _chordal_plan(n, edges, priors, ga.device, key)
+    plan, arrs = _chordal_plan(ga.key, ga.device)
     out = dict(values)
     free = ga.free["Pose2"]
     if ga.device.type != "cuda":
         out["Pose2"] = _chordal_body(ga.dtype, n, values["Pose2"], edges, priors, free,
                                      plan.sym, arrs)
         return out
-    pkey = (key, str(ga.dtype), str(ga.device))
-    program = _PROGRAMS.get(pkey)
-    if program is None:
-        if len(_PROGRAMS) >= _PROGRAMS_MAX:
-            _PROGRAMS.clear()
-        program = _PROGRAMS[pkey] = ChordalProgram(n, edges, priors, free, ga.dtype, plan, arrs)
+    program = _PROGRAMS.get((_chordal_key(ga.key), str(ga.dtype), str(ga.device)),
+                            lambda: ChordalProgram(n, edges, priors, free, ga.dtype, plan, arrs))
     out["Pose2"] = program(values["Pose2"], edges, priors, free, eager=eager)
     return out
 

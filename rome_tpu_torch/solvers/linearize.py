@@ -24,15 +24,17 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays
+from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays, slots_of
 from rome_tpu_torch.ops.linearize_cuda import FUSED_LINEARIZE, FUSED_NORMAL
 from rome_tpu_torch.ops.segment_sum import SegmentPlan
 from rome_tpu_torch.utils.math import einsum, matvec
 
 
 def runtime_state(ga: GraphArrays):
-    """The value half of a lowered graph: params, slots, weights, free masks."""
+    """The value half of a lowered graph: params, slots, weights, free masks,
+    and the connectivity key of the slots (``GraphArrays.key``)."""
     return {
+        "key": ga.key,
         "params": tuple(dict(b.params) for b in ga.batches),
         "vslots": tuple(b.vslots for b in ga.batches),
         "weight": tuple(b.weight.to(ga.dtype) for b in ga.batches),
@@ -256,9 +258,10 @@ class TangentScatter:
                                             device=device)
 
     @classmethod
-    def of(cls, ga: GraphArrays, vslots):
-        """The plan of ``ga``'s types over the per-batch ``vslots``."""
-        specs = [(b.vtypes, v.cpu().numpy()) for b, v in zip(ga.batches, vslots)]
+    def of(cls, ga: GraphArrays, key):
+        """The plan of ``ga``'s types over the connectivity ``key``
+        (``GraphArrays.key``), its host slots read from the key."""
+        specs = [(bk[1], slots_of(bk)) for bk in key[2]]
         return cls(ga.type_names, specs, ga.device)
 
     def sum(self, ga: GraphArrays, contribs, block=False, dtype=None):
@@ -277,12 +280,11 @@ class TangentScatter:
         return out
 
 
-def tangent_scatter(ga: GraphArrays, lins, rt=None):
-    """``rt``'s plan (the solvers put one there), else one made for
-    ``lins``' slots."""
-    if rt is not None and "scatter" in rt:
-        return rt["scatter"]
-    return TangentScatter.of(ga, [vs for _b, _r0, _Js, vs in lins])
+def tangent_scatter(ga: GraphArrays, rt=None):
+    """``rt``'s plan (``ParametricSolver.plans`` attaches one), else one
+    made for the connectivity of ``rt`` (default ``ga``'s)."""
+    rt = {"key": ga.key} if rt is None else rt
+    return rt["scatter"] if "scatter" in rt else TangentScatter.of(ga, rt["key"])
 
 
 def gradient_from_lins(ga: GraphArrays, lins, rt=None, parts=None):
@@ -295,7 +297,7 @@ def gradient_from_lins(ga: GraphArrays, lins, rt=None, parts=None):
         pre = None if parts is None else parts.jtr.get(i)
         contribs.append([einsum("nij,ni->nj", Js[k], r0) if pre is None else pre[k]
                          for k in range(len(batch.vtypes))])
-    g = tangent_scatter(ga, lins, rt).sum(ga, contribs)
+    g = tangent_scatter(ga, rt).sum(ga, contribs)
     return {t: g[t] * free[t][:, None] for t in g}
 
 
@@ -309,7 +311,7 @@ def hvp_from_lins(ga: GraphArrays, lins, v, rt=None):
             vk = v[t][vslots[:, k]] * free[t][vslots[:, k], None]
             u = u + einsum("nij,nj->ni", Js[k], vk)
         contribs.append([einsum("nij,ni->nj", Js[k], u) for k in range(len(batch.vtypes))])
-    out = tangent_scatter(ga, lins, rt).sum(ga, contribs)
+    out = tangent_scatter(ga, rt).sum(ga, contribs)
     return {t: out[t] * free[t][:, None] for t in out}
 
 
@@ -317,7 +319,7 @@ def block_diag_from_lins(ga: GraphArrays, lins, rt=None):
     """Per-variable dof x dof diagonal blocks of J^T J (block-Jacobi)."""
     contribs = [[einsum("nij,nik->njk", Js[k], Js[k]) for k in range(len(batch.vtypes))]
                 for batch, _r0, Js, _vs in lins]
-    return tangent_scatter(ga, lins, rt).sum(ga, contribs, block=True)
+    return tangent_scatter(ga, rt).sum(ga, contribs, block=True)
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,7 @@ import torch
 
 from rome_tpu_torch.distributions import MvNormal, Normal
 from rome_tpu_torch.graph.graph import FactorGraph
-from rome_tpu_torch.graph.lower import GraphArrays, lower
+from rome_tpu_torch.graph.lower import GraphArrays, lower, slots_of
 from rome_tpu_torch.solvers.multimodal.convolve import approx_conv, conv_particles
 from rome_tpu_torch.solvers.multimodal.kde import (
     manifold_mean,
@@ -51,6 +51,7 @@ from rome_tpu_torch.solvers.multimodal.kde import (
 from rome_tpu_torch.utils.device import entry_device
 from rome_tpu_torch.utils.math import einsum
 from rome_tpu_torch.utils.profiling import annotate
+from rome_tpu_torch.utils.store import Store
 
 
 def set_points_from_beliefs(fg: FactorGraph, labels, solve_key: str, device="cuda",
@@ -119,34 +120,24 @@ class BeliefPropagator:
 
 
 def _structure_signature(ga: GraphArrays, N: int, gibbs_sweeps: int):
-    """Hashable key of everything the routing depends on: batch shapes,
-    index routing, free masks and the device."""
-    parts = [N, gibbs_sweeps, str(ga.device), tuple(ga.type_names)]
-    for t in ga.type_names:
-        parts.append((t, ga.counts[t], ga.free[t].cpu().numpy().tobytes()))
-    for b in ga.batches:
-        parts.append((
-            b.ftype.name, b.n, b.vtypes, b.vslots.cpu().numpy().tobytes(),
-            tuple(sorted(b.params)), tuple(b.labels),
-        ))
-    parts.append(tuple(ga.excluded_factors))
-    return tuple(parts)
+    """Hashable key of everything the routing depends on: the connectivity
+    (``GraphArrays.key``), the free masks, the batches' param names and
+    labels, the excluded factors and the device."""
+    return (N, gibbs_sweeps, str(ga.device), ga.key,
+            tuple(ga.free[t].cpu().numpy().tobytes() for t in ga.type_names),
+            tuple((tuple(sorted(b.params)), tuple(b.labels)) for b in ga.batches),
+            tuple(ga.excluded_factors))
 
 
-_PROPAGATOR_CACHE: dict = {}
-_CACHE_LIMIT = 16
+# structure signature -> BeliefPropagator
+_PROPAGATOR_CACHE = Store("propagator", 16)
 
 
 def get_propagator(fg: FactorGraph, ga: GraphArrays, N: int, gibbs_sweeps: int = 3):
     """Structure-cached propagator: graphs with identical lowered structure
-    share one routing."""
-    sig = _structure_signature(ga, N, gibbs_sweeps)
-    bp = _PROPAGATOR_CACHE.get(sig)
-    if bp is None:
-        if len(_PROPAGATOR_CACHE) >= _CACHE_LIMIT:
-            _PROPAGATOR_CACHE.clear()
-        bp = _PROPAGATOR_CACHE[sig] = build_propagator(fg, ga, N, gibbs_sweeps)
-    return bp
+    share one routing (at most 16 kept, ``_PROPAGATOR_CACHE``)."""
+    return _PROPAGATOR_CACHE.get(_structure_signature(ga, N, gibbs_sweeps),
+                                 lambda: build_propagator(fg, ga, N, gibbs_sweeps))
 
 
 def build_propagator(fg: FactorGraph, ga: GraphArrays, N: int, gibbs_sweeps: int = 3):
@@ -158,7 +149,7 @@ def build_propagator(fg: FactorGraph, ga: GraphArrays, N: int, gibbs_sweeps: int
     for bi, b in enumerate(ga.batches):
         if not batchable[bi]:
             continue
-        vsl = b.vslots.cpu().numpy()
+        vsl = slots_of(b.key)
         for s, t in enumerate(b.vtypes):
             dest_var = vsl[:, s].astype(np.int64)
             dest_k = np.empty_like(dest_var)
@@ -400,7 +391,7 @@ def _build_gs_routing(bp: BeliefPropagator, fg: FactorGraph, ga: GraphArrays):
         sidx = len(S[t])
         S[t].append(si_g)
         b = ga.batches[src.b]
-        vsl = b.vslots.cpu().numpy()
+        vsl = slots_of(b.key)
         for i in range(b.n):
             v, k = int(src.dest_var[i]), int(src.dest_k[i])
             src_of[t][v, k] = sidx

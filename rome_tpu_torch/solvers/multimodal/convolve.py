@@ -33,6 +33,7 @@ from rome_tpu_torch.utils.device import entry_device
 from rome_tpu_torch.utils.device_loop import Program
 from rome_tpu_torch.utils.math import matvec
 from rome_tpu_torch.utils.profiling import count
+from rome_tpu_torch.utils.store import Store
 
 DTYPE = torch.float32
 
@@ -131,8 +132,7 @@ class _GNProgram:
         return self.out.clone()
 
 
-_PROGRAMS: dict = {}
-_PROGRAMS_MAX = 32
+_PROGRAMS = Store("np.gn_program", 32)
 
 
 def _program_key(ftype, slot, mans, params, z, x0, pts):
@@ -149,22 +149,15 @@ def conv_particles(ftype, slot, mans, params, z, x0, pts):
     initializer (or ``x0``) and solve every particle. ``params``: (M, ...)
     per particle; z (M, zdim); x0 (M, pdim); pts: (M, pdim) per slot.
 
-    Runs the keyed :class:`_GNProgram` (at most ``_PROGRAMS_MAX`` kept,
-    cleared when full), as the JAX package jits ``_cached_conv`` once per
-    key. Counts one ``np.gn_solves``, M ``np.gn_rows`` and a
+    Runs the keyed :class:`_GNProgram` (at most 32 kept, cleared when full:
+    ``_PROGRAMS``), as the JAX package jits ``_cached_conv`` once per key.
+    Counts one ``np.gn_solves``, M ``np.gn_rows`` and a
     ``np.gn_program.hit`` or ``.miss`` (a new program, captured at this
     call on the card)."""
     count("np.gn_solves")
     count("np.gn_rows", z.shape[0])
-    key = _program_key(ftype, slot, mans, params, z, x0, pts)
-    program = _PROGRAMS.get(key)
-    if program is None:
-        count("np.gn_program.miss")
-        if len(_PROGRAMS) >= _PROGRAMS_MAX:
-            _PROGRAMS.clear()
-        program = _PROGRAMS[key] = _GNProgram(ftype, slot, mans, params, z, x0, pts)
-    else:
-        count("np.gn_program.hit")
+    program = _PROGRAMS.get(_program_key(ftype, slot, mans, params, z, x0, pts),
+                            lambda: _GNProgram(ftype, slot, mans, params, z, x0, pts))
     return program(params, z, x0, pts)
 
 

@@ -28,26 +28,18 @@ import math
 
 import torch
 
-from rome_tpu_torch.utils.profiling import annotate, count
+from rome_tpu_torch.utils.store import Store
 
 # connectivity key -> (host symbolic plan, {device: index tensors}); the ND
 # symbolic phase is the costly host step of a cold solve at 10k poses
-_PLANS: dict = {}
-_PLANS_MAX = 8
+_PLANS = Store("symbolic", 8, span="symbolic.build")
 
 
 def cached_symbolic(key, build, device):
     """(plan, index tensors on ``device``) for the hashable connectivity
     ``key``; ``build()`` makes the :class:`SymbolicChol` plan on a miss. At
-    most ``_PLANS_MAX`` plans are kept: a full cache is cleared."""
-    entry = _PLANS.get(key)
-    count("symbolic.hit" if entry is not None else "symbolic.miss")
-    if entry is None:
-        if len(_PLANS) >= _PLANS_MAX:
-            _PLANS.clear()
-        with annotate("symbolic.build"):
-            entry = _PLANS[key] = (build(), {})
-    sym, devs = entry
+    most 8 plans are kept: a full store is cleared (``_PLANS``)."""
+    sym, devs = _PLANS.get(key, lambda: (build(), {}))
     dkey = str(device)
     if dkey not in devs:
         devs[dkey] = sym.device_arrs(device)

@@ -23,7 +23,7 @@ import rome_tpu_torch as T  # noqa: E402
 from rome_tpu_torch.graph.lower import lower  # noqa: E402
 from rome_tpu_torch.ops.segment_sum import SegmentPlan  # noqa: E402
 from rome_tpu_torch.solvers import linearize as L  # noqa: E402
-from rome_tpu_torch.solvers.gauss_newton import _symbolic_plan  # noqa: E402
+from rome_tpu_torch.solvers.gauss_newton import ndchol_plan  # noqa: E402
 from rome_tpu_torch.solvers.sparse import ndchol as N  # noqa: E402
 
 ATOL = 1e-12
@@ -141,12 +141,12 @@ def test_tangent_sums_equal_index_add():
                                    rtol=0, atol=ATOL)
         torch.testing.assert_close(D[t], wantD[t], rtol=0, atol=ATOL)
     # contributions collide: a pose's rows get several, a landmark's four
-    runs = {t: p.max_run for t, p in L.tangent_scatter(ga, lins).plans.items()}
+    runs = {t: p.max_run for t, p in L.tangent_scatter(ga).plans.items()}
     assert runs["Pose2"] > 4 and runs["Point2"] == 4
 
 
 def _ndchol_inputs(ga, lins, lam=1e-3):
-    sym, arrs = _symbolic_plan(ga, 4)
+    sym, arrs = ndchol_plan(ga, 4)
     vals = L.normal_eq_entry_values(ga, lins)
     fvec = L.free_vector(ga)
     diag_H = arrs["sum_diag"].add_(torch.zeros(sym.D, dtype=F64), vals) * fvec
@@ -250,10 +250,14 @@ def test_solver_keeps_one_plan_per_connectivity():
     solver = T.solvers.gauss_newton.ParametricSolver(
         ga, T.GNOptions(linear="ndchol", max_iters=3))
     _values, rt = solver._start(None, None)
-    assert rt["scatter"] is solver._scatter
-    gp, _lp = _lowered(order_seed=7)
+    own = solver._own["scatter"]
+    assert rt["scatter"] is own
     from rome_tpu_torch.solvers.linearize import runtime_state
 
+    # found by the connectivity key, not by the slot tensors' identity
+    again = solver.plans(runtime_state(_lowered()[0]))
+    assert again["scatter"] is own and again["ndchol"] is rt["ndchol"]
+    gp, _lp = _lowered(order_seed=7)
     _values, rt2 = solver._start(None, runtime_state(gp))
-    assert rt2["scatter"] is not solver._scatter
-    assert set(rt2["scatter"].plans) == set(solver._scatter.plans)
+    assert rt2["scatter"] is not own
+    assert set(rt2["scatter"].plans) == set(own.plans)

@@ -46,7 +46,7 @@ from rome_tpu.graph.lower import lower as jax_lower  # noqa: E402
 from rome_tpu.parallel import sharding as JS  # noqa: E402
 from rome_tpu.solvers.init2d import chordal_init_pose2 as jax_chordal  # noqa: E402
 from rome_tpu_torch.graph.convert import graph_arrays_to_numpy as arrays_of  # noqa: E402
-from rome_tpu_torch.graph.lower import lower  # noqa: E402
+from rome_tpu_torch.graph.lower import batch_key, lower, slots_of  # noqa: E402
 from rome_tpu_torch.parallel.distributed import Mesh  # noqa: E402
 from rome_tpu_torch.parallel.sharding import make_sharded_gn_step, solve_distributed  # noqa: E402
 from rome_tpu_torch.parallel.varpart import make_varpart_solver  # noqa: E402
@@ -116,8 +116,7 @@ def test_chordal_start_is_one_answer_per_input(side, frozen):
     for lbl in frozen:
         s = gas[0].var_labels["Pose2"].index(lbl)
         np.testing.assert_array_equal(starts[0][s].numpy(), v0[s])
-    plans = [I._chordal_plan(side * side, I._pose2_edges(ga), I._pose2_priors(ga), "cpu")[0]
-             for ga in gas]
+    plans = [I._chordal_plan(ga.key, "cpu")[0] for ga in gas]
     assert (plans[0].sym is None) == (side * side < I._SPARSE_THRESHOLD)
     if plans[0].sym is not None:
         # the ND symbolic order follows the graph, not the factors' order
@@ -138,7 +137,7 @@ def test_chordal_sums_equal_index_add(side):
     ga, n = gas[0], side * side
     edges = [(i, j, z.double(), S.double(), w.double()) for i, j, z, S, w in I._pose2_edges(ga)]
     priors = [(i, z.double(), S.double(), w.double()) for i, z, S, w in I._pose2_priors(ga)]
-    plan, arrs = I._chordal_plan(n, I._pose2_edges(ga), I._pose2_priors(ga), "cpu")
+    plan, arrs = I._chordal_plan(ga.key, "cpu")
     rng = np.random.default_rng(7)
     u0 = torch.as_tensor(rng.normal(size=(n, 2)))
     x = torch.as_tensor(rng.normal(size=(n, 2)))
@@ -225,12 +224,15 @@ def test_dense_solvers_keep_one_plan(linear):
     gas, _linss = _dense_graphs(F64)
     solver = ParametricSolver(gas[0], GNOptions(linear=linear, max_iters=2))
     _v, rt = solver._start(None, None)
-    assert rt["dense"] is solver._dense
+    own = solver._own["dense"][1]
+    assert rt["dense"] is own
     _v, rt2 = solver._start(None, None)
-    assert rt2["dense"] is solver._dense
+    assert rt2["dense"] is own
+    # found by the connectivity key: a fresh runtime state of the same graph
+    assert solver.plans(L.runtime_state(gas[0]))["dense"] is own
     # another connectivity of the same structure: a plan of its own
     _v, rt3 = solver._start(None, L.runtime_state(gas[1]))
-    assert rt3["dense"] is not solver._dense
+    assert rt3["dense"] is not own
     _v, stats = solver.solve()
     assert np.isfinite(stats.final_cost)
 
@@ -240,21 +242,22 @@ def test_ndchol_and_pcg_make_no_dense_plan():
     for linear in ("ndchol", "pcg"):
         solver = ParametricSolver(gas[0], GNOptions(linear=linear, max_iters=2))
         _v, rt = solver._start(None, None)
-        assert "dense" not in rt and solver._dense is None
+        assert "dense" not in rt and "dense" not in solver._own
 
 
 # --- the distributed paths at world 1 ----------------------------------------
 
 def _permuted_rows(ga, seed):
     """``ga`` with every batch's rows in a seeded other order (the factors
-    added in another order)."""
+    added in another order), each batch with the key of its new slots."""
     rng = np.random.default_rng(seed)
     batches = []
     for b in ga.batches:
-        p = torch.as_tensor(rng.permutation(b.n))
+        p = rng.permutation(b.n)
         batches.append(dataclasses.replace(
             b, vslots=b.vslots[p], weight=b.weight[p],
-            params={k: v[p] for k, v in b.params.items()}))
+            params={k: v[p] for k, v in b.params.items()},
+            key=batch_key(b.ftype.name, b.vtypes, slots_of(b.key)[p])))
     return dataclasses.replace(ga, batches=batches)
 
 

@@ -176,3 +176,38 @@ def test_write_back_skips_frozen():
     np.testing.assert_allclose(
         fg.get_point("x3")[:2], ga.values0["Pose2"][3, :2].double().numpy() + 0.5, atol=1e-6
     )
+
+
+def _changed_grid(change):
+    """The 3x3 grid with one change: other values only, an added factor, an
+    added variable, a factor set unsolvable, or an added landmark (a Point2
+    and its Pose2Point2 factor: a batch the chordal systems do not read)."""
+    fg = grid_graph(T, 3, 3, seed=5 if change == "values" else 0)
+    if change == "factor":
+        fg.add_factor(["x0", "x4"], T.Pose2Pose2(T.MvNormal([1, 1, 0], [0.1, 0.1, 0.05])))
+    elif change == "variable":
+        fg.add_variable("x9", T.Pose2)
+    elif change == "unsolvable":
+        fg.factors[fg._fct_order[3]].solvable = 0
+    elif change == "landmark":
+        fg.add_variable("l0", T.Point2)
+        fg.add_factor(["x0", "l0"], T.Pose2Point2(T.MvNormal([1, 1], [0.1, 0.1])))
+    return fg
+
+
+@pytest.mark.parametrize("change,same_key,same_chordal", [
+    ("values", True, True), ("factor", False, False), ("variable", False, False),
+    ("unsolvable", False, False), ("pad", False, False), ("landmark", False, True)])
+def test_connectivity_key(change, same_key, same_chordal):
+    from rome_tpu_torch.graph.lower import slots_of
+    from rome_tpu_torch.solvers.init2d import _chordal_key
+    from rome_tpu_torch.solvers.linearize import runtime_state
+
+    base = lower(grid_graph(T, 3, 3, seed=0), device="cpu")
+    ga = lower(_changed_grid(change), pad=change == "pad", device="cpu")
+    assert (ga.key == base.key) == same_key
+    assert (_chordal_key(ga.key) == _chordal_key(base.key)) == same_chordal
+    assert runtime_state(ga)["key"] == ga.key
+    # the key holds the host slots the device got
+    for b in ga.batches:
+        np.testing.assert_array_equal(slots_of(b.key), b.vslots.numpy())

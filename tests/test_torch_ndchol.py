@@ -159,27 +159,3 @@ def test_non_spd_front_gives_nan_not_exception():
     assert any(bool(torch.isnan(L).all()) for L in L11s if L is not None)
     x = ndchol_solve(sym, arrs, Linvs, L21s, t["b"])
     assert not bool(torch.isfinite(x).all())
-
-
-def test_symbolic_plans_are_cached_per_connectivity_and_device():
-    from rome_tpu_torch.solvers.sparse import ndchol as ND
-
-    _ga, dofs, specs = _specs(4, 4)
-    built = []
-
-    def build():
-        built.append(1)
-        return symbolic_factor(_ga.type_names, _ga.counts, dofs, specs, leaf=4)
-
-    ND._PLANS.clear()
-    sym, arrs = ND.cached_symbolic(("grid", 4), build, "cpu")
-    sym2, arrs2 = ND.cached_symbolic(("grid", 4), build, "cpu")
-    assert len(built) == 1 and sym2 is sym and arrs2 is arrs
-    assert arrs["diag_dst"].device.type == "cpu"
-    # another key builds its own plan; a full cache is cleared, not grown
-    ND.cached_symbolic(("grid", 5), build, "cpu")
-    assert len(built) == 2
-    for k in range(ND._PLANS_MAX):
-        ND.cached_symbolic(("other", k), build, "cpu")
-    assert len(ND._PLANS) <= ND._PLANS_MAX
-    ND._PLANS.clear()

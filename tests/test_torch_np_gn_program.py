@@ -3,8 +3,9 @@
 its phase eagerly through the same copy-in / clone-out path, and equals the
 plain initializer + ``_gn_solve_target`` bit for bit on the five beehive
 (factor type, slot) messages; a key's static buffers hold no stale input and
-alias no output; the cache is keyed by particle count and cleared at its
-bound; the engine's counters count calls on the host. On the card (``cuda``
+alias no output; the cache is keyed by particle count (its bound is
+tests/test_torch_tracing.py's); the engine's counters count calls on the
+host. On the card (``cuda``
 marker, skipped here) the captured replay equals the program's eager run.
 The file imports no jax: ``pytest --noconftest`` runs it on the card."""
 
@@ -102,19 +103,6 @@ def test_particle_counts_key_their_own_programs(beehive):
     programs = list(convolve._PROGRAMS.values())
     assert sorted(p.out.shape[0] for p in programs) == [32, 48]
     assert programs[0] is not programs[1]
-
-
-def test_the_cache_clears_at_its_bound(beehive, monkeypatch):
-    assert convolve._PROGRAMS_MAX == 32
-    monkeypatch.setattr(convolve, "_PROGRAMS_MAX", 3)
-    for M in (8, 9, 10):
-        convolve.conv_particles(*_message(beehive, "PriorPose2", 0, M, seed=M))
-    assert len(convolve._PROGRAMS) == 3
-    kept = dict(convolve._PROGRAMS)
-    convolve.conv_particles(*_message(beehive, "PriorPose2", 0, 8, seed=1))
-    assert convolve._PROGRAMS == kept, "a hit leaves the cache as it is"
-    convolve.conv_particles(*_message(beehive, "PriorPose2", 0, 11, seed=11))
-    assert [p.out.shape[0] for p in convolve._PROGRAMS.values()] == [11]
 
 
 def test_the_engine_counters_count_calls_on_the_host(beehive):

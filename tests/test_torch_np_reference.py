@@ -1,5 +1,6 @@
 """The nonparametric engine held to the plain float64 reference
-(``tools/nonparametric_reference.py``) at a small size on the CPU: the
+(``benchmark/nonparametric_reference.py``, the copy that judges the
+``beehive100.np_resolve`` cell) at a small size on the CPU: the
 generator's copy, one message's per-particle Gauss-Newton and the Gibbs
 log-weights on identical inputs, and whole ``init="points"`` solves by the
 benchmark judge's statistics; and the engine's spans and counters."""
@@ -21,7 +22,7 @@ from rome_tpu_torch.manifolds.base import SE2_  # noqa: E402
 from rome_tpu_torch.ops.pairwise import euclid_pairwise_logw_plain, se2_pairwise_logw_plain  # noqa: E402
 from rome_tpu_torch.solvers.multimodal import convolve  # noqa: E402
 from rome_tpu_torch.utils import profiling  # noqa: E402
-from tools import nonparametric_reference as R  # noqa: E402
+from benchmark import nonparametric_reference as R  # noqa: E402
 
 F64 = torch.float64
 GATES = json.load(open(os.path.join(ROOT, "benchmark", "configs", "beehive100.json")))["gates"]

@@ -264,7 +264,7 @@ def test_cached_solver_serves_another_graph(linear):
         assert ParametricSolver.cached(ga_b, opts) is solver
         rt_b = runtime_state(ga_b)
         if linear == "ndchol":
-            other_plan = solver._plan_for(rt_b)[0] is not solver._sym
+            other_plan = solver.plans(rt_b)["ndchol"][0] is not solver.plans()["ndchol"][0]
             assert other_plan == bool(order[0])
         v_c, st_c = solver.solve(ga_b.values0, rt=rt_b)
         v_f, st_f = ParametricSolver(ga_b, opts).solve()

@@ -9,11 +9,16 @@ where a program runs its eager runner and stamps on the host clock.
   phases' sum lies inside the program's span; the stamps come back in the
   program's one read.
 - Recording changes no arithmetic: values and SolveStats bit-equal on/off.
-- The structure cache's counters: misses, a clear, a hit.
+- Each of the six bounded stores (``utils/store.Store``: solvers, LM
+  programs, chordal programs, symbolic plans, GN programs, propagators)
+  has its name and size, counts its misses, clears whole at its size and
+  counts the clear, then a hit that leaves it as it is; driven through the
+  code that uses it where that runs on the CPU.
 - The ring keeps at most its capacity of roots; ``export_chrome`` writes a
   host track and a device track; ``summary`` totals spans and phases.
 """
 
+import copy
 import json
 
 import numpy as np
@@ -22,7 +27,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import rome_tpu_torch as T  # noqa: E402
+from rome_tpu_torch.graph.lower import lower  # noqa: E402
 from rome_tpu_torch.solvers import gauss_newton as GN  # noqa: E402
+from rome_tpu_torch.solvers import init2d  # noqa: E402
+from rome_tpu_torch.solvers.linearize import runtime_state  # noqa: E402
+from rome_tpu_torch.solvers.multimodal import batched, convolve  # noqa: E402
+from rome_tpu_torch.solvers.sparse import ndchol as ND  # noqa: E402
+from rome_tpu_torch.solvers.sparse import symbolic_factor  # noqa: E402
 from rome_tpu_torch.utils import device_loop, profiling  # noqa: E402
 
 FUSED = dict(max_iters=30, polish_tol=1e-8, polish_iters=40, lam0=1e-6, lam_down=0.1,
@@ -138,24 +149,136 @@ def test_recording_changes_no_arithmetic():
         assert np.array_equal(fg_on.get_point(lbl), fg_off.get_point(lbl)), lbl
 
 
-def test_structure_cache_counts_misses_clears_and_hits(monkeypatch):
-    monkeypatch.setattr(GN, "_SOLVER_CACHE", {})
+def _rolled_grid(k, rows=2, cols=3):
+    """``grid_graph(T, rows, cols)``'s factors over its variables created in
+    an order rolled by ``k``: one structure, another connectivity per k."""
+    src = grid_graph(T, rows, cols, seed=1)
+    fg = T.FactorGraph()
+    labels = src._var_order
+    for i in np.roll(np.arange(len(labels)), k):
+        fg.add_variable(labels[i], T.Pose2)
+    for fl in src._fct_order:
+        f = src.factors[fl]
+        fg.add_factor(list(f.variables), copy.copy(f), label=fl, graphinit=False)
+    fg.init_all()
+    return fg
+
+
+def _solver_cache(monkeypatch):
     opts = T.GNOptions(linear="dense", max_iters=3)
 
-    def solve(side):
-        with profiling.annotate("case"):
-            T.solve_graph_parametric(grid_graph(T, 2, side, seed=1), init=False,
-                                     options=opts, chordal_init=False, device="cpu")
-        return profiling.roots()[-1].attrs
+    def make(k):
+        T.solve_graph_parametric(grid_graph(T, 2, k + 2, seed=1), init=False, options=opts,
+                                 chordal_init=False, device="cpu")
 
-    firsts = [solve(side) for side in range(2, 10)]
-    assert [a.get("solver_cache.miss") for a in firsts] == [1] * 8
-    assert not any("solver_cache.clear" in a or "solver_cache.hit" in a for a in firsts)
-    ninth = solve(10)
-    assert ninth.get("solver_cache.miss") == 1 and ninth.get("solver_cache.clear") == 1
-    again = solve(10)
-    assert again.get("solver_cache.hit") == 1 and "solver_cache.miss" not in again
-    assert sum(1 for _ in profiling.spans("solver.build", [profiling.roots()[-2]])) == 1
+    return GN._SOLVER_CACHE, make
+
+
+def _lm_program(monkeypatch):
+    graphs = [lower(_rolled_grid(k), device="cpu") for k in range(5)]
+    solver = GN.ParametricSolver(graphs[0], T.GNOptions(**dict(FUSED, max_iters=2)))
+
+    def make(k):
+        solver.solve(graphs[k].values0, runtime_state(graphs[k]))
+
+    def after(store):
+        # the program keeps the plans it was made with: an emptied plan
+        # store makes no second program for a connectivity that has one
+        monkeypatch.setattr(ND._PLANS, "_entries", {})
+        assert _root(lambda: make(4)).get("lm_program.hit") == 1 and len(store) == 1
+
+    return solver._programs, make, after
+
+
+def _chordal_program(monkeypatch):
+    # captured on the card only: on the CPU the stages run eagerly
+    return init2d._PROGRAMS, lambda k: init2d._PROGRAMS.get(("case", k), object)
+
+
+def _symbolic(monkeypatch):
+    ga = lower(grid_graph(T, 4, 4), device="cpu")
+    dofs = {t: ga.manifolds[t].dof for t in ga.type_names}
+    specs = [(b.vtypes, b.vslots.numpy()) for b in ga.batches]
+    built = []
+
+    def build():
+        built.append(1)
+        return symbolic_factor(ga.type_names, ga.counts, dofs, specs, leaf=4)
+
+    def after(store):
+        # one plan a key, built once; its index tensors kept per device
+        sym, arrs = ND.cached_symbolic(("case", 8), build, "cpu")
+        sym2, arrs2 = ND.cached_symbolic(("case", 8), build, "cpu")
+        assert sym2 is sym and arrs2 is arrs and len(built) == 9
+        assert arrs["diag_dst"].device.type == "cpu"
+
+    return ND._PLANS, lambda k: ND.cached_symbolic(("case", k), build, "cpu"), after
+
+
+def _np_gn_program(monkeypatch):
+    fg = T.FactorGraph()
+    fg.add_variable("x0", T.Pose2)
+    fg.add_factor(["x0"], T.PriorPose2(T.MvNormal([0, 0, 0], [0.1, 0.1, 0.05])))
+    f = fg.factors[fg._fct_order[0]]
+    mans = [fg.variables["x0"].manifold]
+
+    def make(k):
+        M = k + 1
+        params = {n: torch.as_tensor(v, dtype=torch.float32).expand(M, *v.shape)
+                  for n, v in f.params.items()}
+        x = torch.zeros((M, 3))
+        convolve.conv_particles(f.ftype, 0, mans, params, x, x, [x])
+
+    def after(store):
+        assert [p.out.shape[0] for p in store.values()] == [33]
+
+    return convolve._PROGRAMS, make, after
+
+
+def _propagator(monkeypatch):
+    fg = grid_graph(T, 2, 2)
+    ga = lower(fg, "default", device="cpu")
+    return batched._PROPAGATOR_CACHE, lambda k: batched.get_propagator(fg, ga, k + 2)
+
+
+# store -> (its name, its size, the span its builds open)
+STORES = {_solver_cache: ("solver_cache", 8, "solver.build"),
+          _lm_program: ("lm_program", 4, None),
+          _chordal_program: ("chordal_program", 8, None),
+          _symbolic: ("symbolic", 8, "symbolic.build"),
+          _np_gn_program: ("np.gn_program", 32, None),
+          _propagator: ("propagator", 16, None)}
+
+
+def _root(fn):
+    """The attributes of a root span around ``fn()``."""
+    with profiling.annotate("case") as root:
+        fn()
+    return root.attrs
+
+
+@pytest.mark.parametrize("case", list(STORES), ids=lambda c: c.__name__.lstrip("_"))
+def test_each_store_counts_misses_clears_at_its_size_and_hits(case, monkeypatch):
+    name, size, span = STORES[case]
+    store, make, *after = case(monkeypatch)
+    assert (store.name, store.size, store.span) == (name, size, span)
+    monkeypatch.setattr(store, "_entries", {})
+    hit, miss, clear = (f"{name}.{c}" for c in ("hit", "miss", "clear"))
+    firsts = [_root(lambda: make(k)) for k in range(size)]
+    assert [a.get(miss) for a in firsts] == [1] * size
+    assert not any(clear in a or hit in a for a in firsts) and len(store) == size
+    over = _root(lambda: make(size))
+    assert over.get(miss) == 1 and over.get(clear) == 1 and len(store) == 1
+    if span is not None:
+        assert sum(1 for _ in profiling.spans(span, [profiling.roots()[-1]])) == 1
+    kept = list(zip(store, store.values()))
+    again = _root(lambda: make(size))
+    assert again.get(hit) == 1 and miss not in again and clear not in again
+    assert list(zip(store, store.values())) == kept, "a hit leaves the store as it is"
+    if span is not None:
+        assert not any(profiling.spans(span, [profiling.roots()[-1]]))
+    for check in after:
+        check(store)
 
 
 def test_the_ring_keeps_its_capacity():
