@@ -65,6 +65,9 @@ class GraphArrays:
     # factor labels NOT lowered into batches (multihypo-extended factors),
     # for the nonparametric engine's per-factor fallback
     excluded_factors: list = field(default_factory=list)
+    # lowered with ``pad=True``: every count is its shape bucket's, so the
+    # structure signature repeats as the graph grows
+    padded: bool = False
 
     @property
     def key(self) -> tuple:
@@ -243,6 +246,7 @@ def lower(
         dtype=dtype,
         device=torch.device(device),
         excluded_factors=excluded,
+        padded=pad,
     )
     return ga.to_device()
 

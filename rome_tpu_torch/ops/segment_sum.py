@@ -16,6 +16,12 @@ The sort runs on the plan's device, as one stable ``torch.sort`` per key
 column and one of the destinations (least significant first): a stable
 sort's output is unique, so the plan is the same on every run and on every
 device, whether its indices come from the host or from the device.
+
+A plan's run arrays have one entry per distinct destination, so their
+lengths change with the connectivity. A :class:`FixedSegmentPlan` holds a
+plan in arrays whose lengths the entry count alone fixes, for a device
+program that serves every connectivity of one shape: it loads another
+plan of the same entry count by copying into its buffers.
 """
 
 from __future__ import annotations
@@ -63,4 +69,47 @@ class SegmentPlan:
         v = vals.index_select(0, self.src)
         if self.offsets is not None:
             v = torch.segment_reduce(v, "sum", offsets=self.offsets, axis=0, unsafe=True)
+        return out.index_add_(0, self.dst, v.to(out.dtype))
+
+
+class FixedSegmentPlan:
+    """A :class:`SegmentPlan` in arrays of fixed length: ``src`` and ``dst``
+    (E,) and ``offsets`` (E + 1,) for a plan of E entries. The plan's runs
+    come first, in its order; the rest are empty runs into the row
+    ``dump``, which ``out`` must have and whose sum no caller reads. A
+    plan whose destinations never repeat has runs of one entry. Its sums
+    are the plan's bit for bit: each run sums the same contributions in the
+    same order (a sum starts at +0.0, and 0.0 + x is x) and an empty run
+    adds +0.0 to the dump row only. :meth:`load` copies in another plan of
+    E entries on the device, with no host read."""
+
+    def __init__(self, plan: SegmentPlan, dump: int):
+        self.n, self.dump = plan.n, dump
+        dev = plan.src.device
+        self.src = torch.empty(plan.n, dtype=torch.int64, device=dev)
+        self.dst = torch.empty(plan.n, dtype=torch.int64, device=dev)
+        self.offsets = torch.empty(plan.n + 1, dtype=torch.int64, device=dev)
+        self.load(plan)
+
+    def load(self, plan: SegmentPlan):
+        """This plan's sums := ``plan``'s."""
+        if plan.n != self.n:
+            raise ValueError(f"a plan of {plan.n} entries in a fixed plan of {self.n}")
+        u = plan.dst.numel()
+        self.src.copy_(plan.src)
+        self.dst[:u].copy_(plan.dst)
+        self.dst[u:].fill_(self.dump)
+        if plan.offsets is None:
+            torch.arange(self.n + 1, out=self.offsets)
+        else:
+            self.offsets[: u + 1].copy_(plan.offsets)
+            self.offsets[u + 1:].fill_(self.n)
+        return self
+
+    def add_(self, out: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        """As :meth:`SegmentPlan.add_`; ``out`` has the row ``dump``."""
+        if self.n == 0:
+            return out
+        v = vals.index_select(0, self.src)
+        v = torch.segment_reduce(v, "sum", offsets=self.offsets, axis=0, unsafe=True)
         return out.index_add_(0, self.dst, v.to(out.dtype))

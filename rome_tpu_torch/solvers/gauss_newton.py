@@ -20,10 +20,22 @@ convergence decisions computed on the device (``_lm_update``, the JAX loop's
   - ``ParametricSolver.solve_host``: one LM step per iteration, the trial
     cost from a separate residual pass (``cost_at``), one read of the
     decisions per iteration. ``solve`` is ``solve_host`` for every other
-    linear solver and with ``speculative=False``.
-Not yet in the program (the host loop, eager on the card too):
-``linear != "ndchol"``, ``precond_reuse`` (the speculative loop with a
-reused factorization), ``speculative=False`` and ``schedule="host"``.
+    linear solver and with ``speculative=False``, except:
+  - dense32 on the card for a graph lowered with ``pad=True``: the same
+    iteration as one device program per step shape (``_DenseProgram``:
+    structure signature, options and free order, 16 kept in the
+    ``dense_program`` store, apart from the solvers), the JAX package's
+    non-speculative jitted loop. Its plans are loaded in their
+    fixed-length forms, so one capture serves every connectivity of the
+    shape; a solve makes one read. Padding is what makes shapes repeat (a
+    padded graph's counts are shape buckets), so a capture pays only
+    there: an unpadded graph that grows has a new shape at every solve.
+Not yet in a program (the host loop, eager on the card too):
+``dense``, ``mixed`` and ``pcg``, ``precond_reuse`` (the
+speculative loop with a reused factorization), ndchol with
+``speculative=False``, dense32 on an unpadded graph or over the kept
+program's memory budget (``_DENSE_PROGRAM_BYTES``), and
+``schedule="host"``.
 
 Linear solvers (``GNOptions.linear``):
   - ``dense``: f64 normal equations, Jacobi scaling, f32 Cholesky, two
@@ -59,6 +71,7 @@ nested-dissection elimination tree.
 from __future__ import annotations
 
 import copy
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -90,9 +103,8 @@ from rome_tpu_torch.solvers.linearize import (
     TangentScatter,
     unflatten_tangent,
 )
-from rome_tpu_torch.utils.device_loop import EAGER, Program
+from rome_tpu_torch.utils.device_loop import EAGER, Program, count
 from rome_tpu_torch.utils.math import einsum
-from rome_tpu_torch.utils.profiling import count
 from rome_tpu_torch.utils.store import Store
 
 F32, F64 = torch.float32, torch.float64
@@ -112,18 +124,25 @@ def _safe(x, eps=1e-300):
 
 def _nan_if_failed(L, info):
     """A Cholesky factor that did not complete is all NaN: the LM loop sees a
-    non-finite trial cost and rejects the step (one host sync)."""
-    if bool((info != 0).any()):
-        L.fill_(math.nan)
-    return L
+    non-finite trial cost and rejects the step (in place, on the device)."""
+    return L.masked_fill_(info != 0, math.nan)
 
 
 def _dense_cholesky(H):
     """The lower Cholesky factor of the dense ``H`` (:func:`_nan_if_failed`),
-    counted as one of ``dense.factorizations`` of ``dense.dof`` its order."""
-    count("dense.factorizations")
-    count("dense.dof", H.shape[0])
+    counted as one of ``dense.factorizations`` of ``dense.dof`` its order
+    (device counters inside a captured program, ``device_loop.count``)."""
+    count(None, "dense.factorizations")
+    count(None, "dense.dof", H.shape[0])
     return _nan_if_failed(*torch.linalg.cholesky_ex(H))
+
+
+def _cho_solve(L, v):
+    """x with L Lᵀ x = ``v`` (a flat vector) by two triangular solves: the
+    cuSOLVER solve behind ``torch.cholesky_solve`` cannot be captured in a
+    device program's conditional body, the triangular solves can."""
+    y = torch.linalg.solve_triangular(L, v[:, None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
 
 
 def guarded_cg(run, minv, apply, b, tol, iters):
@@ -288,6 +307,13 @@ def _row_blocked_tri_inv(L, blk=1024):
 
 # structure signature and options -> solver (``ParametricSolver.cached``)
 _SOLVER_CACHE = Store("solver_cache", 8, span="solver.build")
+# (structure signature and options, free order) -> dense32 program
+# (``ParametricSolver._dense_program``), kept apart from the solvers
+_DENSE_PROGRAMS = Store("dense_program", 16)
+# A kept dense32 program pins its pool, whose D x D buffers are H and L in
+# f32 (about 8 D^2 bytes over D free dims): at most 64 MiB each (D <= 2,896),
+# so the 16 kept pin at most 1 GiB of them. A larger solve runs solve_host.
+_DENSE_PROGRAM_BYTES = 64 << 20
 
 
 class ParametricSolver:
@@ -359,6 +385,18 @@ class ParametricSolver:
         self._programs = Store("lm_program", 4)
         self.last_program = None
 
+    @staticmethod
+    def key_of(ga: GraphArrays, opts: GNOptions):
+        """What a solver binds to: ``ga``'s structure signature and the
+        options."""
+        return structure_signature(ga), tuple(sorted(vars(opts).items()))
+
+    @functools.cached_property
+    def solver_key(self):
+        """:meth:`key_of` this solver's graph and options (:meth:`cached`
+        sets the one it looked up)."""
+        return self.key_of(self.ga, self.opts)
+
     @classmethod
     def cached(cls, ga: GraphArrays, opts: GNOptions = None):
         """Structure-keyed solver reuse: the same structure signature and
@@ -366,8 +404,14 @@ class ParametricSolver:
         values to :meth:`solve`). At most 8 solvers are kept: a full cache
         is cleared (``_SOLVER_CACHE``)."""
         opts = opts or GNOptions()
-        key = (structure_signature(ga), tuple(sorted(vars(opts).items())))
-        return _SOLVER_CACHE.get(key, lambda: cls(ga, opts))
+        key = cls.key_of(ga, opts)
+
+        def build():
+            solver = cls(ga, opts)
+            solver.solver_key = key
+            return solver
+
+        return _SOLVER_CACHE.get(key, build)
 
     # -- building blocks ---------------------------------------------------------
     def plans(self, rt=None, host=True):
@@ -521,7 +565,7 @@ class ParametricSolver:
         fvec = free_vector(gaW, rt).to(wdt)
 
         def minv(r):
-            y = torch.cholesky_solve((plan.restrict(r.to(F32)) * d)[:, None], L)[:, 0]
+            y = _cho_solve(L, plan.restrict(r.to(F32)) * d)
             return plan.extend((y * d).to(wdt)) * fvec
 
         g = gradient_from_lins(gaW, lins, rt, parts=parts)
@@ -686,14 +730,15 @@ class ParametricSolver:
                 cg_ok, extras)
 
     # -- one LM step (the host-scheduled loop) ------------------------------------
-    def _step_tensors(self, values, lam, rt, pstate=None):
+    def _step_tensors(self, values, lam, rt, pstate=None, run=EAGER):
         """One LM iteration at ``values`` with damping ``lam`` (a 0-dim
         tensor): (trial values, cost0, cost1, gnorm, dnorm, exact, pred,
-        cg_iters) as device tensors. ``pstate`` is updated in place."""
+        cg_iters) as device tensors. ``pstate`` is updated in place; ``run``
+        is the CG polish's control flow."""
         gaW = self._gaW
         lins, parts = self._linearize(values, rt)
         cost0 = self._sumsq(lins)
-        delta, g, exact, extras = self._linear_solve(lins, lam, rt, parts, pstate)
+        delta, g, exact, extras = self._linear_solve(lins, lam, rt, parts, pstate, run=run)
         if pstate is not None and "pstate" in extras:
             pstate.update(extras["pstate"])
         gvec = g if isinstance(g, dict) else unflatten_tangent(gaW, g)
@@ -732,14 +777,16 @@ class ParametricSolver:
         shrink = torch.clamp(lam * o.lam_down, min=o.lam_min)
         return torch.where(~ok | (rho < 0.25), grow, torch.where(rho > 0.7, shrink, lam))
 
-    def _accepted_code(self, gn, dn, exact, cost_prev, c1, lam):
+    def _accepted_code(self, gn, dn, exact, cost_prev, c1, lam, dtol=None):
         """Convergence code of an accepted step (0: go on). ftol/xtol only
         trust an exact (non-truncated) solve; dtol needs lam <= ``lam0``
-        (compared in lam's dtype)."""
+        (compared in lam's dtype). ``dtol``: the solver's own threshold, or
+        a program's input (a float64 tensor; 0 never hits, as dn >= 0)."""
         o = self.opts
+        dtol = self._dtol if dtol is None else dtol
         ftol_hit = torch.abs(cost_prev - c1) <= (
             self._ftol * torch.clamp(torch.abs(cost_prev), min=1.0))
-        dtol_hit = ((dn < self._dtol) & (lam <= o.lam0) if self._dtol > 0
+        dtol_hit = ((dn < dtol) & (lam <= o.lam0) if torch.is_tensor(dtol) or dtol > 0
                     else torch.zeros_like(dn, dtype=torch.bool))
         return torch.where(gn < o.gtol, 1, torch.where(
             exact & (dn < o.xtol), 2, torch.where(
@@ -749,18 +796,19 @@ class ParametricSolver:
         return torch.where(dn < step_floor, 4, torch.where(
             (n_rej >= 8) | (lam >= self.opts.lam_max), 5, 0))
 
-    def _lm_update(self, st, c1, gn, dn, exact, pred, cg, step_floor):
+    def _lm_update(self, st, c1, gn, dn, exact, pred, cg, step_floor, dtol=None):
         """One LM iteration's decisions on the device, from the trial cost
         ``c1``, the gradient and step norms, the solve's exactness, the
         model reduction ``pred`` and its CG iterations: the history row at
         ``st.it``, then ``st`` advanced in place (the JAX loop's body).
-        Returns ``ok``, the accept decision (a 0-dim bool tensor)."""
+        ``dtol`` as :meth:`_accepted_code`'s. Returns ``ok``, the accept
+        decision (a 0-dim bool tensor)."""
         cost0 = st.cost0
         ok = torch.isfinite(c1) & (c1 < cost0)
         rho = (cost0 - c1) / torch.where(pred > 1e-30, pred, 1e-30)
         lam = self._marquardt(st.lam, ok, rho)
         n_rej = torch.where(ok, 0, st.n_rej + 1)
-        code = torch.where(ok, self._accepted_code(gn, dn, exact, st.cost_prev, c1, lam),
+        code = torch.where(ok, self._accepted_code(gn, dn, exact, st.cost_prev, c1, lam, dtol),
                            self._rejected_code(dn, n_rej, lam, step_floor))
         row = torch.stack([cost0, c1, gn, dn, ok.to(F64), lam.to(F64), cg.to(F64)])
         st.hist.index_copy_(0, st.it.reshape(1), row.reshape(1, 7))
@@ -833,10 +881,17 @@ class ParametricSolver:
     def solve(self, values=None, rt=None, eager=False):
         """The LM solve: for ndchol with ``speculative`` the speculative-
         accept loop (the device program; with ``precond_reuse`` its host
-        loop), else :meth:`solve_host`. ``rt`` is the graph's runtime_state;
-        pass the CURRENT graph's when this solver came from :meth:`cached`.
-        ``eager`` runs the program's plain version (each guard read on the
-        host) instead of its captured graphs."""
+        loop); for dense32 on the card the program of its step shape where
+        :meth:`_dense_program` gives one; else :meth:`solve_host`. ``rt`` is
+        the graph's runtime_state; pass the CURRENT graph's when this solver
+        came from :meth:`cached`. ``eager`` runs the program's plain version
+        (each guard read on the host) instead of its captured graphs."""
+        if self.linear == "dense32" and self.ga.device.type == "cuda":
+            rt = self.plans(rt)
+            program = self._dense_program(rt)
+            if program is not None:
+                self.last_program = program
+                return program.solve(values or self.ga.values0, rt, self._dtol, eager)
         if not self._speculative:
             return self.solve_host(values, rt)
         if not self._program_path:
@@ -847,6 +902,19 @@ class ParametricSolver:
         program = self._programs.get(rt["key"], lambda: _LMProgram(self, self.plans(rt)))
         self.last_program = program
         return program.solve(values or self.ga.values0, rt, eager)
+
+    def _dense_program(self, rt):
+        """The kept dense32 program of ``rt``'s step shape: this solver's
+        structure and options and the free order of ``rt``'s dense plan
+        (``plans`` attaches it), made at the shape's first solve in the
+        ``dense_program`` store. None, and no lookup counted, where a
+        capture would not pay or would pin too much: ``rt``'s graph was not
+        padded (its shape need not come again), or its D x D buffers pass
+        ``_DENSE_PROGRAM_BYTES``; :meth:`solve_host` solves those."""
+        dim = rt["dense"].dim
+        if not rt["padded"] or 8 * dim * dim > _DENSE_PROGRAM_BYTES:
+            return None
+        return _DENSE_PROGRAMS.get((self.solver_key, dim), lambda: _DenseProgram(self, rt))
 
     def _solve_speculative(self, values, rt):
         """The speculative-accept loop with ``precond_reuse``, on the host:
@@ -926,7 +994,47 @@ class _LMState:
         return [self.it, self.code, self.n_rej, self.gnorm, self.cost0, self.hist]
 
 
-class _LMProgram:
+class _LMLoop:
+    """What the LM device programs share: the solver, their static inputs
+    (the values in the working dtype, and ``rt``: own copies of the runtime
+    state's params, slots, weights and free masks), the carried values, the
+    loop state (:class:`_LMState`), and a solve's copy-in, run and one read
+    (:meth:`_run`). A subclass makes ``self.program`` from its phases."""
+
+    def __init__(self, solver, rt):
+        ga, gaW = solver.ga, solver._gaW
+        self.solver = solver
+        self.values_in = {t: torch.empty(v.shape, dtype=gaW.dtype, device=ga.device)
+                          for t, v in ga.values0.items()}
+        self.values = {t: torch.empty_like(v) for t, v in self.values_in.items()}
+        self.rt = {
+            "params": tuple({k: v.clone() for k, v in p.items()} for p in rt["params"]),
+            "vslots": tuple(v.clone() for v in rt["vslots"]),
+            "weight": tuple(w.clone() for w in rt["weight"]),
+            "free": {t: f.clone() for t, f in rt["free"].items()},
+        }
+        self.st = _LMState(solver)
+
+    def _run(self, values, rt, eager, extra=()):
+        """Copy ``values`` and ``rt``'s data in, run the program (its plain
+        version with ``eager``), make its one read. Returns (a copy of the
+        values, the read: the loop state's, then ``extra``'s)."""
+        own = self.rt
+        for t, v in self.values_in.items():
+            v.copy_(values[t])
+        for d, s_ in zip(own["vslots"] + own["weight"], rt["vslots"] + rt["weight"]):
+            d.copy_(s_)
+        for d, s_ in zip(own["params"], rt["params"]):
+            for k, v in d.items():
+                v.copy_(s_[k])
+        for t, f in own["free"].items():
+            f.copy_(rt["free"][t])
+        self.program.run(eager=eager)
+        host = self.program.read(self.st.read_list() + list(extra))
+        return {t: v.clone() for t, v in self.values.items()}, host
+
+
+class _LMProgram(_LMLoop):
     """The speculative ndchol LM solve of one connectivity as a device
     program (``utils/device_loop.Program``), the JAX package's jitted fused
     loop (rome_tpu/solvers/gauss_newton.py ``_make_solve_loop``).
@@ -945,22 +1053,12 @@ class _LMProgram:
     on the accept decision), as the JAX loop selects its carry."""
 
     def __init__(self, solver, rt):
+        super().__init__(solver, rt)
         ga, gaW = solver.ga, solver._gaW
-        self.solver = solver
-        self.values_in = {t: torch.empty(v.shape, dtype=gaW.dtype, device=ga.device)
-                          for t, v in ga.values0.items()}
-        self.values = {t: torch.empty_like(v) for t, v in self.values_in.items()}
-        # rt's connectivity key and plans, and its own copies of the data
-        self.rt = {
-            **rt,
-            "params": tuple({k: v.clone() for k, v in p.items()} for p in rt["params"]),
-            "vslots": tuple(v.clone() for v in rt["vslots"]),
-            "weight": tuple(w.clone() for w in rt["weight"]),
-            "free": {t: f.clone() for t, f in rt["free"].items()},
-        }
+        # rt's connectivity key and plans beside the copies of its data
+        self.rt = {**rt, **self.rt}
         self.ws = NormalEqWorkspace(gaW) if solver._mixed_j else None
         self.carried = self.parts = None
-        self.st = _LMState(solver)
         self.step_floor = 1e-4 if gaW.dtype == F32 else 1e-9
         self.chordal = self.chordal_start = None
         if solver.fuses_chordal:
@@ -1031,19 +1129,72 @@ class _LMProgram:
     def solve(self, values, rt, eager=False):
         """Copy ``values`` and ``rt`` in, run the program (its plain version
         with ``eager``), make its one read. Returns (values, SolveStats)."""
-        for t, v in self.values_in.items():
-            v.copy_(values[t])
-        for dst, src in ((self.rt["vslots"], rt["vslots"]), (self.rt["weight"], rt["weight"])):
-            for d, s_ in zip(dst, src):
-                d.copy_(s_)
-        for d, s_ in zip(self.rt["params"], rt["params"]):
-            for k, v in d.items():
-                v.copy_(s_[k])
-        for t, f in self.rt["free"].items():
-            f.copy_(rt["free"][t])
-        self.program.run(eager=eager)
-        host = self.program.read(self.st.read_list())
-        return {t: v.clone() for t, v in self.values.items()}, self.solver._stats(host)
+        values, host = self._run(values, rt, eager)
+        return values, self.solver._stats(host)
+
+
+class _DenseProgram(_LMLoop):
+    """The dense32 LM solve of one step shape as a device program
+    (``utils/device_loop.Program``), the JAX package's non-speculative
+    jitted loop (rome_tpu/solvers/gauss_newton.py ``_make_solve_loop``):
+    :meth:`ParametricSolver.solve_host`'s iteration, its code, with the
+    accept and the stop decided on the device.
+
+    Kept by the solver's structure signature and options and the free
+    order (``ParametricSolver._dense_program``), not by connectivity: a
+    fixed-lag step's connectivity changes at every step, its shape does not.
+    Every tensor it reads has a shape that key fixes. Static inputs, which
+    each solve copies in: the values (in the working dtype), the runtime
+    state's params, slots, weights and free masks, the connectivity's dense
+    and tangent-sum plans in their fixed-length forms
+    (``DenseScatter.fixed``, ``TangentScatter.fixed``) and the solver's
+    dtol threshold (``_dtol`` follows the graph's edge lengths). Phases:
+    ``_start`` (the values in, the loop state reset) once, ``_iterate``
+    (one LM iteration guarded by ``running``; an accepted step's values
+    copied in by ``torch.where``) ``max_iters`` times, ``_finish`` (the
+    final cost in the graph dtype, as ``solve_host``'s) once; then one
+    read."""
+
+    def __init__(self, solver, rt):
+        super().__init__(solver, rt)
+        ga = solver.ga
+        self.rt.update(dense=rt["dense"].fixed(), scatter=rt["scatter"].fixed(ga))
+        self.dtol = torch.zeros((), dtype=F64, device=ga.device)
+        self.cost = torch.zeros((), dtype=ga.dtype, device=ga.device)
+        self.step_floor = 1e-4 if ga.dtype == F32 else 1e-9
+        self.program = Program(ga.device, [(self._start, 1),
+                                           (self._iterate, int(solver.opts.max_iters)),
+                                           (self._finish, 1)], name="lm_dense32")
+
+    def _start(self, run):
+        for t, v in self.values.items():
+            v.copy_(self.values_in[t])
+        self.st.reset()
+
+    def _iterate(self, run):
+        run.cond(self.st.running, lambda: self._step(run))
+
+    def _step(self, run):
+        s, st = self.solver, self.st
+        trial, c0, c1, gn, dn, exact, pred, cg = s._step_tensors(self.values, st.lam, self.rt,
+                                                                 run=run)
+        st.cost0.copy_(c0)
+        ok = s._lm_update(st, c1, gn, dn, exact, pred, cg, self.step_floor, self.dtol)
+        for t, v in self.values.items():
+            v.copy_(torch.where(ok, trial[t], v))
+
+    def _finish(self, run):
+        self.cost.copy_(cost_at(self.solver.ga, self.values, self.rt))
+
+    def solve(self, values, rt, dtol, eager=False):
+        """Copy ``values``, ``rt`` (with its dense and tangent plans) and
+        ``dtol`` in, run the program (its plain version with ``eager``),
+        make its one read. Returns (values, SolveStats)."""
+        self.rt["dense"].load(rt["dense"])
+        self.rt["scatter"].load(rt["scatter"])
+        self.dtol.fill_(dtol)
+        values, host = self._run(values, rt, eager, [self.cost])
+        return values, self.solver._stats(host[:-1], final_cost=host[-1])
 
 
 # --------------------------- covariance recovery ---------------------------

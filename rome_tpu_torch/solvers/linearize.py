@@ -18,6 +18,7 @@ gradient functions below take those instead of recomputing them.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,15 +27,17 @@ from torch.func import jacfwd, vmap
 
 from rome_tpu_torch.graph.lower import FactorBatch, GraphArrays, slots_of
 from rome_tpu_torch.ops.linearize_cuda import FUSED_LINEARIZE, FUSED_NORMAL
-from rome_tpu_torch.ops.segment_sum import SegmentPlan
+from rome_tpu_torch.ops.segment_sum import FixedSegmentPlan, SegmentPlan
 from rome_tpu_torch.utils.math import einsum, matvec
 
 
 def runtime_state(ga: GraphArrays):
     """The value half of a lowered graph: params, slots, weights, free masks,
-    and the connectivity key of the slots (``GraphArrays.key``)."""
+    the connectivity key of the slots (``GraphArrays.key``) and whether the
+    graph was padded to its shape buckets (``GraphArrays.padded``)."""
     return {
         "key": ga.key,
+        "padded": ga.padded,
         "params": tuple(dict(b.params) for b in ga.batches),
         "vslots": tuple(b.vslots for b in ga.batches),
         "weight": tuple(b.weight.to(ga.dtype) for b in ga.batches),
@@ -234,13 +237,17 @@ class TangentScatter:
     summed by batch, then slot, then the contributing factor's variable
     slots: the order follows the graph's structure, not its batches' row
     order (only factors on the same variables in the same batch keep their
-    row order). Made once per connectivity."""
+    row order). Made once per connectivity; :meth:`fixed` gives its copy
+    with sums of fixed length, which :meth:`load` refills with the plan of
+    another connectivity of the same structure."""
 
     def __init__(self, type_names, specs, device):
         """``specs``: per batch, (vtypes, vslots as an (n, arity) numpy
         array)."""
         width = max((vs.shape[1] for _vt, vs in specs), default=0)
         self.parts, self.plans = {}, {}
+        # rows past a type's last variable: a fixed plan's dump row
+        self.dump = 0
         for t in type_names:
             parts = [(i, k) for i, (vt, _vs) in enumerate(specs)
                      for k, tk in enumerate(vt) if tk == t]
@@ -264,19 +271,35 @@ class TangentScatter:
         specs = [(bk[1], slots_of(bk)) for bk in key[2]]
         return cls(ga.type_names, specs, ga.device)
 
+    def fixed(self, ga: GraphArrays):
+        """This plan's sums as ``FixedSegmentPlan``s, each type's dump row
+        one past its last variable."""
+        out = copy.copy(self)
+        out.plans = {t: FixedSegmentPlan(p, ga.counts[t]) for t, p in self.plans.items()}
+        out.dump = 1
+        return out
+
+    def load(self, plan):
+        """A fixed plan's sums := ``plan``'s (same structure)."""
+        if plan.parts != self.parts:
+            raise ValueError("a tangent plan of another structure")
+        for t, p in self.plans.items():
+            p.load(plan.plans[t])
+        return self
+
     def sum(self, ga: GraphArrays, contribs, block=False, dtype=None):
         """``contribs[i][k]``: batch i's (n, dof) contributions at slot k,
         (n, dof, dof) with ``block``. Returns type -> (count, dof) sums, or
         (count, dof, dof), in ``dtype`` (default ``ga.dtype``)."""
         out = {}
         for t in ga.type_names:
-            d = ga.manifolds[t].dof
-            o = torch.zeros((ga.counts[t], d, d) if block else (ga.counts[t], d),
+            d, n = ga.manifolds[t].dof, ga.counts[t]
+            o = torch.zeros((n + self.dump, d, d) if block else (n + self.dump, d),
                             dtype=dtype or ga.dtype, device=ga.device)
             if self.parts[t]:
                 self.plans[t].add_(o, torch.cat([contribs[i][k].to(o.dtype)
                                                  for i, k in self.parts[t]]))
-            out[t] = o
+            out[t] = o[:n]
         return out
 
 
@@ -399,7 +422,13 @@ class DenseScatter:
     ``sum`` gives the D_free x D_free system without them and ``free_idx``
     holds the free dims' global offsets. A free destination's contributions
     and their order are those of the plan over every dim, so its sum is the
-    same number."""
+    same number.
+
+    :meth:`fixed` gives the plan over the free dims as a copy whose sums
+    have fixed length (``FixedSegmentPlan``, their empty runs into the
+    dump), which :meth:`load` refills with another connectivity's plan of
+    the same order on the device: a device program's plan. A plan over
+    every dim becomes the plan over its free dims with every dim free."""
 
     def __init__(self, offs, vslots, size):
         """``offs``: per batch, per slot, the (n, dof) scalar offsets of the
@@ -420,7 +449,8 @@ class DenseScatter:
                 for ol in os_:
                     h_dst.append((ok[:, :, None] * size + ol[:, None, :]).reshape(-1))
                     h_key.append(key.repeat_interleave(ok.shape[1] * ol.shape[1], dim=0))
-        self.size = size
+        # the global tangent's length (``of`` sets it on a free-dims plan)
+        self.size = self.total = size
         self.h = SegmentPlan(torch.cat(h_dst), keys=(torch.cat(h_key),), device=dev)
         self.g = SegmentPlan(torch.cat(g_dst), keys=(torch.cat(g_key),), device=dev)
 
@@ -448,6 +478,41 @@ class DenseScatter:
         plan = cls(offs, list(vslots), idx.size + 1)
         plan.free_idx, plan.total = torch.as_tensor(idx, device=dev), D
         return plan
+
+    def _sums(self, size):
+        """(h, g) with H ``size`` x ``size``: a plan over every dim
+        renumbered for one more row and column, the dump (row * D + col ->
+        row * (D + 1) + col: the same runs in the same order)."""
+        if size == self.size:
+            return self.h, self.g
+        h = copy.copy(self.h)
+        h.dst = self.h.dst + self.h.dst // self.size
+        return h, self.g
+
+    def fixed(self):
+        """This plan over its free dims with fixed-length sums, its dump row
+        and column their empty runs' destination."""
+        out = copy.copy(self)
+        out.size = self.dim + 1
+        h, g = self._sums(out.size)
+        out.h = FixedSegmentPlan(h, out.size * out.size - 1)
+        out.g = FixedSegmentPlan(g, out.size - 1)
+        out.free_idx = torch.empty(self.dim, dtype=torch.int64, device=self.h.src.device)
+        return out.load(self)
+
+    def load(self, plan):
+        """A fixed plan's sums and free dims := ``plan``'s (the same order
+        and tangent length)."""
+        if (plan.dim, plan.total) != (self.dim, self.total):
+            raise ValueError("a dense plan of another order")
+        h, g = plan._sums(self.size)
+        self.h.load(h)
+        self.g.load(g)
+        if plan.free_idx is None:
+            torch.arange(self.total, out=self.free_idx)
+        else:
+            self.free_idx.copy_(plan.free_idx)
+        return self
 
     @property
     def dim(self):

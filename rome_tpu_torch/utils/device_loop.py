@@ -28,10 +28,11 @@ version, the same phase functions run eagerly through :data:`EAGER`, which
 reads each guard on the host. Both give the same arithmetic: the bodies are
 the same code and only the runner differs.
 
-Kernel launch counts (:func:`count`) made while a program is captured become
-device counters in the graph, beside the launch they count; the program
-adds them to the host counts at its one final read (:meth:`Program.read`).
-The warm-up's launches are real and count on the host at once.
+Kernel launch counts and profiling counters (:func:`count`) made while a
+program is captured become device counters in the graph, beside the work
+they count; the program adds them to the host counts at its one final read
+(:meth:`Program.read`). The warm-up's work is real and counts on the host
+at once.
 
 Device phases (``run.span(name)``): with recording on
 (``utils/profiling.enable``), a phase's begin and end are stamped by
@@ -110,18 +111,22 @@ def _stream(device, depth):
     return _STREAMS[key]
 
 
-def count(counts: dict, key):
-    """One kernel launch for ``counts[key]``: on the host now, or, while a
-    program is captured, as a device counter that the graph adds to where
-    the launch is, read at the program's final read."""
+def count(counts, key, n: int = 1):
+    """``n`` more for ``counts[key]``, a kernel launch count (``counts``
+    None: the profiling counter ``key``, ``utils/profiling.count``): on the
+    host now, or, while a program is captured, as a device counter that the
+    graph adds to where the count is, read at the program's final read."""
     program = getattr(_CAPTURE, "program", None)
     if program is not None:
-        program._counter(counts, key).add_(1)
+        program._counter(counts, key).add_(n)
         return
-    counts[key] += 1
+    if counts is None:
+        profiling.count(key, n)
+        return
+    counts[key] += n
     warmup = getattr(_CAPTURE, "warmup", None)
     if warmup is not None:
-        warmup[key] = warmup.get(key, 0) + 1
+        warmup[key] = warmup.get(key, 0) + n
 
 
 def clock_offset(device=None):
@@ -457,7 +462,10 @@ class Program:
         buf = host[-len(self._buf):].view(np.int64)
         host = host[:-len(self._buf)]
         for (counts, key), v in zip(self._slots[:n], buf):
-            counts[key] += int(v)
+            if counts is None:
+                profiling.count(key, int(v))
+            else:
+                counts[key] += int(v)
         if stamped:
             rows = buf[_MAX_COUNTERS:].reshape(_MAX_PHASES + 1, 3)
             begin, ns, _calls = (int(v) for v in rows[_MAX_PHASES])

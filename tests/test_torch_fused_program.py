@@ -191,7 +191,10 @@ CAPTURED = {
         "ParametricSolver._solve_ndchol", "ParametricSolver._marquardt",
         "ParametricSolver._accepted_code", "ParametricSolver._rejected_code",
         "ParametricSolver._lm_update", "_LMState.reset", "_LMProgram._start",
-        "_LMProgram._carry", "_LMProgram._iterate", "_LMProgram._step"],
+        "_LMProgram._carry", "_LMProgram._iterate", "_LMProgram._step",
+        "_nan_if_failed", "_dense_cholesky", "_cho_solve", "ParametricSolver._solve_dense32",
+        "ParametricSolver._step_tensors", "_DenseProgram._start", "_DenseProgram._iterate",
+        "_DenseProgram._step", "_DenseProgram._finish"],
     "solvers/init2d.py": [
         "_rdot", "_solve_spd_delta", "_ndchol_spd_delta", "_rot_terms",
         "_rot_rows", "_tr_terms", "_edge_info", "_tr_rows", "_rot_entries", "_tr_entries",
@@ -201,10 +204,11 @@ CAPTURED = {
         "batch_linearize", "linearize_all", "linearize_all_mixed_j", "NormalEqWorkspace.normal",
         "_free_of", "TangentScatter.sum", "tangent_scatter", "gradient_from_lins",
         "hvp_from_lins", "flatten_tangent", "unflatten_tangent", "free_vector", "_entry_blocks",
-        "normal_eq_entry_values"],
+        "normal_eq_entry_values", "cost_at", "DenseScatter.terms", "DenseScatter.sum",
+        "DenseScatter.restrict", "DenseScatter.extend", "dense_normal_eqs"],
     "solvers/sparse/ndchol.py": [
         "ndchol_assemble", "_chol_or_nan", "_tri_inv", "ndchol_factorize", "ndchol_solve"],
-    "ops/segment_sum.py": ["SegmentPlan.add_"],
+    "ops/segment_sum.py": ["SegmentPlan.add_", "FixedSegmentPlan.add_"],
     "ops/linearize_cuda.py": ["_launch", "pose2pose2_linearize", "Pose2Pose2Normal.__call__"],
     "ops/fused_linearize.py": ["pose2pose2_linearize_plain", "pose2pose2_normal_plain"],
     "solvers/multimodal/convolve.py": ["_gn_solve_target", "_conv", "_GNProgram._body"],

@@ -251,6 +251,8 @@ def test_blocked_factorization_matches_jax():
 
 @pytest.mark.parametrize("linear", ["ndchol", "dense32"])
 def test_cached_solver_serves_another_graph(linear):
+    # the store clears whole when full: start it empty, whatever ran before
+    GN._SOLVER_CACHE.clear()
     opts = T.GNOptions(linear=linear, **NDCHOL_OPTS)
     ga_a = lower(grid_graph(T, 6, 6, seed=3), device="cpu")
     solver = ParametricSolver.cached(ga_a, opts)
