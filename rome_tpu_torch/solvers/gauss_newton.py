@@ -1117,7 +1117,11 @@ class _LMProgram(_LMLoop):
         delta, g, exact, extras = s._linear_solve(lins, st.lam, rt, self.parts, None, run=run)
         with run.span("lm.linearize"):
             trial = s._boxplus_all(self.values, delta, rt)
-            lins_t, parts_t = s._linearize(trial, rt, self.ws)
+            # every batch linearized at the trial point, whatever kernel or
+            # generic path serves it; nested in lm.linearize, which keeps the
+            # retraction too
+            with run.span("lm.trial_linearize"):
+                lins_t, parts_t = s._linearize(trial, rt, self.ws)
         with run.span("lm.update"):
             ok = s._lm_update(st, s._sumsq(lins_t), torch.sqrt(_tdot(g, g)).to(F64),
                               torch.sqrt(_tdot(delta, delta)).to(F64), exact,

@@ -39,7 +39,9 @@ Device phases (``run.span(name)``): with recording on
 one-thread kernels that read the card's ``%globaltimer`` (``rome_stamp``),
 captured as graph nodes inside the conditional bodies, so a skipped
 iteration stamps nothing; each end adds the phase's nanoseconds and one call
-to its slot in a device buffer beside the counters. ``run`` stamps the
+to its slot in a device buffer beside the counters. Phases may nest: each
+stamps its own slot, so an inner phase's time is counted in its outer
+phase's as well. ``run`` stamps the
 program's first replay's start and its last replay's end outside the
 graphs. The read appends the slots to its one device-to-host read and
 notes them on the open root span (``device_ns`` and ``calls`` per phase,
